@@ -11,16 +11,27 @@ check does not hold:
 2. hold every kernel against its plain PyTorch version on the card: the
    assignment kernel at the engine shape and at the kernel-test shapes
    (idx/admit/pos exact, gate rtol 1e-5 atol 1e-6), the segment sum at the
-   engine shape (exact against the plain version's row-order sums);
-   time both at the engine shape with CUDA events;
-3. drive the main path at WLCG scale: ``simulate`` on 300 sites and 100000
+   engine shape (exact against the plain version's row-order sums), the
+   fused candidate-set assignment at the sparse engine shape (N=100000,
+   K=16, E=300) and at the kernel-test shapes (site/admit exact); time each
+   at its engine shape with CUDA events;
+3. drive the dense path at WLCG scale: ``simulate`` on 300 sites and 100000
    jobs with ``panda_dispatch`` plus capacity dispatch, twice, with the
    launch counters set to 0 just before the first run; require every round
    with work to launch the assignment kernel once, and the two runs to agree
    bit for bit; print rounds/s and the assignment kernel's share of it;
-4. drain a 50-site, 5000-job scenario with failures to the end on the card
+4. drive the sparse top-k path at the same scale: ``data_locality`` with the
+   fused capacity assigner and ``topk=16``, twice, counters set to 0 just
+   before the first run; require every round with work to launch the fused
+   kernel once and never call its plain version, and the two runs to agree
+   bit for bit; print rounds/s (and the same policy's dense rate), the
+   candidate build's seconds and the fused kernel's time per launch;
+5. drain a 50-site, 5000-job scenario with failures to the end on the card
    and on the CPU, and require the same rounds, makespan, per-job outcomes
-   and site counters.
+   and site counters;
+6. on the same scenario, cut to its first SPARSE_DRAIN_ROUNDS rounds: the
+   fused sparse path at ``topk=S`` must equal the dense capacity dispatch on
+   the card, and ``topk=8`` on the card must equal ``topk=8`` on the CPU.
 
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
@@ -42,7 +53,9 @@ PEAK_HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 PEAK_FP32_OPS_PER_S = 67e12      # H100 SXM, non-tensor-core float32
 
 ENGINE_J, ENGINE_S = 100_000, 300
+ENGINE_K = 16                  # bench_wlcg_scale.py's top-k
 FULL_MAX_ROUNDS = 2000
+SPARSE_DRAIN_ROUNDS = 1000     # depth cut of phase 6 (the drain takes 10103)
 ASSIGN_CASES = [  # (N, E, k, block_n)
     (ENGINE_J, ENGINE_S, 1, 256),   # the engine shape
     (64, 8, 1, 32),
@@ -79,6 +92,29 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         marks.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+
+def device_ms(fn, kernel_names, iters: int) -> dict:
+    """Device milliseconds per call of ``fn`` for each named kernel, from
+    ``torch.profiler`` over ``iters`` calls: the kernels' own time, without
+    the host time between launches that CUDA events around a short call
+    would include."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in kernel_names}
+    for e in prof.key_averages():
+        for name in kernel_names:
+            if name in e.key:
+                out[name] += e.self_device_time_total / 1e3 / iters
+    check(all(v > 0 for v in out.values()), f"the profiler saw no device time for {out}")
+    return out
 
 
 def phase_build() -> None:
@@ -185,6 +221,79 @@ def phase_kernels(device) -> dict:
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
     )
     return rows
+
+
+def fused_inputs(N, E, K, seed, device, sentinel_rows: bool = False):
+    """Candidate rows of sorted distinct site ids, each with a random number
+    of sentinel (``E``) pads; integral sizes; caps scaled as in
+    ``assign_inputs``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    scores = rng.normal(size=(N, K)).astype(np.float32)
+    cand = np.argsort(rng.random((N, E)), axis=1)[:, :K]
+    filled = rng.integers(0, K + 1, N)
+    cand = np.where(np.arange(K)[None, :] < filled[:, None], cand, E)
+    if sentinel_rows:
+        cand[rng.random(N) < 0.5] = E
+    cand = np.sort(cand, axis=1).astype(np.int32)
+    engine = N == ENGINE_J
+    sizes = rng.choice([1.0, 8.0] if engine else [1.0, 2.0, 8.0], size=N)
+    caps = rng.uniform(2, 40, size=E) * (N / E if engine else 1.0)
+    return (torch.from_numpy(scores).to(device), torch.from_numpy(cand).to(device),
+            torch.from_numpy(sizes.astype(np.float32)).to(device),
+            torch.from_numpy(caps.astype(np.float32)).to(device))
+
+
+FUSED_CASES = [  # (N, E, K, block_n, seed, sentinel_rows)
+    (ENGINE_J, ENGINE_S, ENGINE_K, 256, 0, False),  # the engine shape
+    *[(97, 7, 4, 32, seed, False) for seed in range(5)],
+    (97, 7, 4, 32, 5, True),                        # half the rows all-sentinel
+    (1000, 300, 48, 256, 6, False),                 # K above a warp
+    (2048, 50, 50, 256, 7, False),                  # topk = S at the drain's S
+]
+
+
+def phase_fused_kernel(device) -> dict:
+    import torch
+
+    from repro_torch.kernels.assign.fused_cuda import fused_assign_cuda
+    from repro_torch.kernels.assign.fused_ref import fused_assign_ref
+
+    for N, E, K, bn, seed, sentinel_rows in FUSED_CASES:
+        args = fused_inputs(N, E, K, seed, device, sentinel_rows)
+        want = fused_assign_ref(*args, block_n=bn)
+        got = fused_assign_cuda(*args)
+        torch.cuda.synchronize()
+        for name, w, g in zip(("site", "admit"), want, got):
+            bad = int((w != g).sum())
+            check(bad == 0, f"fused N={N} E={E} K={K} seed={seed}: {bad} {name} entries differ")
+        print(f"[kernels] fused N={N} E={E} K={K} block_n={bn} seed={seed}"
+              f"{' sentinel rows' if sentinel_rows else ''}: site/admit exact, "
+              f"picked={int((got[0] >= 0).sum())}, admitted={int(got[1].sum())}")
+
+    N, E, K = ENGINE_J, ENGINE_S, ENGINE_K
+    args = fused_inputs(N, E, K, 0, device)
+    call_ms = cuda_ms(lambda: fused_assign_cuda(*args), iters=200)
+    parts = device_ms(lambda: fused_assign_cuda(*args),
+                      ("fused_tile_kernel", "fused_scan_kernel", "fused_admit_kernel"), iters=200)
+    ms = sum(parts.values())
+    plain_ms = cuda_ms(lambda: fused_assign_ref(*args), iters=5)
+    bytes_moved = N * K * (4 + 4) + N * 4 + E * 4 + N * (4 + 1)
+    ops = N * K * 3          # validity test, select, compare per slot
+    bound_ms = max(bytes_moved / PEAK_HBM_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S) * 1e3
+    print(f"[kernels] fused at the engine shape N={N} K={K} E={E}: kernel {ms:.4f} ms of device "
+          f"time ({', '.join(f'{k} {v:.4f}' for k, v in parts.items())}; {call_ms:.4f} ms a call "
+          f"between CUDA events, host launch time included), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms (bytes, {bytes_moved} B), "
+          "library: no single PyTorch call computes this function")
+    return dict(
+        name="fused_assign", route="cuda",
+        source="src/repro_torch/kernels/assign/csrc/fused.cu",
+        replaces="src/repro/kernels/assign/fused.py:38", launches=None, max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+    )
 
 
 def snapshot(res) -> dict:
@@ -303,9 +412,131 @@ def phase_full_width(device, max_rounds: int) -> dict:
     return launches
 
 
-def profile_rounds(run) -> None:
+def phase_sparse_full_width(device, max_rounds: int) -> dict:
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core.rng import fold_in
+    from repro_torch.core.sparse import CAND_SALT
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import fused_cuda as fused_mod
+    from repro_torch.kernels.assign import make_capacity_assign, make_fused_capacity_assign
+    from repro_torch.kernels.assign import ops as assign_ops
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    sites = T.atlas_like_platform(ENGINE_S, seed=1, device=device)
+    jobs = T.synthetic_panda_jobs(ENGINE_J, seed=0, duration=6 * 3600.0, device=device)
+    work_rounds = [0]
+    fused_assign = make_fused_capacity_assign(jobs.cores)
+
+    def counted_assign(*args):
+        work_rounds[0] += 1          # assign_cand runs once per round with work
+        return fused_assign(*args)
+
+    policy = T.with_fused_assign(T.get_policy("data_locality"), counted_assign)
+    key = T.PRNGKey(0)
+
+    def no_plain_version(*args, **kw):
+        raise SmokeFailure("the sparse path called a plain assignment version on the card")
+
+    plain = assign_ops.fused_assign_ref, assign_ops.assign_ref
+    assign_ops.fused_assign_ref = assign_ops.assign_ref = no_plain_version
+    try:
+        fused_mod.launches = 0
+        assign_mod.launches = 0
+        segsum_mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = T.simulate(jobs, sites, policy, key, max_rounds=max_rounds, topk=ENGINE_K,
+                         device=device)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+    finally:
+        assign_ops.fused_assign_ref, assign_ops.assign_ref = plain
+    launches = {"fused_assign": fused_mod.launches, "assign": assign_mod.launches,
+                "segment_sum": segsum_mod.launches}
+    rounds_with_work = work_rounds[0]
+    print(f"[sparse] S={ENGINE_S} J={ENGINE_J} topk={ENGINE_K} rounds={res.rounds} "
+          f"rounds_with_work={rounds_with_work} launches={json.dumps(launches)} "
+          f"wall={wall1:.3f}s")
+    check(launches["fused_assign"] > 0, "the sparse path never launched the fused kernel")
+    check(launches["fused_assign"] == rounds_with_work,
+          f"fused launches {launches['fused_assign']} != rounds with work {rounds_with_work}")
+    check(launches["assign"] == 0, "the sparse path launched the dense assign kernel")
+    check(launches["segment_sum"] > 0, "the sparse path never launched the segment_sum kernel")
+    check_invariants(res, "sparse")
+    snap1 = snapshot(res)
+
+    # the candidate build that init paid, alone
+    clock0 = torch.zeros((), dtype=torch.float32, device=device)
+    cand_key = fold_in(key, CAND_SALT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cand = T.build_candidates(jobs, sites, policy, (), clock0, cand_key, {}, ENGINE_K)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    full_rows = float((cand < ENGINE_S).all(-1).float().mean())
+    print(f"[sparse] candidate build at init: {build_s:.4f} s for i32[{ENGINE_J}, {ENGINE_K}] "
+          f"({100 * full_rows:.1f}% of rows hold {ENGINE_K} feasible sites)")
+
+    # second run: determinism, and the fused kernel's device time per launch
+    timings = []
+    real_fused = assign_ops.fused_assign_cuda
+
+    def timed_fused(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_fused(*args, **kw)
+        end.record()
+        timings.append((start, end))
+        return out
+
+    assign_ops.fused_assign_cuda = timed_fused
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res2 = T.simulate(jobs, sites, policy, key, max_rounds=max_rounds, topk=ENGINE_K,
+                          device=device)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    finally:
+        assign_ops.fused_assign_cuda = real_fused
+    bad = mismatches(snap1, snapshot(res2))
+    check(not bad, f"two sparse runs on the card differ: {bad}")
+    kernel_s = sum(s.elapsed_time(e) for s, e in timings) / 1e3
+    print(f"[sparse] second run bit-identical; rounds/s first={res.rounds / wall1:.2f} "
+          f"second={res2.rounds / wall2:.2f}; fused kernel {len(timings)} launches, "
+          f"{kernel_s * 1e3:.3f} ms device time = {100 * kernel_s / wall2:.2f}% of the run's "
+          f"wall time ({1e3 * kernel_s / max(len(timings), 1):.4f} ms/launch)")
+    print(f"[sparse] {T.summary_str(T.compute_metrics(res))}")
+
+    # the same policy and depth through the dense path, for the rate
+    dense_policy = T.with_capacity_assign(T.get_policy("data_locality"),
+                                          make_capacity_assign(jobs.cores))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_d = T.simulate(jobs, sites, dense_policy, key, max_rounds=max_rounds, device=device)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    check_invariants(res_d, "sparse-vs-dense")
+    first = {}
+    for label, pol, k in (("sparse", policy, ENGINE_K), ("dense", dense_policy, None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.simulate(jobs, sites, pol, key, max_rounds=100, topk=k, device=device)
+        torch.cuda.synchronize()
+        first[label] = 100 / (time.perf_counter() - t0)
+    print(f"[sparse] the same policy dense (capacity dispatch): rounds/s={res_d.rounds / wall_d:.2f}"
+          f" over {res_d.rounds} rounds; first 100 rounds: sparse {first['sparse']:.2f}, "
+          f"dense {first['dense']:.2f} rounds/s")
+    profile_rounds(lambda: T.simulate(jobs, sites, policy, key, max_rounds=100, topk=ENGINE_K,
+                                      device=device), "sparse")
+    return launches
+
+
+def profile_rounds(run, label: str = "profile") -> None:
     """Device busy share and the kernels that take the most device time over
-    the first 100 rounds of the full-width run (``torch.profiler``)."""
+    the first 100 rounds of a full-width run (``torch.profiler``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -320,13 +551,13 @@ def profile_rounds(run) -> None:
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if device_ms == 0.0:
-        print("[profile] the profiler saw no device time: busy share not measured")
+        print(f"[{label}] the profiler saw no device time: busy share not measured")
         return
-    print(f"[profile] 100 rounds: wall {wall_ms:.1f} ms (profiled), device busy "
+    print(f"[{label}] 100 rounds: wall {wall_ms:.1f} ms (profiled), device busy "
           f"{device_ms:.1f} ms = {100 * device_ms / wall_ms:.1f}%, idle "
           f"{100 - 100 * device_ms / wall_ms:.1f}%, {sum(e.count for e in kernels)} kernels")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+        print(f"[{label}]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
 def phase_drain(device) -> None:
@@ -365,6 +596,56 @@ def phase_drain(device) -> None:
     check(not bad, "the card's drain differs from the CPU's")
 
 
+def phase_sparse_drain(device, max_rounds: int) -> None:
+    """The drain scenario cut to ``max_rounds``: the fused sparse path at
+    ``topk=S`` against the dense capacity dispatch on the card, and ``topk=8``
+    on the card against the CPU."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.kernels.assign import make_capacity_assign, make_fused_capacity_assign
+
+    def scenario(dev):
+        sites = T.atlas_like_platform(50, seed=1, fail_rate=0.02, device=dev)
+        jobs = T.synthetic_panda_jobs(5000, seed=0, device=dev)
+        return jobs, sites
+
+    def run(dev, label, dense=False, topk=None):
+        jobs, sites = scenario(dev)
+        base = T.get_policy("panda_dispatch")
+        policy = (T.with_capacity_assign(base, make_capacity_assign(jobs.cores)) if dense
+                  else T.with_fused_assign(base, make_fused_capacity_assign(jobs.cores)))
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1 if dev.type == "cpu" else threads)
+        t0 = time.perf_counter()
+        try:
+            res = T.simulate(jobs, sites, policy, T.PRNGKey(0), max_rounds=max_rounds,
+                             topk=topk, device=dev)
+        finally:
+            torch.set_num_threads(threads)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_invariants(res, f"sparse-drain {label}")
+        print(f"[sparse-drain] {label}: rounds={res.rounds} makespan={float(res.makespan)!r} "
+              f"retries={int(res.jobs.retries.sum())} n_failed={int(res.sites.n_failed.sum())} "
+              f"wall={wall:.2f}s ({res.rounds / wall:.1f} rounds/s)")
+        return snapshot(res)
+
+    cpu = torch.device("cpu")
+    dense = run(device, "card dense capacity", dense=True)
+    full = run(device, "card fused topk=S", topk=50)
+    bad = mismatches(dense, full)
+    print(f"[sparse-drain] topk=S vs dense mismatch counts: {json.dumps(bad)}")
+    check(not bad, "topk=S with the fused assigner differs from the dense capacity dispatch")
+    card8 = run(device, "card fused topk=8", topk=8)
+    cpu8 = run(cpu, "cpu fused topk=8", topk=8)
+    bad = mismatches(card8, cpu8)
+    print(f"[sparse-drain] topk=8 card vs CPU mismatch counts: {json.dumps(bad)}")
+    check(not bad, "topk=8 on the card differs from the CPU")
+    check(mismatches(card8, full), "topk=8 gave the topk=S run: the cut did not bind")
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -390,10 +671,13 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     rows = phase_kernels(device)
+    rows["fused_assign"] = phase_fused_kernel(device)
     launches = phase_full_width(device, FULL_MAX_ROUNDS)
+    sparse_launches = phase_sparse_full_width(device, FULL_MAX_ROUNDS)
     phase_drain(device)
+    phase_sparse_drain(device, SPARSE_DRAIN_ROUNDS)
     for name, row in rows.items():
-        row["launches"] = launches[name]
+        row["launches"] = sparse_launches[name] if name == "fused_assign" else launches[name]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

@@ -22,6 +22,7 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
 SOURCES = {
     "assign": _PKG / "kernels" / "assign" / "csrc" / "assign.cu",
+    "fused": _PKG / "kernels" / "assign" / "csrc" / "fused.cu",
     "segment_sum": _PKG / "kernels" / "segment_sum" / "csrc" / "segment_sum.cu",
 }
 

@@ -1,6 +1,7 @@
-"""CGSim core on PyTorch: the event-round engine (``engine.simulate``), the
-plugin policy system (``policies``), PanDA-shaped workloads (``workload``),
-platform builders (``platform``), metrics, and the numpy bridge (``convert``).
+"""CGSim core on PyTorch: the event-round engine (``engine.simulate``) and its
+sparse top-k candidate index (``sparse``), the plugin policy system
+(``policies``), PanDA-shaped workloads (``workload``), platform builders
+(``platform``), metrics, and the numpy bridge (``convert``).
 """
 from .types import (  # noqa: F401
     ASSIGNED,
@@ -23,7 +24,13 @@ from .types import (  # noqa: F401
     make_sites,
     pad_jobs_capacity,
 )
-from .engine import compute_time, default_assign, service_time, simulate  # noqa: F401
+from .engine import (  # noqa: F401
+    compute_time,
+    default_assign,
+    default_assign_cand,
+    service_time,
+    simulate,
+)
 from .policies import (  # noqa: F401
     REGISTRY,
     AllocationPlugin,
@@ -32,7 +39,9 @@ from .policies import (  # noqa: F401
     make_policy,
     register,
     with_capacity_assign,
+    with_fused_assign,
 )
+from .sparse import bytes_per_round, build_candidates, static_feasibility  # noqa: F401
 from .workload import synthetic_panda_jobs  # noqa: F401
 from .platform import atlas_like_platform  # noqa: F401
 from .metrics import Metrics, compute_metrics, summary_str  # noqa: F401

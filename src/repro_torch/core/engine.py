@@ -9,7 +9,8 @@ masked dense updates:
   round(t*):
     1. completions   — running jobs with t_finish <= t*  → DONE/FAILED/resubmit
     2. arrivals      — pending jobs with arrival  <= t*  → QUEUED at the server
-    3. assignment    — the policy plugin scores QUEUED jobs against sites;
+    3. assignment    — the policy plugin scores QUEUED jobs against sites
+                       (all of them, or a candidate index with ``topk``);
                        feasible best-site rows become ASSIGNED (site queue)
     4. starts        — per-site FIFO-with-capacity: sort ASSIGNED rows by
                        (site, -priority, -rank, arrival), start the per-site
@@ -27,6 +28,7 @@ import torch
 from . import rng as _rng
 from ..kernels.segment_sum import segment_sum
 from .scan import cumsum_f32, fma_f32
+from .sparse import CAND_SALT, build_candidates
 from .types import (
     ASSIGNED,
     DONE,
@@ -172,11 +174,39 @@ def default_assign(scores, queued, feasible, sites=None):
     return torch.where(ok, best, -1), ok
 
 
-def _init_state(jobs0: JobsState, sites0: SiteState, policy, key, log_rows: int) -> EngineState:
+def default_assign_cand(scores_k, queued, feas_k, cand, sites=None):
+    """Candidate-set analogue of ``default_assign``.
+
+    ``scores_k``/``feas_k`` are ``[J, K]`` over the candidate index ``cand``
+    (clamped site ids, ascending per row).  Because candidates are sorted
+    ascending, the first-max slot is the lowest site id among score ties, the
+    dense tie-break, so ``topk=S`` matches the dense path bit for bit."""
+    K = scores_k.shape[-1]
+    masked = torch.where(feas_k, scores_k, -INF)
+    best_val = masked.amax(-1)
+    iota = torch.arange(K, device=scores_k.device)
+    best_c = torch.where(masked == best_val[:, None], iota, K).amin(-1)
+    site = cand.gather(1, best_c[:, None])[:, 0].int()
+    ok = queued & torch.isfinite(best_val)
+    return torch.where(ok, site, -1), ok
+
+
+def _init_state(
+    jobs0: JobsState, sites0: SiteState, policy, key, log_rows: int, topk: int | None = None,
+) -> EngineState:
     """Build the round-loop carry: run the policy's init hook, allocate the
-    frame ring buffer, precompute the packed start-order key when allowed."""
+    frame ring buffer, build the sparse candidate index (``topk``), precompute
+    the packed start-order key when allowed."""
     device = jobs0.arrival.device
+    pstate0 = policy.init(jobs0, sites0)
     ext0 = {}
+    if topk is not None:
+        # sparse-mode candidate index: "~" keys are engine-internal carry,
+        # dropped from SimResult.ext in _finalize
+        ext0["~cand"] = build_candidates(
+            jobs0, sites0, policy, pstate0, torch.zeros((), dtype=torch.float32, device=device),
+            _rng.fold_in(key, CAND_SALT), ext0, topk,
+        )
     if _packed_order_ok(policy, jobs0.capacity, sites0.capacity):
         ext0["~srank"] = _static_start_rank(jobs0)
     return EngineState(
@@ -185,7 +215,7 @@ def _init_state(jobs0: JobsState, sites0: SiteState, policy, key, log_rows: int)
         jobs=jobs0,
         sites=sites0,
         rng=key,
-        policy_state=policy.init(jobs0, sites0),
+        policy_state=pstate0,
         log=make_log(log_rows, sites0.capacity, device=device),
         halted=torch.zeros((), dtype=torch.bool, device=device),
         ext=ext0,
@@ -201,6 +231,8 @@ def _round_fns(
     monitor_every: int,
     quantum: float,
     phase_skip: bool,
+    topk: int | None = None,
+    topk_refresh: int = 0,
 ):
     """The round loop's ``(cond, body)`` pair for one configuration.  ``cond``
     reads one flag back from the device."""
@@ -266,6 +298,14 @@ def _round_fns(
 
         # ---- 4+5. assignment & starts ----------------------------------------
         queued = jobs.state == QUEUED
+        ext = st.ext
+        if topk is not None and topk_refresh > 0 and st.round % topk_refresh == 0:
+            # periodic candidate rebuild: O(J*S), only on refresh rounds
+            ext = dict(ext)
+            ext["~cand"] = build_candidates(
+                jobs, sites, policy, st.policy_state, clock,
+                _rng.fold_in(st.rng, CAND_SALT), ext, topk,
+            )
         start_cores = sites.free_cores
         sites_serv = sites
         pstate = st.policy_state
@@ -276,14 +316,42 @@ def _round_fns(
             (per-site FIFO-with-capacity starts).  With no QUEUED or ASSIGNED
             rows every update in here is a masked no-op, which is what makes
             the phase-skip guard below exact."""
-            # static feasibility: job can ever fit the site
-            feasible = (
-                sites.active[None, :]
-                & (jobs.cores[:, None] <= sites.cores[None, :])
-                & (jobs.memory[:, None] <= sites.memory[None, :])
-            )
-            scores = policy.score(jobs, sites, pstate, clock, k_policy)  # [J, S]
-            site_pick, assigned_now = policy.assign(scores, queued, feasible, sites)
+            if topk is None:
+                # static feasibility: job can ever fit the site
+                feasible = (
+                    sites.active[None, :]
+                    & (jobs.cores[:, None] <= sites.cores[None, :])
+                    & (jobs.memory[:, None] <= sites.memory[None, :])
+                )
+                scores = policy.score(jobs, sites, pstate, clock, k_policy)  # [J, S]
+                site_pick, assigned_now = policy.assign(scores, queued, feasible, sites)
+            else:
+                # the static core/memory fit lives in the candidate index;
+                # per-round feasibility is a per-site [1, S] mask
+                feasible = sites.active[None, :]
+                cand = ext["~cand"]                         # i32[J, K]
+                cand_c = cand.clamp_max(S - 1).long()
+                # re-check everything the dense mask carries, gathered at the
+                # candidates: validity, per-round feasibility ([1, S], or a
+                # [J, S] mask by row) and the static core/memory fit
+                f_at = (
+                    feasible[0][cand_c] if feasible.shape[0] == 1
+                    else feasible.gather(1, cand_c)
+                )
+                feas_k = (
+                    (cand < S)
+                    & f_at
+                    & (jobs.cores[:, None] <= sites.cores[cand_c])
+                    & (jobs.memory[:, None] <= sites.memory[cand_c])
+                )
+                score_c = getattr(policy, "score_cand", None)
+                if score_c is not None:
+                    scores_k = score_c(jobs, sites, pstate, clock, k_policy, cand_c)
+                else:
+                    # exact fallback: dense score + gather (no memory win)
+                    scores_k = policy.score(jobs, sites, pstate, clock, k_policy).gather(1, cand_c)
+                assign_c = getattr(policy, "assign_cand", None) or default_assign_cand
+                site_pick, assigned_now = assign_c(scores_k, queued, feas_k, cand_c, sites)
             assigned_now = assigned_now & queued
             jobs = jobs._replace(
                 state=torch.where(assigned_now, ASSIGNED, jobs.state),
@@ -293,8 +361,8 @@ def _round_fns(
             asg_site = torch.where(assigned_now, site_pick.int(), S)
             sites = sites._replace(n_assigned=sites.n_assigned + _site_sum(assigned_now, asg_site, S))
 
-            cand = jobs.state == ASSIGNED
-            sort_site = torch.where(cand, jobs.site, S)
+            in_queue = jobs.state == ASSIGNED
+            sort_site = torch.where(in_queue, jobs.site, S)
             if "~srank" in st.ext:
                 # packed fast path: one single-key sort, provably the same
                 # permutation as the 5-key lexsort
@@ -306,7 +374,7 @@ def _round_fns(
                 )
                 order = _start_order(sort_site, jobs.priority, rank_val, jobs.arrival)
             site_s = sort_site[order]
-            cand_s = cand[order]
+            cand_s = in_queue[order]
             cores_s = torch.where(cand_s, jobs.cores[order], 0)
             mem_s = torch.where(cand_s, jobs.memory[order], 0.0)
             cum_cores = _segment_exclusive_base(cores_s, site_s, S + 1)
@@ -395,7 +463,7 @@ def _round_fns(
             policy_state=pstate,
             log=log,
             halted=halted,
-            ext=st.ext,
+            ext=ext,
         )
 
     return cond, body
@@ -438,6 +506,8 @@ def simulate(
     monitor_every: int = 1,
     quantum: float = 0.0,
     phase_skip: bool = True,
+    topk: int | None = None,
+    topk_refresh: int = 0,
     device="cuda",
 ) -> SimResult:
     """Run the grid simulation to completion (or ``max_rounds``/``horizon``).
@@ -450,11 +520,21 @@ def simulate(
     > 0 batches all events inside [t*, t* + quantum] into one round.
     ``log_rows`` > 0 keeps a ring of per-round snapshots, written every
     ``monitor_every`` rounds.
+
+    ``topk`` switches assignment to the sparse candidate-set path
+    (``core/sparse.py``): scores are evaluated over an ``i32[J, topk]``
+    candidate-site index instead of the dense ``[J, S]`` matrix.  ``topk >= S``
+    equals the dense path bit for bit; smaller ``topk`` restricts each job to
+    its pre-ranked candidates.  The index is built once at init from the
+    policy's pre-rank; ``topk_refresh=N`` rebuilds it every N rounds (0 =
+    never).
     """
     device = resolve_device(device)
     _check_device(jobs0, device, "jobs0")
     _check_device(sites0, device, "sites0")
-    st = _init_state(jobs0, sites0, policy, rng.to(device), log_rows)
+    if topk is not None:
+        topk = min(int(topk), sites0.capacity)  # k >= S is exactly dense
+    st = _init_state(jobs0, sites0, policy, rng.to(device), log_rows, topk)
     cond, body = _round_fns(
         policy,
         max_rounds=max_rounds,
@@ -463,6 +543,8 @@ def simulate(
         monitor_every=monitor_every,
         quantum=quantum,
         phase_skip=phase_skip,
+        topk=topk,
+        topk_refresh=topk_refresh,
     )
     while cond(st, horizon):
         st = body(st)

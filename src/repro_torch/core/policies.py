@@ -16,6 +16,20 @@ The optional ``rank(jobs, sites, state, clock) -> f32[J]`` orders starts
 within a site queue: a secondary key after ``jobs.priority``, before arrival
 time, higher first.  ``rank=None`` keeps the plain FIFO start order.
 
+Sparse top-k mode (``simulate(..., topk=K)``) scores each job only at a
+candidate-site index ``i32[J, K]``.  Three optional hooks serve it:
+
+- ``score_cand(jobs, sites, state, clock, rng, cand) -> f32[J, K]`` scores
+  each job at its candidate sites (``cand`` clamped to valid site ids).  It
+  must equal ``score(...)`` gathered at ``cand`` float for float, as every
+  built-in below does, so ``topk=S`` equals the dense path bit for bit.
+  ``None`` falls back to a dense score and a gather.
+- ``pre_rank(jobs, sites, state, clock, rng) -> f32[J, S]`` is the dense
+  ranking used to *build* the candidate index.  ``None`` reuses ``score``.
+- ``assign_cand(scores_k, queued, feas_k, cand, sites) -> (site, mask)``
+  picks a site per job from candidate scores.  ``None`` uses
+  ``engine.default_assign_cand``.
+
 Per-site scores are broadcast to ``[J, S]`` as views (``expand``), so a
 policy that scores sites alone costs no ``J x S`` memory until the
 assignment masks it.
@@ -42,6 +56,9 @@ class Policy(NamedTuple):
     on_step: Callable
     on_end: Callable
     rank: Callable | None = None  # start-order key within site queues (None = jobs.priority)
+    score_cand: Callable | None = None  # candidate-set score form (None = dense gather)
+    pre_rank: Callable | None = None    # dense pre-rank for candidate building (None = score)
+    assign_cand: Callable | None = None  # candidate-set assigner (None = default_assign_cand)
 
 
 def _no_state(jobs, sites):
@@ -54,6 +71,7 @@ def _keep_state(state, *_):
 
 def make_policy(
     name: str, score: Callable, *, init=None, assign=None, on_step=None, on_end=None, rank=None,
+    score_cand=None, pre_rank=None, assign_cand=None,
 ) -> Policy:
     return Policy(
         name=name,
@@ -63,6 +81,9 @@ def make_policy(
         on_step=on_step or _keep_state,
         on_end=on_end or _keep_state,
         rank=rank,
+        score_cand=score_cand,
+        pre_rank=pre_rank,
+        assign_cand=assign_cand,
     )
 
 
@@ -104,32 +125,46 @@ def random_policy(seed_salt: int = 0) -> Policy:
 def round_robin() -> Policy:
     """Deterministic round-robin by job id (stateless)."""
 
+    def _want(jobs, sites):
+        return torch.remainder(jobs.job_id.clamp_min(0), sites.active.sum().clamp_min(1))[:, None]
+
     def score(jobs, sites, state, clock, key):
         S = sites.capacity
-        want = torch.remainder(jobs.job_id.clamp_min(0), sites.active.sum().clamp_min(1))
-        idx = torch.arange(S, device=want.device)[None, :]
-        return -torch.remainder(idx - want[:, None], S).float()
+        idx = torch.arange(S, device=jobs.job_id.device)[None, :]
+        return -torch.remainder(idx - _want(jobs, sites), S).float()
 
-    return make_policy("round_robin", score)
+    def score_cand(jobs, sites, state, clock, key, cand):
+        # integer remainder is exact: gather-then-compute equals compute-then-gather
+        return -torch.remainder(cand - _want(jobs, sites), sites.capacity).float()
+
+    return make_policy("round_robin", score, score_cand=score_cand)
 
 
 def fastest_site() -> Policy:
     def score(jobs, sites, state, clock, key):
         return _per_site(jobs, sites.speed)
 
-    return make_policy("fastest_site", score)
+    def score_cand(jobs, sites, state, clock, key, cand):
+        return sites.speed[cand]
+
+    return make_policy("fastest_site", score, score_cand=score_cand)
 
 
 def least_loaded() -> Policy:
     """Prefer the site with the most free-core headroom after its queue drains."""
 
-    def score(jobs, sites, state, clock, key):
-        head = (sites.free_cores.float() - _queued_cores(jobs, sites)) / (
+    def _head(jobs, sites):
+        return (sites.free_cores.float() - _queued_cores(jobs, sites)) / (
             sites.cores.float().clamp_min(1.0)
         )
-        return _per_site(jobs, head)
 
-    return make_policy("least_loaded", score)
+    def score(jobs, sites, state, clock, key):
+        return _per_site(jobs, _head(jobs, sites))
+
+    def score_cand(jobs, sites, state, clock, key, cand):
+        return _head(jobs, sites)[cand]
+
+    return make_policy("least_loaded", score, score_cand=score_cand)
 
 
 def data_locality() -> Policy:
@@ -138,23 +173,33 @@ def data_locality() -> Policy:
     def score(jobs, sites, state, clock, key):
         return -(sites.latency[None, :] + jobs.bytes_in[:, None] / sites.bw_in[None, :])
 
-    return make_policy("data_locality", score)
+    def score_cand(jobs, sites, state, clock, key, cand):
+        return -(sites.latency[cand] + jobs.bytes_in[:, None] / sites.bw_in[cand])
+
+    return make_policy("data_locality", score, score_cand=score_cand)
 
 
 def shortest_wait() -> Policy:
     """Greedy expected-completion-time (backlog drain + own service estimate)."""
 
-    def score(jobs, sites, state, clock, key):
+    def _drain(jobs, sites):
         _, out_work = site_backlog(jobs, sites)
         cap_rate = sites.speed * sites.cores.float().clamp_min(1.0)
-        drain = out_work / cap_rate.clamp_min(1e-9)
+        return out_work / cap_rate.clamp_min(1e-9)
+
+    def score(jobs, sites, state, clock, key):
         mine = jobs.work[:, None] / (
             sites.speed[None, :] * jobs.cores[:, None].float()
         ).clamp_min(1e-9)
         stage = sites.latency[None, :] + jobs.bytes_in[:, None] / sites.bw_in[None, :]
-        return -(drain[None, :] + mine + stage)
+        return -(_drain(jobs, sites)[None, :] + mine + stage)
 
-    return make_policy("shortest_wait", score)
+    def score_cand(jobs, sites, state, clock, key, cand):
+        mine = jobs.work[:, None] / (sites.speed[cand] * jobs.cores[:, None].float()).clamp_min(1e-9)
+        stage = sites.latency[cand] + jobs.bytes_in[:, None] / sites.bw_in[cand]
+        return -(_drain(jobs, sites)[cand] + mine + stage)
+
+    return make_policy("shortest_wait", score, score_cand=score_cand)
 
 
 def panda_site_score(jobs, sites, w_speed=1.0, w_free=1.0, w_queue=2.0, w_fail=4.0):
@@ -182,7 +227,10 @@ def panda_dispatch(w_speed=1.0, w_free=1.0, w_queue=2.0, w_fail=4.0) -> Policy:
     def score(jobs, sites, state, clock, key):
         return _per_site(jobs, panda_site_score(jobs, sites, w_speed, w_free, w_queue, w_fail))
 
-    return make_policy("panda_dispatch", score)
+    def score_cand(jobs, sites, state, clock, key, cand):
+        return panda_site_score(jobs, sites, w_speed, w_free, w_queue, w_fail)[cand]
+
+    return make_policy("panda_dispatch", score, score_cand=score_cand)
 
 
 def crit_rank_fn(jobs, sites, state, clock):
@@ -210,6 +258,19 @@ def with_capacity_assign(policy: Policy, assign_fn) -> Policy:
         return assign_fn(scores, queued, feasible, sites)
 
     return policy._replace(name=policy.name + "+capacity", assign=assign)
+
+
+def with_fused_assign(policy: Policy, assign_cand_fn) -> Policy:
+    """Swap in a fused candidate-set assigner for sparse top-k mode (e.g.
+    ``repro_torch.kernels.assign.make_fused_capacity_assign``): rank and
+    capacity pick run in one kernel over ``[J, K]`` candidates instead of the
+    dense ``[J, S]`` matrix.  Consulted only when the engine runs with
+    ``topk=``; pair with :func:`with_capacity_assign` for the dense path."""
+
+    def assign_cand(scores_k, queued, feas_k, cand, sites):
+        return assign_cand_fn(scores_k, queued, feas_k, cand, sites)
+
+    return policy._replace(name=policy.name + "+fused", assign_cand=assign_cand)
 
 
 REGISTRY: dict[str, Callable[..., Policy]] = {

@@ -6,6 +6,7 @@ exactly, on the CPU and on the GPU, because it spells those operations out:
 
 - ``cumsum_f32``: XLA evaluates ``jnp.cumsum`` as a two-level scan of base
   16, here written as explicit f32 adds;
+- ``sum_f32``: XLA reduces a long axis in windows of 32, then the windows;
 - ``segment_sum_f32``: XLA's scatter adds rows in index order; the port's
   segment sum keeps that order on the GPU too (a CUDA kernel, no atomics);
 - ``fma_f32``: XLA contracts ``x * y + z`` into one fused multiply-add.
@@ -21,33 +22,59 @@ import torch
 
 from ..kernels.segment_sum import segment_sum
 
-_BASE = 16
+_BASE = 16     # cumsum row length
+_WINDOW = 32   # reduce window
 
 
-def _row_scan(cols):
-    """Sequential f32 prefix sums over a list of equal-shape tensors."""
+def _row_scan(cols, dim: int):
+    """Sequential f32 prefix sums over a list of equal-shape tensors, stacked
+    along ``dim``."""
     out = [cols[0]]
     for col in cols[1:]:
         out.append(out[-1] + col)
-    return torch.stack(out, dim=-1)
+    return torch.stack(out, dim=dim)
 
 
-def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.cumsum`` of a 1-D f32 tensor with XLA's bits: pad to a multiple of
-    16, scan each row of 16 sequentially, scan the row totals the same way
-    (recursively), and add each row's exclusive offset."""
-    n = x.shape[0]
+def cumsum_f32(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``jnp.cumsum(x, axis=dim)`` of an f32 tensor with XLA's bits: pad the
+    axis to a multiple of 16, scan each row of 16 sequentially, scan the row
+    totals the same way (recursively), and add each row's exclusive offset.
+    Every position of the other axes is scanned on its own."""
+    if dim != 0:
+        return cumsum_f32(x.movedim(dim, 0), 0).movedim(0, dim)
+    n, rest = x.shape[0], x.shape[1:]
     if n <= 1:
         return x.clone()
     if n <= _BASE:
-        return _row_scan(x.unbind(0))
+        return _row_scan(x.unbind(0), 0)
     rows = -(-n // _BASE)
-    padded = torch.zeros((rows * _BASE,), dtype=x.dtype, device=x.device)
+    padded = x.new_zeros((rows * _BASE, *rest))
     padded[:n] = x
-    rc = _row_scan(padded.view(rows, _BASE).unbind(1))
+    rc = _row_scan(padded.view(rows, _BASE, *rest).unbind(1), 1)
     tot = cumsum_f32(rc[:, -1].contiguous())
-    off = torch.cat([tot.new_zeros((1,)), tot[:-1]])
-    return (rc + off[:, None]).reshape(-1)[:n]
+    off = torch.cat([tot.new_zeros((1, *rest)), tot[:-1]])
+    return (rc + off[:, None]).reshape(rows * _BASE, *rest)[:n]
+
+
+def sum_f32(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``jnp.sum(x, axis=dim)`` of an f32 tensor with XLA's bits.  An axis of
+    up to 32 adds sequentially from 0; a longer one is cut into windows of 32
+    (its zero padding split between the two ends, the smaller half first),
+    each window adds sequentially, and the window sums reduce the same way."""
+    if dim != 0:
+        return sum_f32(x.movedim(dim, 0), 0)
+    n, rest = x.shape[0], x.shape[1:]
+    if n > _WINDOW:
+        pad = -n % _WINDOW
+        lo = pad // 2
+        padded = x.new_zeros((n + pad, *rest))
+        padded[lo:lo + n] = x
+        x = padded.view(-1, _WINDOW, *rest).transpose(0, 1)
+        return sum_f32(sum_f32(x, 0), 0)
+    acc = x.new_zeros(rest)
+    for row in x.unbind(0):
+        acc = acc + row
+    return acc
 
 
 def segment_sum_f32(values: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:

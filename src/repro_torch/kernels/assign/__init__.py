@@ -1,3 +1,10 @@
-"""Capacity-constrained greedy assignment (jobs x sites, tokens x experts)."""
-from .ops import assign, make_capacity_assign  # noqa: F401
+"""Capacity-constrained greedy assignment (jobs x sites, tokens x experts),
+dense and over sparse candidate sets."""
+from .fused_ref import fused_assign_ref  # noqa: F401
+from .ops import (  # noqa: F401
+    assign,
+    fused_topk_assign,
+    make_capacity_assign,
+    make_fused_capacity_assign,
+)
 from .ref import assign_ref  # noqa: F401

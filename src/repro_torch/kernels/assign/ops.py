@@ -1,9 +1,12 @@
-"""The assignment kernel as a simulator dispatch combinator."""
+"""The assignment kernels as simulator dispatch combinators: dense
+(``make_capacity_assign``) and sparse top-k (``make_fused_capacity_assign``)."""
 from __future__ import annotations
 
 import torch
 
 from .assign_cuda import assign_cuda
+from .fused_cuda import fused_assign_cuda
+from .fused_ref import fused_assign_ref
 from .ref import assign_ref
 
 
@@ -16,6 +19,18 @@ def assign(scores, sizes, caps, *, k: int = 1, block_n: int = 256):
     return assign_ref(scores, sizes, caps, k=k, block_n=block_n)
 
 
+def _sizes_and_caps(jobs_cores, queued, sites):
+    """Capacity units per queued job (its cores, or 1) and free cores per
+    active site, as f32."""
+    sizes = (
+        torch.ones(queued.shape, dtype=torch.float32, device=queued.device)
+        if jobs_cores is None else jobs_cores.float()
+    )
+    sizes = torch.where(queued, sizes, 0.0)
+    caps = torch.where(sites.active, sites.free_cores, 0).float()
+    return sizes, caps
+
+
 def make_capacity_assign(jobs_cores: torch.Tensor | None = None, *, block_n: int = 256):
     """Build an engine-compatible ``Policy.assign`` fn: jobs -> sites under
     free-core capacity; jobs beyond capacity stay QUEUED at the main server."""
@@ -23,14 +38,38 @@ def make_capacity_assign(jobs_cores: torch.Tensor | None = None, *, block_n: int
     def assign_fn(scores, queued, feasible, sites):
         NEG = -1e30
         masked = torch.where(feasible & queued[:, None], scores, NEG)
-        sizes = (
-            torch.ones((scores.shape[0],), dtype=torch.float32, device=scores.device)
-            if jobs_cores is None else jobs_cores.float()
-        )
-        sizes = torch.where(queued, sizes, 0.0)
-        caps = torch.where(sites.active, sites.free_cores, 0).float()
+        sizes, caps = _sizes_and_caps(jobs_cores, queued, sites)
         idx, gate, admit, pos = assign(masked, sizes, caps, k=1, block_n=block_n)
         ok = admit[:, 0] & queued
         return torch.where(ok, idx[:, 0], -1), ok
 
     return assign_fn
+
+
+def fused_topk_assign(scores_k, cand, sizes, caps, *, block_n: int = 256):
+    """Fused candidate-set rank + capacity pick (see fused_ref.py for
+    semantics): the Hopper kernel for CUDA tensors, the plain version with
+    row blocks of ``block_n`` for CPU tensors."""
+    if scores_k.is_cuda:
+        return fused_assign_cuda(scores_k.float().contiguous(), cand.int().contiguous(),
+                                 sizes.float().contiguous(), caps.float().contiguous())
+    return fused_assign_ref(scores_k, cand, sizes, caps, block_n=block_n)
+
+
+def make_fused_capacity_assign(jobs_cores: torch.Tensor | None = None, *, block_n: int = 256):
+    """Build an engine-compatible ``Policy.assign_cand`` fn for sparse top-k
+    mode (``simulate(..., topk=)``): rank each job's candidate set and admit
+    under free-core capacity in one fused pass, without the dense ``[J, S]``
+    masked-score matrix that ``make_capacity_assign`` builds.  With candidates
+    covering all feasible sites (``topk >= S``) the result equals the dense
+    ``make_capacity_assign`` path bit for bit."""
+
+    def assign_cand(scores_k, queued, feas_k, cand, sites):
+        S = sites.capacity
+        cand_eff = torch.where(feas_k & queued[:, None], cand, S).int()
+        sizes, caps = _sizes_and_caps(jobs_cores, queued, sites)
+        site, admit = fused_topk_assign(scores_k, cand_eff, sizes, caps, block_n=block_n)
+        ok = admit & queued
+        return torch.where(ok, site, -1), ok
+
+    return assign_cand
