@@ -31,7 +31,18 @@ check does not hold:
    and site counters;
 6. on the same scenario, cut to its first SPARSE_DRAIN_ROUNDS rounds: the
    fused sparse path at ``topk=S`` must equal the dense capacity dispatch on
-   the card, and ``topk=8`` on the card must equal ``topk=8`` on the CPU.
+   the card, and ``topk=8`` on the card must equal ``topk=8`` on the CPU;
+7. hold the flash-attention kernel against ``attention_ref`` on the card
+   (max abs error 2e-5 in f32, 2e-2 in bf16) on ``tests/test_kernels.py``'s
+   six shapes, a non-causal ragged one, a right-aligned one (Skv > S) and the
+   deepseek-7b prefill shape, where it is timed beside its plain version and
+   ``scaled_dot_product_attention``;
+8. serve deepseek-7b at full width (bf16, random weights from seed 0):
+   ``generate`` over 4 prompts of 4096 tokens with 32 new tokens, twice,
+   launch counters set to 0 just before the first run; require 30 flash
+   launches (one a layer), bit-identical tokens, and prefill logits within
+   2e-2 of the largest logit of the same prefill through the plain
+   ``chunked_attention``; print prefill and decode tokens/s and peak memory.
 
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
@@ -51,6 +62,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 PEAK_HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 PEAK_FP32_OPS_PER_S = 67e12      # H100 SXM, non-tensor-core float32
+PEAK_BF16_OPS_PER_S = 989e12     # H100 SXM, dense bf16 tensor cores
 
 ENGINE_J, ENGINE_S = 100_000, 300
 ENGINE_K = 16                  # bench_wlcg_scale.py's top-k
@@ -294,6 +306,225 @@ def phase_fused_kernel(device) -> dict:
         replaces="src/repro/kernels/assign/fused.py:38", launches=None, max_abs_err=0.0,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None,
     )
+
+
+FLASH_CASES = [  # (B, Hq, Hkv, S, Skv, D, causal, window, dtype)
+    (1, 4, 4, 256, 256, 64, True, 0, "float32"),    # tests/test_kernels.py's six
+    (2, 8, 2, 128, 128, 64, True, 0, "float32"),
+    (1, 4, 1, 384, 384, 128, True, 0, "float32"),
+    (1, 4, 2, 256, 256, 64, True, 64, "float32"),
+    (1, 8, 8, 256, 256, 64, True, 0, "bfloat16"),
+    (2, 4, 2, 200, 200, 64, True, 96, "bfloat16"),
+    (1, 2, 2, 100, 100, 32, False, 0, "float32"),   # non-causal, ragged Skv
+    (2, 4, 2, 100, 300, 64, True, 0, "float32"),    # q right-aligned, Skv > S
+    (4, 32, 32, 4096, 4096, 128, True, 0, "bfloat16"),  # deepseek-7b prefill (phase 8)
+]
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "deepseek-7b", 4, 4096, 32
+
+
+def flash_inputs(B, Hq, Hkv, S, Skv, D, dtype, seed, device):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shapes = ((B, Hq, S, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))
+    return tuple(torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+                 .to(device=device, dtype=getattr(torch, dtype)) for sh in shapes)
+
+
+def attention_live_pairs(S, Skv, causal, window) -> int:
+    """(query, key) pairs the mask keeps: the work the data needs."""
+    import numpy as np
+
+    pos = np.arange(S, dtype=np.int64) + (Skv - S)
+    hi = np.minimum(pos, Skv - 1) if causal else np.full(S, Skv - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def phase_flash_kernel(device) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention_cuda import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    worst = {}
+    for B, Hq, Hkv, S, Skv, D, causal, window, dtype in FLASH_CASES:
+        q, k, v = flash_inputs(B, Hq, Hkv, S, Skv, D, dtype, B * 131 + S, device)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2e-2 if dtype == "bfloat16" else 2e-5
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"flash {B, Hq, Hkv, S, Skv, D}: dtype or shape differs from the plain version")
+        check(err <= tol, f"flash {B, Hq, Hkv, S, Skv, D} causal={causal} window={window} "
+                          f"{dtype}: max_abs_err {err:.3e} > {tol}")
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+        print(f"[flash] B={B} Hq={Hq} Hkv={Hkv} S={S} Skv={Skv} D={D} causal={causal} "
+              f"window={window} {dtype}: max_abs_err={err:.3e} (tol {tol})")
+        del q, k, v, want, got
+
+    B, Hq, Hkv, S, Skv, D, causal, window, dtype = FLASH_CASES[-1]
+    q, k, v = flash_inputs(B, Hq, Hkv, S, Skv, D, dtype, 0, device)
+    parts = device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), ("flash_fwd_kernel",),
+                      iters=10)
+    ms = parts["flash_fwd_kernel"]
+    call_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), iters=10)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=causal), iters=3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                         iters=10)
+    ops = 4 * B * Hq * D * attention_live_pairs(S, Skv, causal, window)  # QK^T and PV, 2 per MAC
+    bytes_moved = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = ops / PEAK_BF16_OPS_PER_S, bytes_moved / PEAK_HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"[flash] at the deepseek-7b prefill shape B={B} H={Hq} S={S} D={D} causal {dtype}: "
+          f"kernel {ms:.4f} ms of device time ({call_ms:.4f} ms a call between CUDA events), "
+          f"{ops / ms / 1e9:.2f} TFLOP/s; plain {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}: {ops:.4e} FLOP at 989 TFLOP/s bf16, {bytes_moved} B at 3.35 TB/s)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:26", launches=None,
+        max_abs_err=max(worst.values()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+    )
+
+
+def phase_serve(device) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as flash_mod
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import attention, build_model, param_count
+    from repro_torch.kernels.flash_attention.ops import chunked_attention
+    from repro_torch.serve.serve_step import generate
+
+    cfg = get_config(SERVE_ARCH)
+    ref_shape = SHAPES["prefill_32k"]
+    B, S, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    print(f"[serve] {cfg.name} at full width and depth ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}), random weights from torch.Generator seed 0; "
+          f"{B} prompts of {S} seeded tokens and {new} new tokens: the prompt cut from "
+          f"{ref_shape.name}'s {ref_shape.seq_len} tokens and the batch from "
+          f"{ref_shape.global_batch}, to fit one card's memory and the smoke's time limit")
+    model = build_model(cfg, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    print(f"[serve] {param_count(params)} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.2f}s")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(device)}
+
+    marks = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def call(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            marks[name].append((start, end))
+            return out
+        return call
+
+    timed_model = model._replace(prefill=timed("prefill", model.prefill),
+                                 decode=timed("decode", model.decode))
+
+    def no_plain_version(*args, **kw):
+        raise SmokeFailure("the serving path ran a plain attention version on the card")
+
+    plain = flash_ops.attention_ref, attention.chunked_attention, attention.qblock_attention
+    flash_ops.attention_ref = attention.chunked_attention = attention.qblock_attention = \
+        no_plain_version
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        flash_mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out1 = generate(timed_model, params, batch, max_new=new, cache_len=S + new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash_mod.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        out2 = generate(model, params, batch, max_new=new, cache_len=S + new)
+        torch.cuda.synchronize()
+    finally:
+        flash_ops.attention_ref, attention.chunked_attention, attention.qblock_attention = plain
+    prefill_s = sum(a.elapsed_time(b) for a, b in marks["prefill"]) / 1e3
+    decode_s = sum(a.elapsed_time(b) for a, b in marks["decode"]) / 1e3
+    steps = len(marks["decode"])
+    print(f"[serve] generate: {wall:.3f}s wall; prefill {prefill_s:.4f}s = "
+          f"{B * S / prefill_s:.1f} tokens/s; decode {steps} steps in {decode_s:.4f}s = "
+          f"{B * steps / decode_s:.1f} tokens/s ({1e3 * decode_s / max(steps, 1):.2f} ms a step); "
+          f"flash launches {launches}; peak memory {peak_gb:.2f} GB")
+    check(launches == cfg.n_layers,
+          f"the prefill launched the flash kernel {launches} times, not once a layer "
+          f"({cfg.n_layers})")
+    check(out1.shape == (B, new) and out1.dtype == torch.int32, f"tokens {tuple(out1.shape)}")
+    check(bool(((out1 >= 0) & (out1 < cfg.vocab_size)).all()), "a token outside the vocabulary")
+    check(torch.equal(out1, out2), "two generate runs on the card differ")
+    print(f"[serve] second run bit-identical; first tokens of prompt 0: "
+          f"{out1[0, :8].tolist()}")
+
+    # the kernel path's prefill logits against the plain chunked attention's
+    cache = model.init_cache(B, S + new)
+    got, _ = model.prefill(params, batch, cache)
+    flash_fn = attention.flash_attention
+    attention.flash_attention = lambda q, k, v, **kw: chunked_attention(q, k, v, chunk=cfg.attn_chunk,
+                                                                        **kw)
+    try:
+        want, _ = model.prefill(params, batch, cache)
+    finally:
+        attention.flash_attention = flash_fn
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "prefill logits not finite")
+    diff, top = float((got - want).abs().max()), float(want.abs().max())
+    print(f"[serve] prefill last-position logits, kernel vs plain chunked_attention: "
+          f"max|d|={diff:.4e}, max|logits|={top:.4e}, ratio {diff / top:.3e} (limit 2e-2); "
+          f"argmax agrees on {int((got.argmax(-1) == want.argmax(-1)).sum())}/{B}")
+    check(diff <= 2e-2 * top, f"kernel-path logits differ from the plain path by {diff:.4e}")
+    del cache
+    profile_serve(model, params, batch, S + new)
+    return {"flash_attention": launches}
+
+
+def profile_serve(model, params, batch, cache_len) -> None:
+    """Device busy share and the top kernels of one prefill and of 8 decode
+    steps (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = model.init_cache(batch["tokens"].shape[0], cache_len)
+    logits, cache = model.prefill(params, batch, cache)
+    token = logits[:, -1].argmax(-1, keepdim=True).int()
+    for label, run in (("prefill", lambda: model.prefill(params, batch, cache)),
+                       ("decode x8", lambda: [model.decode(params, token, dict(cache, len=cache["len"]))
+                                              for _ in range(8)])):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"[serve-profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
+              f"{busy:.1f} ms = {100 * busy / wall_ms:.1f}%, {sum(e.count for e in kernels)} kernels")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"[serve-profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  "
+                  f"{e.key[:90]}")
 
 
 def snapshot(res) -> dict:
@@ -672,12 +903,15 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(device)
     rows["fused_assign"] = phase_fused_kernel(device)
+    rows["flash_attention"] = phase_flash_kernel(device)
     launches = phase_full_width(device, FULL_MAX_ROUNDS)
     sparse_launches = phase_sparse_full_width(device, FULL_MAX_ROUNDS)
     phase_drain(device)
     phase_sparse_drain(device, SPARSE_DRAIN_ROUNDS)
+    serve_launches = phase_serve(device)
     for name, row in rows.items():
-        row["launches"] = sparse_launches[name] if name == "fused_assign" else launches[name]
+        row["launches"] = (sparse_launches[name] if name == "fused_assign" else
+                           serve_launches[name] if name == "flash_attention" else launches[name])
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

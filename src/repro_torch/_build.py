@@ -24,6 +24,7 @@ SOURCES = {
     "assign": _PKG / "kernels" / "assign" / "csrc" / "assign.cu",
     "fused": _PKG / "kernels" / "assign" / "csrc" / "fused.cu",
     "segment_sum": _PKG / "kernels" / "segment_sum" / "csrc" / "segment_sum.cu",
+    "flash_attention": _PKG / "kernels" / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 
 FLAGS = (

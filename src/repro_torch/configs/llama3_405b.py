@@ -1,0 +1,24 @@
+"""llama3-405b [dense] — GQA, 128k vocab [arXiv:2407.21783].
+
+126L d_model=16384 128H (GQA kv=8) d_ff=53248 vocab=128256.
+"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3-405b",
+    family="dense",
+    n_layers=126,
+    d_model=16384,
+    n_heads=128,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=53248,
+    mlp_act="swiglu",
+    vocab_size=128256,
+    rope_theta=5e5,
+)
+
+SMOKE = CONFIG.replace(
+    name="llama3-smoke", n_layers=3, d_model=128, n_heads=8, n_kv_heads=2,
+    d_head=16, d_ff=384, vocab_size=512,
+)

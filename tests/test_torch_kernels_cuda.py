@@ -8,7 +8,11 @@ Tolerances: ``idx``, ``admit`` and ``pos`` are exact (integral sizes make
 every prefix sum exact in f32); ``gate`` uses rtol 1e-5, atol 1e-6 (``expf``
 rounding and summation order).  Segment sums are exact against the CPU's
 row-order sums.  The fused candidate-set assignment's ``site`` and ``admit``
-are exact (integral sizes again).
+are exact (integral sizes again).  The flash-attention kernel holds
+``attention_ref`` to max abs error 2e-5 in float32 and 2e-2 in bfloat16 (the
+kernel sums in another order; bf16 outputs round at 2^-8), and a 2-layer
+model's prefill through it holds the plain ``chunked_attention`` path to
+1e-4 (f32) and 2e-2 (bf16) of the largest logit.
 """
 import pytest
 
@@ -17,6 +21,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.kernels.assign.fused_ref import fused_assign_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_ref, chunked_attention  # noqa: E402
 from repro_torch.kernels.assign.ref import assign_ref  # noqa: E402
 from repro_torch.kernels.segment_sum import segment_sum_ref  # noqa: E402
 
@@ -147,3 +152,90 @@ def test_fused_topk_assign_dispatches_cuda_tensors_to_the_kernel(cuda_device):
     assert mod.launches == before + 1
     with pytest.raises(TypeError):
         mod.fused_assign_cuda(args[0], args[1].long(), args[2], args[3])
+
+
+FLASH_CASES = [
+    # (B, Hq, Hkv, S, Skv, D, causal, window, dtype)
+    (1, 4, 4, 256, 256, 64, True, 0, torch.float32),    # tests/test_kernels.py's six
+    (2, 8, 2, 128, 128, 64, True, 0, torch.float32),
+    (1, 4, 1, 384, 384, 128, True, 0, torch.float32),
+    (1, 4, 2, 256, 256, 64, True, 64, torch.float32),
+    (1, 8, 8, 256, 256, 64, True, 0, torch.bfloat16),
+    (2, 4, 2, 200, 200, 64, True, 96, torch.bfloat16),
+    (1, 2, 2, 100, 100, 32, False, 0, torch.float32),   # non-causal, ragged Skv
+    (2, 4, 2, 100, 300, 64, True, 0, torch.float32),    # q right-aligned, Skv > S
+    (4, 32, 32, 4096, 4096, 128, True, 0, torch.bfloat16),  # deepseek-7b prefill
+    (1, 2, 1, 70, 70, 16, True, 0, torch.bfloat16),     # tensor-core path, smallest D
+    (1, 2, 2, 100, 100, 96, False, 0, torch.bfloat16),  # tensor-core path, non-causal ragged
+    (1, 4, 2, 130, 200, 192, True, 64, torch.bfloat16),  # bf16 on the CUDA-core path (D > 128)
+]
+
+
+def _flash_inputs(B, Hq, Hkv, S, Skv, D, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Hq, S, D), dtype=np.float32)
+    k = rng.standard_normal((B, Hkv, Skv, D), dtype=np.float32)
+    v = rng.standard_normal((B, Hkv, Skv, D), dtype=np.float32)
+    return tuple(torch.from_numpy(x).to(device=device, dtype=dtype) for x in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,Skv,D,causal,window,dtype", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda_device, B, Hq, Hkv, S, Skv, D, causal, window, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as mod
+
+    q, k, v = _flash_inputs(B, Hq, Hkv, S, Skv, D, dtype, B * 131 + S, cuda_device)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    before = mod.launches
+    got = mod.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_dispatches_cuda_tensors_to_the_kernel(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as mod
+
+    q, k, v = _flash_inputs(1, 4, 2, 64, 64, 64, torch.float32, 0, cuda_device)
+    before = mod.launches
+    got = flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)  # strided q
+    assert mod.launches == before + 1
+    torch.testing.assert_close(got, attention_ref(q, k, v), rtol=0, atol=2e-5)
+    # bf16 rows that do not start on 16 bytes are copied for the tensor-core path
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    shifted = torch.empty(qb.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    qs = shifted[1:].view(qb.shape).copy_(qb)
+    torch.testing.assert_close(mod.flash_attention_cuda(qs, kb, vb),
+                               mod.flash_attention_cuda(qb, kb, vb), rtol=0, atol=0)
+    with pytest.raises(TypeError):
+        mod.flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        mod.flash_attention_cuda(q[..., :48], k[..., :48], v[..., :48])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_smoke_prefill_through_the_kernel_matches_plain(cuda_device, monkeypatch, dtype, tol):
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as mod
+    from repro_torch.models import attention, build_model
+
+    cfg = get_smoke("deepseek-7b").replace(dtype=dtype)
+    m = build_model(cfg, device=cuda_device)
+    params = m.init(0)
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 200)).astype(np.int32))
+    batch = {"tokens": tokens.to(cuda_device)}
+    before = mod.launches
+    got, _ = m.prefill(params, batch, m.init_cache(2, 208))
+    assert mod.launches == before + cfg.n_layers
+    monkeypatch.setattr(attention, "flash_attention",
+                        lambda q, k, v, **kw: chunked_attention(q, k, v, chunk=64, **kw))
+    want, _ = m.prefill(params, batch, m.init_cache(2, 208))
+    assert mod.launches == before + cfg.n_layers
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
