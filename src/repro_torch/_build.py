@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and compiles on its own with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/repro_torch/`` at the repository root.  The library's file name holds
-a hash of its source and flags, so an edited source rebuilds and an unchanged
-one loads from the cache.  Nothing is built when a module is imported: the
+a hash of every file in the source's ``csrc/`` directory (the ``.cu`` and the
+headers it includes) and of the flags, so an edited source or header rebuilds
+and an unchanged one loads from the cache.  Nothing is built when a module is imported: the
 wrappers call :func:`load` when they first launch a kernel.
 """
 from __future__ import annotations
@@ -45,9 +46,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``name``'s library lives: its file name hashes every file of the
+    source's ``csrc/`` directory (so an edited header rebuilds too) and the flags."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in sorted(p for p in SOURCES[name].parent.iterdir() if p.is_file()):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, float]:

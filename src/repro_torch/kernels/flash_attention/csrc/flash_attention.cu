@@ -16,23 +16,65 @@
 // so the work, not the bytes, bounds it: 0.56 ms at the card's 989 TFLOP/s of
 // dense bf16.
 //
-// Both kernels launch one CTA per (q tile of 64 rows, head, batch), the
-// heaviest causal tiles first.  The TPU grid's sequential KV axis is a loop
-// inside the CTA that carries the running max m, sum l and the accumulator in
-// registers; KV tiles of 64 keys are staged through shared memory, and tiles
-// wholly in the future or behind the window are never visited.  No atomics:
-// every run gives the same bits.
+// Three kernels, one per path; none uses atomics, so every run gives the
+// same bits.  Each CTA owns one (q tile, head, batch), the heaviest causal
+// tiles first.  The TPU grid's sequential KV axis is a loop inside the CTA
+// that carries the running max m, sum l and the accumulator in registers;
+// tiles wholly in the future or behind the window are never visited.
 //
-// flash_fwd_kernel_mma (bfloat16, D <= 128, the serving path): 4 warps of 16
-// q rows each, the products on the tensor cores with mma.sync m16n8k16 (bf16
-// in, f32 accumulate).  Q K^T multiplies the bf16 inputs exactly and scales
-// the f32 product (as attention_ref does; the TPU kernel scales q first, the
-// same value up to the last f32 bit).  P stays f32 for the softmax and enters
-// P V as two bf16 halves, hi = bf16(p) and lo = bf16(p - hi), so P V keeps
-// ~16 bits of p (error ~2^-17 of p) at twice the P V tensor work.  Score
-// fragments become P's A fragments in registers (the accumulator layout of
-// two n-tiles is the A layout of one k-step); V's B fragments come from
-// ldmatrix.trans.  q, k and v rows must start on 16 bytes (the wrapper
+// flash_fwd_kernel_wgmma (bfloat16, D = 64 or 128: the serving configs):
+// Hopper's asynchronous path.
+//   Tiles: 128 q rows a CTA against KV tiles of 128 keys.  384 threads:
+//   warpgroup 0 is the producer, of which one thread issues the loads;
+//   warpgroups 1 and 2 are consumers of 64 q rows each.
+//   Loads: the TMA (cp.async.bulk.tensor, 4-D maps over (D, seq, head,
+//   batch) built on the host per call from the tensors' own pointers and
+//   strides, so the transposed projection views are read without a copy)
+//   loads Q once and K and V into rings of 2 stages.  Each stage has a full
+//   barrier (mbarrier transaction bytes) and an empty barrier, which the 8
+//   consumer warps release, for K and for V apart.  A box is 64 columns
+//   (128 bytes) x 128 rows in the 128-byte swizzle, so a D = 128 row is two
+//   boxes.  Rows past S or Skv load as zeros.
+//   Products: S = Q K^T is wgmma m64n128k16 with Q and K from shared memory
+//   (both K-major); O += P V is wgmma m64n{D}k16 with P from registers (the
+//   S accumulator of 16 keys is the A fragment of one k-step) and V from
+//   shared memory in the transpose-B (MN-major) form.  P is split into bf16
+//   hi and lo halves as below, so P V runs twice: 1.5x the tensor work of
+//   the useful 4*S*Skv*D FLOP a head (the bound counts only the useful).
+//   Schedule: a consumer issues Q K^T of tile j and P V of tile j - 1 as one
+//   block, waits for it, then runs tile j's softmax.  The two consumers take
+//   turns through named barriers (ping-pong), so one's softmax on the CUDA
+//   cores runs while the other's block keeps the tensor cores busy.  Within
+//   a warpgroup the softmax does not overlap its own products (that would
+//   keep 64 words of P live through the softmax and spill), and the output
+//   goes from registers to global memory (no TMA store).
+//   Softmax: f32, the product scaled after Q K^T by scale * log2(e), and
+//   exponentials in base 2 (one MUFU ex2.approx each, relative error
+//   ~2^-22, far below the ~2^-17 at which P enters P V).  Only tiles that cut
+//   the causal diagonal, the window's edge or the end of the KV compute and
+//   apply a mask; the ~94% of visited tiles wholly inside skip it.
+//   Registers: setmaxnreg gives the producer warpgroup 24 registers and each
+//   consumer 240 (128 x 24 + 256 x 240 = 64,512 of the SM's 65,536): a
+//   consumer holds 64 f32 scores, D/2 f32 outputs and 64 bf16x2 words of P.
+//   One CTA an SM (161 KB of shared memory at D = 128).
+//   cuTensorMapEncodeTiled is fetched through cudaGetDriverEntryPoint, so the
+//   library links no libcuda and the build flags stay those of every source.
+//   At the serving shape the work bounds it (below): the tensor cores' time
+//   for 1.5x the useful FLOP is 0.83 ms; the f32 softmax and the split of P
+//   on the CUDA cores, which the ping-pong hides only in part, and each
+//   CTA's unoverlapped first and last blocks keep it above that.
+//
+// flash_fwd_kernel_mma (bfloat16, D = 16, 32 or 96): 64 q rows a CTA, 4
+// warps of 16 rows each, the products on the tensor cores with mma.sync
+// m16n8k16 (bf16 in, f32 accumulate), KV tiles of 64 keys staged with plain
+// 16-byte loads.
+//
+// Both tensor-core kernels multiply the bf16 inputs of Q K^T exactly and
+// scale the f32 product (as attention_ref does; the TPU kernel scales q
+// first, the same value up to the last f32 bit).  P stays f32 for the
+// softmax and enters P V as two bf16 halves, hi = bf16(p) and
+// lo = bf16(p - hi), so P V keeps ~16 bits of p (error ~2^-17 of p) at twice
+// the P V tensor work.  q, k and v rows must start on 16 bytes (the wrapper
 // copies a tensor that does not).
 //
 // flash_fwd_kernel (float32, and bfloat16 with D > 128): every product in f32
@@ -43,13 +85,15 @@
 // transposed (kt[d][col]) for Q K^T, then V (v[col][d]) in the same buffer;
 // q is scaled in f32 before the product, as in the TPU kernel.
 //
-// Shared memory is dynamic (above the 48 KB static limit at D=128), after
-// cudaFuncSetAttribute: 52 KB for the tensor-core kernel at D=128, 87 KB for
-// the f32 one.
+// Shared memory is dynamic (above the 48 KB static limit), after
+// cudaFuncSetAttribute: 161 KB for the wgmma kernel at D = 128, at most
+// 39 KB for the mma.sync one, 87 KB for the f32 one at D = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -499,9 +543,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
-bool uses_mma(int dtype, int d) {
-  return dtype == 1 && (d == 16 || d == 32 || d == 64 || d == 96 || d == 128);
-}
+bool uses_mma(int dtype, int d) { return dtype == 1 && (d == 16 || d == 32 || d == 96); }
 
 cudaError_t launch_mma_head_dim(int d, const void* q, const void* k, const void* v, void* o,
                                 int batch, int hq, int hkv, int s_len, int skv,
@@ -514,14 +556,399 @@ cudaError_t launch_mma_head_dim(int d, const void* q, const void* k, const void*
   switch (d) {
     FLASH_MMA_CASE(16)
     FLASH_MMA_CASE(32)
-    FLASH_MMA_CASE(64)
     FLASH_MMA_CASE(96)
-    FLASH_MMA_CASE(128)
     default:
       return cudaErrorInvalidValue;
   }
 #undef FLASH_MMA_CASE
 }
+
+
+// ------------------------------------- Hopper tensor-core (bf16, wgmma) ---
+
+constexpr int kWgBlockQ = 128;       // q rows a CTA: two consumer warpgroups of 64
+constexpr int kWgBlockK = 128;       // keys a KV tile
+constexpr int kWgThreads = 384;      // producer warpgroup + two consumer warpgroups
+constexpr int kWgStages = 2;         // K/V ring depth
+constexpr int kBoxBytes = 128 * 128; // one TMA box: 128 rows of 64 bf16 (128 bytes), 16 KB
+
+template <int D>
+struct WgSmem {
+  static constexpr int kTile = (D / 64) * kBoxBytes;  // 128 rows x D, as D/64 boxes
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;
+  static constexpr int kV = kK + kWgStages * kTile;
+  static constexpr int kBar = kV + kWgStages * kTile;
+  static constexpr int kBars = 1 + 4 * kWgStages;  // q_full, k_full[], v_full[], k_empty[], v_empty[]
+  static constexpr size_t kBytes = kBar + 8 * kBars + 1024;  // + room to align the base
+};
+
+// 2^x in one MUFU instruction (relative error ~2^-22; flushes to 0 below
+// 2^-126, which is what the -1e30 of a masked score gives).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Scale the scores of one KV tile and take each row's max; with kMask, also
+// mask them (bit j of `live` says whether score j is kept).
+template <bool kMask>
+__device__ __forceinline__ void scale_and_max(float (&s)[64], uint64_t& live, float (&mx)[2],
+                                              float scale, int pos0, int col0, int skv,
+                                              int causal, int window) {
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    if constexpr (kMask) {
+      const int row = pos0 + 8 * ((j >> 1) & 1);
+      const int col = col0 + (j >> 2) * 8 + (j & 1);
+      const bool ok = col < skv && (!causal || col <= row) && (window <= 0 || col > row - window);
+      live |= static_cast<uint64_t>(ok) << j;
+      s[j] = ok ? s[j] * scale : kNegInf;
+    } else {
+      s[j] *= scale;
+    }
+    mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+  }
+}
+
+template <bool kMask>
+__device__ __forceinline__ void exp_and_sum(float (&s)[64], uint64_t live, const float (&m)[2],
+                                            float (&l)[2]) {
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    const int i = (j >> 1) & 1;
+    if constexpr (kMask) {
+      s[j] = (live >> j) & 1u ? ex2(s[j] - m[i]) : 0.f;
+    } else {
+      s[j] = ex2(s[j] - m[i]);
+    }
+    l[i] += s[j];
+  }
+}
+
+// Online-softmax step of one KV tile in f32: scale (and, unless the tile is
+// whole, mask) the scores, update the row max m and this thread's share of
+// the row sum l, and leave p = exp(s - m) in s; alpha rescales the output.
+// The scale carries log2(e), so m is in base 2 and p = 2^(s - m).
+__device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], bool whole, float scale,
+                                               int pos0, int col0, int skv, int causal,
+                                               int window) {
+  uint64_t live = 0;
+  float mx[2] = {kNegInf, kNegInf};
+  if (whole) {
+    scale_and_max<false>(s, live, mx, scale, pos0, col0, skv, causal, window);
+  } else {
+    scale_and_max<true>(s, live, mx, scale, pos0, col0, skv, causal, window);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // a row's 4 threads are one quad
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    alpha[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+  if (whole) {
+    exp_and_sum<false>(s, live, m, l);
+  } else {
+    exp_and_sum<true>(s, live, m, l);
+  }
+}
+
+// P as bf16 hi and lo halves in the A fragment layout: the accumulator of
+// keys 16kk..16kk+15 is k-step kk's A fragment.
+__device__ __forceinline__ void split_p(const float (&s)[64], uint32_t (&ph)[8][4],
+                                        uint32_t (&pl)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      split_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);
+    }
+  }
+}
+
+__device__ __forceinline__ void fence_p(uint32_t (&ph)[8][4], uint32_t (&pl)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    hopper::fence_regs(ph[kk]);
+    hopper::fence_regs(pl[kk]);
+  }
+}
+
+// S = Q K^T of one warpgroup's 64 rows: D/16 k-steps, a k-step 32 bytes into
+// a 128-byte swizzled row, the second 64 columns of D one box (16 KB) on.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    hopper::wgmma_m64n128k16_ss(s, hopper::make_desc(q_addr + off, 16, 1024),
+                                hopper::make_desc(k_addr + off, 16, 1024), kk > 0);
+  }
+}
+
+// O += P V, P as hi and lo halves: V is [keys, D], MN-major for the
+// product; a k-step is 16 keys (2 KB), the second 64 columns of D one box on.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&ph)[8][4],
+                                         const uint32_t (&pl)[8][4], uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t dv = hopper::make_desc(v_addr + kk * 16 * 128, kBoxBytes, 1024);
+    if constexpr (D == 128) {
+      hopper::wgmma_m64n128k16_rs(acc, ph[kk], dv);
+      hopper::wgmma_m64n128k16_rs(acc, pl[kk], dv);
+    } else {
+      hopper::wgmma_m64n64k16_rs(acc, ph[kk], dv);
+      hopper::wgmma_m64n64k16_rs(acc, pl[kk], dv);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       int hq, int group, int s_len, int skv, float scale, int causal,
+                       int window) {
+  using L = WgSmem<D>;
+  constexpr int kBoxes = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kWgStages;
+  uint64_t* k_empty = v_full + kWgStages;
+  uint64_t* v_empty = k_empty + kWgStages;
+
+  const int nq = (s_len + kWgBlockQ - 1) / kWgBlockQ;
+  const int iq = nq - 1 - static_cast<int>(blockIdx.x);  // heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = iq * kWgBlockQ;
+  const int rows = min(kWgBlockQ, s_len - q0);
+  const int q_lo = q0 + (skv - s_len);  // absolute position of the tile's first row
+  const int q_hi = q_lo + rows - 1;
+  int kt_end = (skv + kWgBlockK - 1) / kWgBlockK;
+  if (causal) kt_end = q_hi >= 0 ? min(kt_end, q_hi / kWgBlockK + 1) : 0;
+  const int kt_begin = window > 0 ? max(0, q_lo - window + 1) / kWgBlockK : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int st = 0; st < kWgStages; ++st) {
+      hopper::mbar_init(k_full + st, 1);
+      hopper::mbar_init(v_full + st, 1);
+      hopper::mbar_init(k_empty + st, 8);  // one arrival from each consumer warp
+      hopper::mbar_init(v_empty + st, 8);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread keeps the TMA loads ahead ----
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const int hk = h / group;
+      hopper::mbar_arrive_expect_tx(q_full, L::kTile);
+      for (int c = 0; c < kBoxes; ++c)
+        hopper::tma_load_4d(smem + L::kQ + c * kBoxBytes, &tq, q_full, c * 64, q0, h, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = kt_begin; kt < kt_end; ++kt) {
+        const int k0 = kt * kWgBlockK;
+        unsigned char* ks = smem + L::kK + stage * L::kTile;
+        unsigned char* vs = smem + L::kV + stage * L::kTile;
+        hopper::mbar_wait(k_empty + stage, phase ^ 1u);  // the first round passes at once
+        hopper::mbar_arrive_expect_tx(k_full + stage, L::kTile);
+        for (int c = 0; c < kBoxes; ++c)
+          hopper::tma_load_4d(ks + c * kBoxBytes, &tk, k_full + stage, c * 64, k0, hk, b);
+        hopper::mbar_wait(v_empty + stage, phase ^ 1u);
+        hopper::mbar_arrive_expect_tx(v_full + stage, L::kTile);
+        for (int c = 0; c < kBoxes; ++c)
+          hopper::tma_load_4d(vs + c * kBoxBytes, &tv, v_full + stage, c * 64, k0, hk, b);
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+  } else {
+    // ---- two consumer warpgroups, 64 q rows each ----
+    hopper::setmaxnreg_inc<240>();
+    // shuffled from lane 0 so that the compiler sees them warp-uniform and
+    // keeps the shared-memory descriptors in uniform registers
+    const int cw = __shfl_sync(0xffffffffu, (threadIdx.x >> 7) - 1, 0);
+    const int warp = __shfl_sync(0xffffffffu, (threadIdx.x >> 5) & 3, 0);
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;          // accumulator row group and column pair
+    const int r0 = cw * 64 + warp * 16 + g;         // this thread's tile rows r0 and r0 + 8
+    const int pos0 = q_lo + r0;
+    const int wg_lo = q_lo + cw * 64, wg_hi = wg_lo + 63;
+    // this warpgroup's 64 rows start 64 rows (8 KB, a whole number of swizzle atoms) into a box
+    const uint32_t q_addr = hopper::smem_addr(smem + L::kQ) + cw * 64 * 128;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    float s[64];
+    uint32_t ph[8][4], pl[8][4];
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's share of the row sum
+    float alpha[2];
+    const float scale_log2 = scale * 1.4426950408889634f;  // exponentials in base 2
+    auto stage_addr = [&](int base, int st) {
+      return hopper::smem_addr(smem + base + st * L::kTile);
+    };
+    // only tiles that cut the causal diagonal, the window's edge or the end
+    // of the KV are masked
+    auto whole = [&](int k0) {
+      return k0 + kWgBlockK <= skv && (!causal || k0 + kWgBlockK - 1 <= wg_lo) &&
+             (window <= 0 || k0 > wg_hi - window);
+    };
+
+    // A warpgroup's work on tile j is a block of products, Q K^T of tile j
+    // and P V of tile j - 1 (issued together, then waited for), followed by
+    // the softmax of tile j on the CUDA cores.  The two warpgroups take turns
+    // through named barriers 1 and 2: one issues its block only after the
+    // other has issued its own, so one's softmax runs while the other's
+    // products keep the tensor cores busy.  Warpgroup 0 goes first; every
+    // warpgroup runs n_tiles + 1 blocks (the first holds only Q K^T, the last
+    // only P V), and the last arrival of warpgroup 1, which no one would
+    // wait for, is left out.
+    const int n_tiles = max(kt_end - kt_begin, 0);
+    const int my_turn = 1 + cw, their_turn = 2 - cw;
+    hopper::mbar_wait(q_full, 0);
+    if (n_tiles > 0 && cw == 1) hopper::named_bar_arrive(their_turn, 256);
+    for (int j = 0; j <= n_tiles && n_tiles > 0; ++j) {
+      const bool qk = j < n_tiles, pv = j > 0;
+      const int stage = j % kWgStages, prev = (j + kWgStages - 1) % kWgStages;
+      if (qk) hopper::mbar_wait(k_full + stage, (j / kWgStages) & 1u);
+      if (pv) hopper::mbar_wait(v_full + prev, ((j - 1) / kWgStages) & 1u);
+      hopper::named_bar_sync(my_turn, 256);
+      hopper::fence_regs(s);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      if (qk) issue_qk<D>(s, q_addr, stage_addr(L::kK, stage));
+      if (pv) issue_pv<D>(acc, ph, pl, stage_addr(L::kV, prev));
+      hopper::wgmma_commit();
+      if (cw == 0 || j < n_tiles) hopper::named_bar_arrive(their_turn, 256);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(acc);
+      fence_p(ph, pl);
+      __syncwarp();
+      if (lane == 0) {  // K of tile j and V of tile j - 1 are free
+        if (qk) hopper::mbar_arrive(k_empty + stage);
+        if (pv) hopper::mbar_arrive(v_empty + prev);
+      }
+      if (qk) {
+        const int k0 = (kt_begin + j) * kWgBlockK;
+        online_softmax(s, m, l, alpha, whole(k0), scale_log2, pos0, k0 + 2 * t, skv, causal,
+                       window);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        split_p(s, ph, pl);
+      }
+    }
+
+    __nv_bfloat16* ob = o + (static_cast<long long>(b) * hq + h) * s_len * D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const int r = r0 + 8 * i;
+      if (r >= rows) continue;
+      const float den = fmaxf(l[i], 1e-30f);
+      __nv_bfloat16* orow = ob + static_cast<long long>(q0 + r) * D + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) = __floats2bfloat162_rn(
+            acc[dt * 4 + 2 * i] / den, acc[dt * 4 + 2 * i + 1] / den);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled is a driver-API call: fetch it through the runtime
+// so that the library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// Error codes of flash_attention_launch above every cudaError_t: a tensor map
+// that the driver refused (kTensorMapError + its CUresult), or no
+// cuTensorMapEncodeTiled at all.
+constexpr int kTensorMapError = 100000;
+constexpr int kNoEncoder = 200000;
+
+// A [batch, heads, seq, D] bf16 tensor with the given element strides (last
+// dimension contiguous) as a 4-D map (D, seq, heads, batch) whose box is 64
+// columns x 128 rows, written to shared memory with the 128-byte swizzle.
+// Rows past `seq` read as zeros.
+int encode_map(CUtensorMap* map, const void* ptr, int d, int seq, int heads, int batch,
+               long long s_b, long long s_h, long long s_s) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_s) * 2,
+                                 static_cast<cuuint64_t>(s_h) * 2,
+                                 static_cast<cuuint64_t>(s_b) * 2};
+  const cuuint32_t box[4] = {64, 128, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(res);
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int hq, int hkv,
+                 int s_len, int skv, const long long* st, float scale, int causal, int window,
+                 cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int rc = encode_map(&tq, q, D, s_len, hq, batch, st[0], st[1], st[2]);
+  if (rc == 0) rc = encode_map(&tk, k, D, skv, hkv, batch, st[3], st[4], st[5]);
+  if (rc == 0) rc = encode_map(&tv, v, D, skv, hkv, batch, st[6], st[7], st[8]);
+  if (rc != 0) return rc;
+  auto kernel = flash_fwd_kernel_wgmma<D>;
+  const int bytes = static_cast<int>(WgSmem<D>::kBytes);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s_len + kWgBlockQ - 1) / kWgBlockQ, hq, batch);
+  kernel<<<grid, kWgThreads, bytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), hq,
+                                              hq / hkv, s_len, skv, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool uses_wgmma(int dtype, int d) { return dtype == 1 && (d == 64 || d == 128); }
 
 }  // namespace
 
@@ -531,16 +958,26 @@ extern "C" int flash_attention_supports(int d) {
 }
 
 // Byte alignment that every row start of q, k and v needs (base pointer and
-// every batch, head and seq stride): 16 on the tensor-core path, else the
+// every batch, head and seq stride): 16 on the tensor-core paths (the TMA's
+// rule for global addresses and strides on the wgmma path), else the
 // element size.
 extern "C" int flash_attention_row_align(int dtype, int d) {
-  return uses_mma(dtype, d) ? 16 : (dtype == 0 ? 4 : 2);
+  return uses_wgmma(dtype, d) || uses_mma(dtype, d) ? 16 : (dtype == 0 ? 4 : 2);
+}
+
+// Dynamic shared memory, in bytes, of a CTA of the wgmma kernel at head
+// dimension d; 0 where bf16 at d does not run it.
+extern "C" int flash_attention_wgmma_smem_bytes(int d) {
+  return d == 128 ? static_cast<int>(WgSmem<128>::kBytes)
+         : d == 64 ? static_cast<int>(WgSmem<64>::kBytes)
+                   : 0;
 }
 
 // Launch on `stream`.  dtype 0 is float32, 1 is bfloat16 (q, k, v and o alike).
 // strides holds (batch, head, seq) element strides of q, k and v in that order;
 // the last dimension of each is contiguous.  o is a contiguous [B, Hq, S, D].
-// Returns cudaGetLastError() after the launch.
+// Returns cudaGetLastError() after the launch, or a tensor-map error code
+// (kTensorMapError + CUresult, kNoEncoder) from the wgmma path.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int dtype, int batch, int hq, int hkv, int s_len, int skv,
                                       int d, const long long* strides, float scale, int causal,
@@ -548,6 +985,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (batch == 0 || hq == 0 || s_len == 0) return static_cast<int>(cudaSuccess);
   if (hkv <= 0 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (uses_wgmma(dtype, d)) {
+    return d == 128 ? launch_wgmma<128>(q, k, v, o, batch, hq, hkv, s_len, skv, strides, scale,
+                                        causal, window, st)
+                    : launch_wgmma<64>(q, k, v, o, batch, hq, hkv, s_len, skv, strides, scale,
+                                       causal, window, st);
+  }
   cudaError_t err =
       uses_mma(dtype, d)
       ? launch_mma_head_dim(d, q, k, v, o, batch, hq, hkv, s_len, skv, strides, scale, causal,

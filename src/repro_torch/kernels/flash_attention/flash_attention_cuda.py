@@ -5,8 +5,10 @@ Replaces the TPU kernel
 point ``flash_attention_pallas``).  At the serving shape (B=4, H=32,
 S=4096, D=128, causal) the kernel does 0.55 TFLOP against 0.54 GB of
 inputs and output, so it is bound by operations.  bfloat16 inputs with
-D <= 128 run on the tensor cores (``mma.sync``); float32 inputs, and bf16
-with a larger D, in f32 on the CUDA cores.  See the source for the tiling.
+D = 64 or 128 run on Hopper's TMA, ``wgmma`` and warp-specialised path
+(``flash_fwd_kernel_wgmma``); bf16 with D = 16, 32 or 96 on ``mma.sync``;
+float32 inputs, and bf16 with a larger D, in f32 on the CUDA cores.  See the
+source for the tiling.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# codes of flash_attention_launch above every cudaError_t (see the source)
+_TENSOR_MAP_ERROR, _NO_ENCODER = 100000, 200000
+
 
 def _lib():
     lib = _build.load("flash_attention")
@@ -31,6 +36,8 @@ def _lib():
         lib.flash_attention_supports.restype = i
         lib.flash_attention_row_align.argtypes = [i, i]
         lib.flash_attention_row_align.restype = i
+        lib.flash_attention_wgmma_smem_bytes.argtypes = [i]
+        lib.flash_attention_wgmma_smem_bytes.restype = i
         lib.flash_attention_launch.argtypes = [
             p, p, p, p, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
             ctypes.c_float, i, i, p,
@@ -53,7 +60,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides are free, so the transposed views of a projection need no copy),
     ``Hq % Hkv == 0`` and D in 16, 32, 64, 96, 128, 192, 256; raises on
     anything else.  A tensor whose rows do not start where the kernel needs
-    (16 bytes on the tensor-core path) is copied first.  Returns a
+    (16 bytes on the tensor-core paths, the TMA's rule on the wgmma path) is
+    copied first.  Returns a
     contiguous ``[B,Hq,S,D]`` in q's dtype."""
     global launches
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -88,6 +96,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         B, Hq, Hkv, S, Skv, D, strides, scale, int(causal), int(window),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if rc >= _NO_ENCODER:
+        raise RuntimeError("flash attention: the driver has no cuTensorMapEncodeTiled")
+    if rc >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"flash attention: the driver refused a tensor map: CUresult "
+                           f"{rc - _TENSOR_MAP_ERROR}")
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {rc}")
     launches += 1

@@ -168,6 +168,15 @@ FLASH_CASES = [
     (1, 2, 1, 70, 70, 16, True, 0, torch.bfloat16),     # tensor-core path, smallest D
     (1, 2, 2, 100, 100, 96, False, 0, torch.bfloat16),  # tensor-core path, non-causal ragged
     (1, 4, 2, 130, 200, 192, True, 64, torch.bfloat16),  # bf16 on the CUDA-core path (D > 128)
+    # the wgmma/TMA path (bf16, D = 64 or 128): ragged tails of 128-row tiles,
+    # right-aligned q, tiles wholly inside a window, qwen2.5-32b's GQA, no causality
+    (1, 4, 2, 1000, 1000, 128, True, 0, torch.bfloat16),
+    (2, 4, 2, 300, 1000, 128, True, 0, torch.bfloat16),
+    (1, 4, 4, 1024, 1024, 128, True, 256, torch.bfloat16),
+    (1, 40, 8, 2048, 2048, 128, True, 0, torch.bfloat16),
+    (2, 4, 2, 200, 200, 128, False, 0, torch.bfloat16),
+    (1, 4, 2, 1000, 1000, 64, True, 0, torch.bfloat16),
+    (1, 4, 1, 700, 900, 64, True, 200, torch.bfloat16),
 ]
 
 
@@ -191,8 +200,38 @@ def test_flash_kernel_matches_plain(cuda_device, B, Hq, Hkv, S, Skv, D, causal, 
     torch.cuda.synchronize()
     assert mod.launches == before + 1
     assert got.dtype == dtype and got.shape == want.shape
+    # bf16: outputs round at 2^-8 and P enters P V with ~16 bits (hi + lo
+    # halves); f32: the kernel sums in another order than the plain version
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,window", [(128, 0), (64, 100)])
+def test_flash_kernel_reads_projection_views_without_copy(cuda_device, D, window):
+    """q, k and v as ``_project_qkv`` gives them (transposed views of one
+    [B, S, H*D] projection each) go straight to the TMA: the result equals the
+    same tensors made contiguous, and two launches give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as mod
+
+    B, S, Hq, Hkv = 2, 520, 8, 2
+    rng = np.random.default_rng(7)
+    views = []
+    for H in (Hq, Hkv, Hkv):
+        x = torch.from_numpy(rng.standard_normal((B, S, H * D), dtype=np.float32))
+        x = x.to(device=cuda_device, dtype=torch.bfloat16)
+        views.append(x.view(B, S, H, D).transpose(1, 2))
+    q, k, v = views
+    assert not q.is_contiguous()
+    got = mod.flash_attention_cuda(q, k, v, causal=True, window=window)
+    again = mod.flash_attention_cuda(q, k, v, causal=True, window=window)
+    want = mod.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=2e-2)
 
 
 @pytest.mark.cuda
