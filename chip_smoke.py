@@ -10,11 +10,15 @@ check does not hold:
    started together) and print the build seconds and ptxas resource use;
 2. hold every kernel against its plain PyTorch version on the card: the
    assignment kernel at the engine shape and at the kernel-test shapes
-   (idx/admit/pos exact, gate rtol 1e-5 atol 1e-6), the segment sum at the
-   engine shape (exact against the plain version's row-order sums), the
-   fused candidate-set assignment at the sparse engine shape (N=100000,
+   (idx/admit/pos exact, gate rtol 1e-5 atol 1e-6), the segment sum on
+   nine id mixes (bit for bit the CPU's row-order sums: uniform, 95%
+   padding, one segment, out-of-range ids, signed zeros, F = 1..4, J = 0),
+   the fused candidate-set assignment at the sparse engine shape (N=100000,
    K=16, E=300) and at the kernel-test shapes (site/admit exact); time each
-   at its engine shape with CUDA events;
+   at its engine shape two ways, a call between CUDA events (host launch
+   work included) and the kernels' device time from ``torch.profiler``,
+   with the launches a call (the segment sum on a uniform id mix and on
+   one where 95% of rows carry the padding id);
 3. drive the dense path at WLCG scale: ``simulate`` on 300 sites and 100000
    jobs with ``panda_dispatch`` plus capacity dispatch, twice, with the
    launch counters set to 0 just before the first run; require every round
@@ -79,6 +83,10 @@ ASSIGN_CASES = [  # (N, E, k, block_n)
     (33, 7, 3, 16),
     (512, 32, 8, 128),
     (256, 384, 8, 256),
+    (1000, 301, 1, 256),            # E % 4 != 0: rows not 16-byte aligned
+    (2000, 512, 8, 256),            # the widest MoE router, k = 8
+    (600, 700, 2, 128),             # E above the 512 bins kept in registers
+    (5000, 64, 4, 300),             # block_n dividing neither N nor the 256-row tile
 ]
 JOB_FIELDS = ("state", "site", "retries", "will_fail", "t_assign", "t_start", "t_finish")
 SITE_FIELDS = ("free_cores", "free_memory", "n_assigned", "n_finished", "n_failed")
@@ -111,11 +119,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
-def device_ms(fn, kernel_names, iters: int, forbid=()) -> dict:
+def device_ms(fn, kernel_names, iters: int, forbid=(), counts=None) -> dict:
     """Device milliseconds per call of ``fn`` for each named kernel, from
     ``torch.profiler`` over ``iters`` calls: the kernels' own time, without
     the host time between launches that CUDA events around a short call
-    would include.  Fails if a kernel whose name holds one of ``forbid`` ran."""
+    would include.  Fails if a kernel whose name holds one of ``forbid`` ran.
+    ``counts``, when given, receives each named kernel's launches per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -126,13 +135,17 @@ def device_ms(fn, kernel_names, iters: int, forbid=()) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {name: 0.0 for name in kernel_names}
+    seen = {name: 0 for name in kernel_names}
     for e in prof.key_averages():
         bad = [f for f in forbid if f in e.key]
         check(not bad, f"the profiled calls ran {e.key[:120]}")
         for name in kernel_names:
-            if name in e.key:
+            if name in e.key and e.self_device_time_total > 0:
                 out[name] += e.self_device_time_total / 1e3 / iters
+                seen[name] += e.count
     check(all(v > 0 for v in out.values()), f"the profiler saw no device time for {out}")
+    if counts is not None:
+        counts.update({name: n / iters for name, n in seen.items()})
     return out
 
 
@@ -180,8 +193,49 @@ def assign_inputs(N, E, seed, device):
             torch.from_numpy(caps.astype(np.float32)).to(device))
 
 
-def phase_kernels(device) -> dict:
+SEGSUM_CASES = [  # (id mix, J, S, F, dtype, id dtype)
+    ("uniform", ENGINE_J, ENGINE_S, 1, "float32", "int32"),    # the engine shape
+    ("uniform", ENGINE_J, ENGINE_S, 3, "int32", "int32"),      # stacked int columns
+    ("padding95", ENGINE_J, ENGINE_S, 1, "float32", "int32"),
+    ("padding95", ENGINE_J, ENGINE_S, 2, "int32", "int64"),
+    ("one_segment", ENGINE_J, ENGINE_S, 1, "float32", "int32"),
+    ("out_of_range", 10_007, 37, 4, "float32", "int64"),
+    ("uniform", 100_003, 301, 4, "float32", "int32"),          # J not a multiple of the chunk
+    ("uniform", 0, 5, 2, "float32", "int32"),                  # J = 0
+    ("signed_zeros", 3000, 20, 3, "float32", "int32"),
+]
+ASSIGN_KERNELS = ("assign_rows_kernel", "assign_base_kernel", "assign_place_kernel")
+
+
+def segsum_inputs(mix, J, S, F, dtype, id_dtype, seed):
+    """Values ``[J]`` (F = 1) or ``[J, F]`` and ids on the CPU.  Id ``S`` is
+    the padding segment; ``padding95`` gives it 95% of rows, ``one_segment``
+    gives segment S // 2 99.9%, ``out_of_range`` draws ids in [-3S, 3S), and
+    ``signed_zeros`` leaves segments 0, 4, ... empty and fills 1, 5, ... with
+    -0.0 rows only (their sums are +0.0)."""
     import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, S + 1, J)
+    if mix == "padding95":
+        ids = np.where(rng.random(J) < 0.95, S, ids)
+    elif mix == "one_segment":
+        ids = np.where(rng.random(J) < 0.999, S // 2, ids)
+    elif mix == "out_of_range":
+        ids = rng.integers(-3 * S, 3 * S, J)
+    if dtype == "float32":
+        v = rng.lognormal(1.0, 1.0, (J, F)).astype(np.float32)
+        if mix == "signed_zeros":
+            ids = np.where(ids % 4 == 0, S, ids)
+            v[ids % 4 == 1] = -0.0
+    else:
+        v = rng.integers(-(2**20), 2**20, (J, F)).astype(np.int32)
+    return (torch.from_numpy(v if F > 1 else v[:, 0].copy()),
+            torch.from_numpy(ids).to(getattr(torch, id_dtype)))
+
+
+def phase_kernels(device) -> dict:
     import torch
 
     from repro_torch.kernels.assign.assign_cuda import assign_cuda
@@ -208,52 +262,74 @@ def phase_kernels(device) -> dict:
 
     N, E = ENGINE_J, ENGINE_S
     scores, sizes, caps = assign_inputs(N, E, N * 31 + E, device)
-    ms = cuda_ms(lambda: assign_cuda(scores, sizes, caps, k=1), iters=50)
+    call_ms = cuda_ms(lambda: assign_cuda(scores, sizes, caps, k=1), iters=200)
+    per_call = {}
+    parts = device_ms(lambda: assign_cuda(scores, sizes, caps, k=1), ASSIGN_KERNELS, iters=200,
+                      counts=per_call)
+    ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: assign_ref(scores, sizes, caps, k=1), iters=5)
     bytes_moved = N * E * 4 + N * 4 + E * 4 + N * (4 + 4 + 1 + 4)
     ops = N * E * 7          # mask, max, sub, exp, add, argmax compare and select
     bound_ms = max(bytes_moved / PEAK_HBM_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S) * 1e3
-    print(f"[kernels] assign at the engine shape N={N} E={E} k=1: kernel {ms:.4f} ms, "
+    print(f"[kernels] assign at the engine shape N={N} E={E} k=1: kernel {ms:.4f} ms of device "
+          f"time ({', '.join(f'{k} {v:.4f}' for k, v in parts.items())}; launches a call "
+          f"{json.dumps(per_call)}), {call_ms:.4f} ms a call between CUDA events; "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), "
           "library: no single PyTorch call computes this function")
     rows["assign"] = dict(
         name="assign", route="cuda", source="src/repro_torch/kernels/assign/csrc/assign.cu",
         replaces="src/repro/kernels/assign/assign.py:31", launches=None,
         max_abs_err=gate_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="bytes", library_ms=None,
+        bound_by="bytes", library_ms=None, cuda_ms=call_ms, device_ms=ms,
+        kernels_per_call=sum(per_call.values()),
     )
 
-    # the segment sum at the engine shape: values of J rows over S sites plus
-    # the padding segment S, float (memory) and stacked int (cores, counts)
-    rng = np.random.default_rng(1)
-    seg = torch.from_numpy(rng.integers(0, ENGINE_S + 1, ENGINE_J).astype(np.int32))
+    # the segment sum: bit for bit the CPU's row-order sums on the engine's
+    # id mixes, then timed at the engine shape (J rows, S sites plus the
+    # padding segment S) on a uniform mix and on one where 95% of rows pad
     err = 0.0
-    for values in (torch.from_numpy(rng.uniform(1.6, 19.2, ENGINE_J).astype(np.float32)),
-                   torch.from_numpy(rng.integers(0, 9, (ENGINE_J, 3)).astype(np.int32))):
-        want = segment_sum_ref(values, seg, ENGINE_S)   # row-order sums on the CPU
-        got = segment_sum_cuda(values.to(device), seg.to(device), ENGINE_S).cpu()
-        bad = int((want != got).sum())
-        check(bad == 0, f"segment_sum {values.dtype}: {bad} sums differ from row order")
-        on_card = segment_sum_ref(values.to(device), seg.to(device), ENGINE_S).cpu()
-        err = max(err, float((got.double() - on_card.double()).abs().max()))
-    print(f"[kernels] segment_sum J={ENGINE_J} S={ENGINE_S}: f32 and 3 x i32 exact against "
-          f"the CPU's row-order sums; max_abs_err against the card's atomics {err:.3e}")
-    vals = torch.from_numpy(rng.uniform(1.6, 19.2, ENGINE_J).astype(np.float32)).to(device)
-    seg_d = seg.to(device)
-    ms = cuda_ms(lambda: segment_sum_cuda(vals, seg_d, ENGINE_S), iters=50)
-    plain_ms = cuda_ms(lambda: segment_sum_ref(vals, seg_d, ENGINE_S), iters=50)
-    idx64 = seg_d.long()
-    acc = torch.zeros(ENGINE_S + 1, device=device)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, idx64, vals), iters=50)
+    for mix, J, S, F, dtype, id_dtype in SEGSUM_CASES:
+        values, seg = segsum_inputs(mix, J, S, F, dtype, id_dtype, J + S + F)
+        want = segment_sum_ref(values, seg, S)          # row-order sums on the CPU
+        got = segment_sum_cuda(values.to(device), seg.to(device), S).cpu()
+        bits = (lambda t: t.view(torch.int32)) if dtype == "float32" else (lambda t: t)
+        bad = int((bits(want) != bits(got)).sum())
+        check(bad == 0, f"segment_sum {mix} J={J} S={S} F={F} {dtype} {id_dtype}: {bad} sums "
+                        "differ from row order")
+        if mix == "uniform" and J == ENGINE_J:
+            on_card = segment_sum_ref(values.to(device), seg.to(device), S).cpu()
+            err = max(err, float((got.double() - on_card.double()).abs().max()))
+    print(f"[kernels] segment_sum: {len(SEGSUM_CASES)} id mixes bit for bit the CPU's row-order "
+          f"sums; max_abs_err of the card's index_add_ atomics against them {err:.3e}")
+    timed = {}
+    for mix in ("uniform", "padding95"):
+        vals, seg_d = (t.to(device) for t in segsum_inputs(mix, ENGINE_J, ENGINE_S, 1,
+                                                            "float32", "int32", 1))
+        call = cuda_ms(lambda: segment_sum_cuda(vals, seg_d, ENGINE_S), iters=200)
+        per_call = {}
+        dev = device_ms(lambda: segment_sum_cuda(vals, seg_d, ENGINE_S), ("segment_sum_kernel",),
+                        iters=200, counts=per_call)["segment_sum_kernel"]
+        plain = cuda_ms(lambda: segment_sum_ref(vals, seg_d, ENGINE_S), iters=200)
+        idx64 = seg_d.long()
+        acc = torch.zeros(ENGINE_S + 1, device=device)
+        library = cuda_ms(lambda: acc.index_add_(0, idx64, vals), iters=200)
+        timed[mix] = dict(cuda_ms=call, device_ms=dev, plain_ms=plain, library_ms=library,
+                          kernels_per_call=per_call["segment_sum_kernel"])
+        print(f"[kernels] segment_sum {mix} J={ENGINE_J} S={ENGINE_S} f32: {call:.4f} ms a call "
+              f"between CUDA events, {dev:.4f} ms device time, "
+              f"{per_call['segment_sum_kernel']:g} launches a call; plain {plain:.4f} ms, "
+              f"index_add_ {library:.4f} ms")
     bytes_moved = ENGINE_J * (4 + 4) + ENGINE_S * 4
     bound_ms = max(bytes_moved / PEAK_HBM_BYTES_PER_S, ENGINE_J / PEAK_FP32_OPS_PER_S) * 1e3
-    print(f"[kernels] segment_sum at the engine shape: wrapper (sort + kernel) {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound {bound_ms:.6f} ms")
+    print(f"[kernels] segment_sum bound {bound_ms:.6f} ms (bytes, {bytes_moved} B)")
+    u = timed["uniform"]
     rows["segment_sum"] = dict(
         name="segment_sum", route="cuda",
         source="src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu",
         replaces="src/repro/core/engine.py:142", launches=None, max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+        ms=u["device_ms"], plain_ms=u["plain_ms"], bound_ms=bound_ms, bound_by="bytes",
+        library_ms=u["library_ms"], cuda_ms=u["cuda_ms"], device_ms=u["device_ms"],
+        kernels_per_call=u["kernels_per_call"], padding95=timed["padding95"],
     )
     return rows
 
@@ -841,9 +917,11 @@ def profile_rounds(run, label: str = "profile") -> None:
     if device_ms == 0.0:
         print(f"[{label}] the profiler saw no device time: busy share not measured")
         return
+    sorts = sum(e.count for e in kernels if "DeviceRadixSortOnesweepKernel" in e.key)
     print(f"[{label}] 100 rounds: wall {wall_ms:.1f} ms (profiled), device busy "
           f"{device_ms:.1f} ms = {100 * device_ms / wall_ms:.1f}%, idle "
-          f"{100 - 100 * device_ms / wall_ms:.1f}%, {sum(e.count for e in kernels)} kernels")
+          f"{100 - 100 * device_ms / wall_ms:.1f}%, {sum(e.count for e in kernels)} kernels, "
+          f"{sorts} of them DeviceRadixSortOnesweepKernel")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[{label}]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 

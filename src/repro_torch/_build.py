@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
@@ -34,6 +36,7 @@ FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _nvcc() -> str:
@@ -92,6 +95,16 @@ def build_log(name: str) -> str:
     current build of ``name``, or an empty string when it came from the cache."""
     log = library_path(name).with_suffix(".log")
     return log.read_text(errors="replace") if log.exists() else ""
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``, as
+    an int for a ``ctypes`` call; without building a ``torch.cuda.Stream``
+    object where this PyTorch offers that."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def load(name: str) -> ctypes.CDLL:

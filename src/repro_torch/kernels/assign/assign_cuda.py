@@ -3,7 +3,9 @@
 Replaces the TPU kernel ``src/repro/kernels/assign/assign.py:_assign_kernel``
 (entry point ``assign_pallas``).  The kernel reads the ``N x E`` f32 score
 matrix once, so it is bound by device-memory bandwidth: 120 MB at the
-engine's N=100000, E=300.  See the source for the two-pass design.
+engine's N=100000, E=300.  Three launches: rows (gates, picks and in-tile
+prefixes), a scan of the tile totals, then positions and admits; see the
+source.
 """
 from __future__ import annotations
 
@@ -15,16 +17,18 @@ from ... import _build
 
 # kernel launches since the count was last reset (see chip_smoke.py)
 launches = 0
+_SCRATCH: dict = {}   # scratch floats by (N, E, k, block_n)
 
 
-def _fn():
-    fn = _build.load("assign").assign_launch
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("assign")
+    if lib.assign_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.assign_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p]
+        lib.assign_launch.restype = i
+        lib.assign_scratch_floats.argtypes = [i, i, i, i]
+        lib.assign_scratch_floats.restype = ctypes.c_longlong
+    return lib
 
 
 def assign_cuda(scores: torch.Tensor, sizes: torch.Tensor, caps: torch.Tensor, *,
@@ -53,10 +57,15 @@ def assign_cuda(scores: torch.Tensor, sizes: torch.Tensor, caps: torch.Tensor, *
     gate = torch.empty((N, k), dtype=torch.float32, device=dev)
     admit = torch.empty((N, k), dtype=torch.bool, device=dev)
     pos = torch.empty((N, k), dtype=torch.float32, device=dev)
-    rc = _fn()(
+    lib = _lib()
+    floats = _SCRATCH.get((N, E, k, block_n))
+    if floats is None:
+        floats = _SCRATCH[N, E, k, block_n] = lib.assign_scratch_floats(N, E, k, block_n)
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    rc = lib.assign_launch(
         scores.data_ptr(), sizes.data_ptr(), caps.data_ptr(), N, E, k, block_n,
-        idx.data_ptr(), gate.data_ptr(), admit.data_ptr(), pos.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        idx.data_ptr(), gate.data_ptr(), admit.data_ptr(), pos.data_ptr(), scratch.data_ptr(),
+        _build.stream_handle(dev),
     )
     if rc != 0:
         raise RuntimeError(f"assign kernel launch failed: cudaError {rc}")

@@ -69,7 +69,7 @@ def fused_assign_cuda(scores_k: torch.Tensor, cand: torch.Tensor, sizes: torch.T
     rc = lib.fused_launch(
         scores_k.data_ptr(), cand.data_ptr(), sizes.data_ptr(), caps.data_ptr(), N, K, E,
         site.data_ptr(), admit.data_ptr(), bin_.data_ptr(), local.data_ptr(),
-        tile_tot.data_ptr(), base.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        tile_tot.data_ptr(), base.data_ptr(), _build.stream_handle(dev),
     )
     if rc != 0:
         raise RuntimeError(f"fused assign kernel launch failed: cudaError {rc}")

@@ -94,7 +94,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
         B, Hq, Hkv, S, Skv, D, strides, scale, int(causal), int(window),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.stream_handle(q.device),
     )
     if rc >= _NO_ENCODER:
         raise RuntimeError("flash attention: the driver has no cuTensorMapEncodeTiled")

@@ -22,5 +22,5 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int) -> t
     """Sum ``values`` (``[J]`` or ``[J, F]``, f32 or i32) per segment id, in row
     order; ids outside ``[0, num_segments)`` are dropped."""
     if values.is_cuda:
-        return segment_sum_cuda(values.contiguous(), seg, num_segments)
+        return segment_sum_cuda(values.contiguous(), seg.contiguous(), num_segments)
     return segment_sum_ref(values, seg, num_segments)

@@ -96,3 +96,60 @@ def test_cuda_wrappers_import_and_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         segment_sum_cuda.segment_sum_cuda(torch.zeros(4), torch.zeros(4, dtype=torch.int32), 2)
     assert assign_cuda.launches == 0
+
+
+def _tiled_admission(idx, sizes, caps, k, block_n, tile_rows):
+    """A model in numpy of the card's admission decomposition
+    (``csrc/assign.cu``): claims cut into tiles (``tile_rows`` rows of one
+    slot within one row block, numbered in claim order), per-tile per-bin
+    totals, an exclusive scan of those totals over tiles, and each claim's
+    in-tile prefix in row order.  k = 1 takes claims in row order, so the
+    card puts all rows in one block whatever ``block_n`` is."""
+    N, E = idx.shape[0], caps.shape[0]
+    block_rows = N if (k == 1 or block_n > N) else block_n
+    tpb = -(-block_rows // tile_rows)
+    n_blocks = -(-N // block_rows)
+    totals = np.zeros((E, n_blocks * k * tpb), np.float32)
+    local = np.zeros((N, k), np.float32)
+    tile_of = np.zeros((N, k), np.int64)
+    for blk in range(n_blocks):
+        for t in range(tpb):
+            r0 = blk * block_rows + t * tile_rows
+            r1 = min(r0 + tile_rows, (blk + 1) * block_rows, N)
+            for s in range(k):
+                tile = (blk * k + s) * tpb + t
+                run = np.zeros(E, np.float32)
+                for r in range(r0, r1):
+                    tile_of[r, s] = tile
+                    b = idx[r, s]
+                    if b >= 0:
+                        local[r, s] = run[b]
+                        run[b] += sizes[r]
+                totals[:, tile] = run
+    base = np.cumsum(totals, axis=1, dtype=np.float32) - totals
+    pos = np.where(idx >= 0, base[idx.clip(0), tile_of] + local, np.float32(0.0))
+    admit = (idx >= 0) & (pos + sizes[:, None] <= caps[idx.clip(0)] + np.float32(1e-6))
+    return pos.astype(np.float32), admit
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("N,E,block_n,tile_rows", [
+    (200, 12, 64, 16),     # several tiles a block
+    (150, 9, 48, 32),      # block_n not a multiple of the tile, ragged last block
+    (97, 30, 500, 16),     # block_n above N
+    (300, 300, 256, 256),  # the card's tile size
+])
+def test_tiled_admission_model_matches_assign_ref(k, N, E, block_n, tile_rows):
+    scores, sizes, caps = _inputs(N, E, N * 7 + E + k)
+    caps = caps * (N * k / (4 * E))  # some bins fill, some do not
+    want = jax_assign_ref(jnp.array(scores), jnp.array(sizes), jnp.array(caps), k=k,
+                          block_n=block_n)
+    idx = np.asarray(want[0])
+    pos, admit = _tiled_admission(idx, sizes, caps, k, block_n, tile_rows)
+    np.testing.assert_array_equal(np.asarray(want[3]), pos)
+    np.testing.assert_array_equal(np.asarray(want[2]), admit)
+    assert 0 < admit.sum() < (idx >= 0).sum()  # the caps bind
+    got = assign_ref(torch.from_numpy(scores), torch.from_numpy(sizes), torch.from_numpy(caps),
+                     k=k, block_n=block_n)
+    np.testing.assert_array_equal(got[3].numpy(), pos)
+    np.testing.assert_array_equal(got[2].numpy(), admit)

@@ -6,8 +6,8 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 
 Tolerances: ``idx``, ``admit`` and ``pos`` are exact (integral sizes make
 every prefix sum exact in f32); ``gate`` uses rtol 1e-5, atol 1e-6 (``expf``
-rounding and summation order).  Segment sums are exact against the CPU's
-row-order sums.  The fused candidate-set assignment's ``site`` and ``admit``
+rounding and summation order).  Segment sums are bit for bit the CPU's
+row-order sums, signed zeros included.  The fused candidate-set assignment's ``site`` and ``admit``
 are exact (integral sizes again).  The flash-attention kernel holds
 ``attention_ref`` to max abs error 2e-5 in float32 and 2e-2 in bfloat16 (the
 kernel sums in another order; bf16 outputs round at 2^-8), and a 2-layer
@@ -34,7 +34,12 @@ ASSIGN_CASES = [
     (33, 7, 3, 16),
     (512, 32, 8, 128),
     (100_000, 300, 1, 256),   # the engine's WLCG-scale dispatch shape
-    (1000, 20, 2, 512),       # block_n above the kernel's 256-thread chunk
+    (1000, 20, 2, 512),       # block_n above the kernel's 256-row tile
+    (1000, 301, 1, 256),      # E % 4 != 0: rows not 16-byte aligned
+    (777, 7, 3, 100),         # E % 4 != 0, block_n dividing neither N nor the tile
+    (2000, 512, 8, 256),      # the widest MoE router, k = 8
+    (600, 700, 2, 128),       # E above the 512 bins kept in registers
+    (5000, 64, 4, 300),       # block_n not dividing N, several tiles a block
 ]
 
 
@@ -72,6 +77,38 @@ def test_assign_kernel_matches_plain(cuda_device, N, E, k, bn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,E,k,bn", [
+    ("infeasible_rows", 3000, 300, 1, 256),
+    ("infeasible_rows", 700, 33, 4, 64),
+    ("ties", 3000, 300, 1, 256),
+    ("ties", 900, 40, 8, 128),
+])
+def test_assign_kernel_matches_plain_on_edge_rows(cuda_device, kind, N, E, k, bn):
+    """Rows with no feasible bin (-1e30 and -inf), and scores with many ties
+    (three levels and signed zeros: ties go to the lowest bin)."""
+    from repro_torch.kernels.assign import assign_cuda as mod
+
+    rng = np.random.default_rng(N + E + k)
+    if kind == "ties":
+        scores = rng.choice(np.array([0.0, -0.0, 1.0, 2.0], np.float32), size=(N, E))
+        scores[rng.random((N, E)) < 0.2] = -1e30
+    else:
+        scores = rng.normal(size=(N, E)).astype(np.float32)
+        scores[rng.random(N) < 0.3] = -1e30
+        scores[rng.random(N) < 0.1] = -np.inf
+    sizes = rng.choice([1.0, 2.0, 8.0], size=N).astype(np.float32)
+    caps = (rng.uniform(2, 40, size=E) * max(1.0, N * k / (10 * E))).astype(np.float32)
+    scores, sizes, caps = (torch.from_numpy(x).to(cuda_device) for x in (scores, sizes, caps))
+    want = assign_ref(scores, sizes, caps, k=k, block_n=bn)
+    got = mod.assign_cuda(scores, sizes, caps, k=k, block_n=bn)
+    torch.cuda.synchronize()
+    for w, g in zip((want[0], want[2], want[3]), (got[0], got[2], got[3])):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+    assert got[2].any() and (kind == "ties" or (got[0] == -1).any())
+
+
+@pytest.mark.cuda
 def test_assign_dispatches_cuda_tensors_to_the_kernel(cuda_device):
     from repro_torch.kernels.assign import assign
     from repro_torch.kernels.assign import assign_cuda as mod
@@ -96,6 +133,82 @@ def test_segment_sum_kernel_matches_row_order(cuda_device, dtype, features):
     want = segment_sum_ref(v, seg, 300)                  # the CPU's row-order sums
     got = segment_sum_cuda(v.to(cuda_device), seg.to(cuda_device), 300)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+SEGSUM_CASES = [
+    # (mix, J, S, F, dtype, id dtype)
+    ("mostly_padding", 100_000, 300, 1, torch.float32, torch.int32),
+    ("mostly_padding", 100_000, 300, 3, torch.int32, torch.int32),
+    ("one_segment", 100_000, 300, 1, torch.float32, torch.int32),
+    ("one_segment", 50_000, 50, 2, torch.float32, torch.int64),
+    ("out_of_range", 10_007, 37, 4, torch.float32, torch.int64),
+    ("out_of_range", 10_007, 37, 4, torch.int32, torch.int32),
+    ("uniform", 4097, 9, 3, torch.float32, torch.int32),     # J not a multiple of the chunk
+    ("uniform", 100_003, 301, 2, torch.float32, torch.int64),
+    ("uniform", 1, 5, 1, torch.float32, torch.int32),
+    ("uniform", 0, 5, 2, torch.float32, torch.int32),        # J = 0
+    ("signed_zeros", 3000, 20, 1, torch.float32, torch.int32),
+    ("signed_zeros", 3000, 20, 4, torch.float32, torch.int64),
+]
+
+
+def _segsum_inputs(mix, J, S, F, dtype, id_dtype, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, S + 1, J)                       # S: the padding segment
+    if mix == "mostly_padding":
+        ids = np.where(rng.random(J) < 0.95, S, ids)
+    elif mix == "one_segment":
+        ids = np.where(rng.random(J) < 0.999, S // 2, ids)
+    elif mix == "out_of_range":
+        ids = rng.integers(-3 * S, 3 * S, J)              # negative and > S
+    if dtype == torch.float32:
+        v = rng.lognormal(1.0, 1.0, (J, F)).astype(np.float32)
+        if mix == "signed_zeros":
+            v[rng.random((J, F)) < 0.5] = -0.0
+            ids = np.where(ids % 4 == 0, S, ids)          # segments 0, 4, 8, ... empty
+            v[ids % 4 == 1] = -0.0                        # 1, 5, 9, ... only -0.0 rows
+            ids[ids == 1] = S
+            ids[7], v[7] = 1, -0.0                        # and segment 1 a lone -0.0
+    else:
+        v = rng.integers(-(2**20), 2**20, (J, F)).astype(np.int32)
+    v = torch.from_numpy(v if F > 1 else v[:, 0].copy())
+    return v, torch.from_numpy(ids).to(id_dtype)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix,J,S,F,dtype,id_dtype", SEGSUM_CASES)
+def test_segment_sum_kernel_matches_row_order_on_id_mixes(cuda_device, mix, J, S, F, dtype,
+                                                         id_dtype):
+    """Bit for bit (signed zeros included) against the CPU's row-order sums,
+    in one launch."""
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as mod
+
+    v, seg = _segsum_inputs(mix, J, S, F, dtype, id_dtype, J + S + F)
+    want = segment_sum_ref(v, seg, S)
+    before = mod.launches
+    got = mod.segment_sum_cuda(v.to(cuda_device), seg.to(cuda_device), S).cpu()
+    assert mod.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(_bits(got), _bits(want))
+    if mix == "signed_zeros":
+        assert (_bits(got[0::4]) == 0).all() and (_bits(got[1::4]) == 0).all()  # +0.0
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_reads_unaligned_ids(cuda_device):
+    """ids that do not start on 16 bytes take the kernel's plain loads."""
+    from repro_torch.kernels.segment_sum.segment_sum_cuda import segment_sum_cuda
+
+    v, seg = _segsum_inputs("uniform", 20_001, 300, 1, torch.float32, torch.int32, 3)
+    buf = torch.empty(seg.numel() + 1, dtype=torch.int32, device=cuda_device)
+    shifted = buf[1:].copy_(seg.to(cuda_device))
+    assert shifted.data_ptr() % 16 != 0
+    got = segment_sum_cuda(v.to(cuda_device), shifted, 300).cpu()
+    assert torch.equal(_bits(got), _bits(segment_sum_ref(v, seg, 300)))
 
 
 FUSED_CASES = [

@@ -69,3 +69,44 @@ def test_fma_exact_on_float32_midpoints():
     assert np.float32(np.float64(c) + np.float64(a) * np.float64(b)) == np.float32(1.0 + 2.0**-22)
     got = fma_f32(torch.tensor([a], dtype=torch.float32), b, c)
     assert got.item() == c
+
+
+def _engine_like_ids(kind, n, segs, rng):
+    """Segment ids as the engine's scatters see them: id ``segs`` is the
+    padding segment of the rows that take no part."""
+    if kind == "mostly_padding":      # 95% of rows carry the padding id
+        ids = rng.integers(0, segs, n)
+        return np.where(rng.random(n) < 0.95, segs, ids).astype(np.int32)
+    if kind == "one_large_segment":   # almost every row in segment 3
+        ids = rng.integers(0, segs + 1, n)
+        return np.where(rng.random(n) < 0.9, 3, ids).astype(np.int32)
+    return rng.integers(0, segs + 1, n).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["mostly_padding", "one_large_segment", "uniform"])
+@pytest.mark.parametrize("n,segs", [(5000, 51), (20_000, 300)])
+def test_segment_sum_ref_matches_site_sum_on_engine_mixes(kind, n, segs):
+    from repro.core.engine import _site_sum
+
+    rng = np.random.default_rng(n + segs + len(kind))
+    ids = _engine_like_ids(kind, n, segs, rng)
+    v = rng.uniform(1.6, 19.2, n).astype(np.float32)       # per-job memory, as in the engine
+    want = np.asarray(_site_sum(jnp.asarray(v), jnp.asarray(ids), segs))
+    got = segment_sum_ref(torch.from_numpy(v), torch.from_numpy(ids), segs).numpy()
+    np.testing.assert_array_equal(want, got)
+    wide = rng.integers(0, 9, (n, 3)).astype(np.int32)     # the stacked int columns
+    want = np.asarray(_site_sum(jnp.asarray(wide), jnp.asarray(ids), segs))
+    got = segment_sum_ref(torch.from_numpy(wide), torch.from_numpy(ids), segs).numpy()
+    np.testing.assert_array_equal(want, got)
+
+
+def test_segment_sum_ref_signed_zeros_match_jax():
+    # segment 0: a lone -0.0; 1: -0.0 twice; 2: -0.0 then 1.0 then -1.0;
+    # 3: empty; 4: the padding segment.  Every sum starts from +0.0.
+    v = np.array([-0.0, -0.0, -0.0, -0.0, 1.0, -1.0, 5.0], np.float32)
+    ids = np.array([0, 1, 1, 2, 2, 2, 4], np.int32)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(v), jnp.asarray(ids), num_segments=5))[:4]
+    got = segment_sum_ref(torch.from_numpy(v), torch.from_numpy(ids), 4).numpy()
+    np.testing.assert_array_equal(want, got)
+    np.testing.assert_array_equal(np.signbit(want), np.signbit(got))
+    assert not np.signbit(got).any()
