@@ -11,25 +11,32 @@ check does not hold:
 2. hold every kernel against its plain PyTorch version on the card: the
    assignment kernel at the engine shape and at the kernel-test shapes
    (idx/admit/pos exact, gate rtol 1e-5 atol 1e-6), the segment sum on
-   nine id mixes (bit for bit the CPU's row-order sums: uniform, 95%
-   padding, one segment, out-of-range ids, signed zeros, F = 1..4, J = 0),
-   the fused candidate-set assignment at the sparse engine shape (N=100000,
-   K=16, E=300) and at the kernel-test shapes (site/admit exact); time each
+   seventeen id mixes (bit for bit the CPU's row-order sums: uniform, 95%
+   padding, one segment, out-of-range ids, signed zeros, F = 1..4, J = 0,
+   and S*S + 1 = 90001 segments in f32 and i32, F = 1 and 3), the fused
+   candidate-set assignment at the sparse engine shape (N=100000, K=16,
+   E=300) and at nineteen other shapes (site/admit exact: N = 1, ragged
+   tiles, one site for every row, a tile of sentinel rows, K = 1, 3, 8,
+   48, 50, E = 512, 6000, 20000, sizes at the caps' boundary); time each
    at its engine shape two ways, a call between CUDA events (host launch
    work included) and the kernels' device time from ``torch.profiler``,
-   with the launches a call (the segment sum on a uniform id mix and on
-   one where 95% of rows carry the padding id);
+   with the launches a call (the segment sum on a uniform id mix, on one
+   where 95% of rows carry the padding id, and at 90001 segments);
 3. drive the dense path at WLCG scale: ``simulate`` on 300 sites and 100000
    jobs with ``panda_dispatch`` plus capacity dispatch, twice, with the
    launch counters set to 0 just before the first run; require every round
    with work to launch the assignment kernel once, and the two runs to agree
-   bit for bit; print rounds/s and the assignment kernel's share of it;
+   bit for bit; print rounds/s, the assignment's call time between CUDA
+   events in the second run, and its kernels' device time per launch in a
+   profile of 100 rounds;
 4. drive the sparse top-k path at the same scale: ``data_locality`` with the
    fused capacity assigner and ``topk=16``, twice, counters set to 0 just
    before the first run; require every round with work to launch the fused
    kernel once and never call its plain version, and the two runs to agree
    bit for bit; print rounds/s (and the same policy's dense rate), the
-   candidate build's seconds and the fused kernel's time per launch;
+   candidate build's seconds, the fused call's time between CUDA events in
+   the second run, and the fused kernels' device time per launch in a
+   profile of 100 rounds;
 5. drain a 50-site, 5000-job scenario with failures to the end on the card
    and on the CPU, and require the same rounds, makespan, per-job outcomes
    and site counters;
@@ -75,6 +82,7 @@ PEAK_BF16_OPS_PER_S = 989e12     # H100 SXM, dense bf16 tensor cores
 
 ENGINE_J, ENGINE_S = 100_000, 300
 ENGINE_K = 16                  # bench_wlcg_scale.py's top-k
+MANY_SEGMENTS = ENGINE_S * ENGINE_S + 1   # the link sums' segments at S=300
 FULL_MAX_ROUNDS = 2000
 SPARSE_DRAIN_ROUNDS = 1000     # depth cut of phase 6 (the drain takes 10103)
 ASSIGN_CASES = [  # (N, E, k, block_n)
@@ -203,6 +211,10 @@ SEGSUM_CASES = [  # (id mix, J, S, F, dtype, id dtype)
     ("uniform", 100_003, 301, 4, "float32", "int32"),          # J not a multiple of the chunk
     ("uniform", 0, 5, 2, "float32", "int32"),                  # J = 0
     ("signed_zeros", 3000, 20, 3, "float32", "int32"),
+    # S*S + 1 segments at S=300 (the link sums of the network and transfers
+    # subsystems): past the one-launch cap, in windows (f32) or added directly (i32)
+    *[(mix, ENGINE_J, MANY_SEGMENTS, F, dtype, "int32") for mix in ("uniform", "padding95")
+      for F in (1, 3) for dtype in ("float32", "int32")],
 ]
 ASSIGN_KERNELS = ("assign_rows_kernel", "assign_base_kernel", "assign_place_kernel")
 
@@ -296,7 +308,7 @@ def phase_kernels(device) -> dict:
         bad = int((bits(want) != bits(got)).sum())
         check(bad == 0, f"segment_sum {mix} J={J} S={S} F={F} {dtype} {id_dtype}: {bad} sums "
                         "differ from row order")
-        if mix == "uniform" and J == ENGINE_J:
+        if mix == "uniform" and J == ENGINE_J and S == ENGINE_S:
             on_card = segment_sum_ref(values.to(device), seg.to(device), S).cpu()
             err = max(err, float((got.double() - on_card.double()).abs().max()))
     print(f"[kernels] segment_sum: {len(SEGSUM_CASES)} id mixes bit for bit the CPU's row-order "
@@ -319,6 +331,16 @@ def phase_kernels(device) -> dict:
               f"between CUDA events, {dev:.4f} ms device time, "
               f"{per_call['segment_sum_kernel']:g} launches a call; plain {plain:.4f} ms, "
               f"index_add_ {library:.4f} ms")
+    for dtype, kernel in (("float32", "segment_sum_kernel"), ("int32", "segment_add_kernel")):
+        vals, seg_d = (t.to(device) for t in segsum_inputs("uniform", ENGINE_J, MANY_SEGMENTS, 1,
+                                                            dtype, "int32", 2))
+        call = cuda_ms(lambda: segment_sum_cuda(vals, seg_d, MANY_SEGMENTS), iters=50)
+        per_call = {}
+        dev = device_ms(lambda: segment_sum_cuda(vals, seg_d, MANY_SEGMENTS), (kernel,), iters=50,
+                        counts=per_call)[kernel]
+        print(f"[kernels] segment_sum uniform J={ENGINE_J} S={MANY_SEGMENTS} {dtype}: {call:.4f} "
+              f"ms a call between CUDA events, {dev:.4f} ms device time in {per_call[kernel]:g} "
+              f"launches of {kernel} a call")
     bytes_moved = ENGINE_J * (4 + 4) + ENGINE_S * 4
     bound_ms = max(bytes_moved / PEAK_HBM_BYTES_PER_S, ENGINE_J / PEAK_FP32_OPS_PER_S) * 1e3
     print(f"[kernels] segment_sum bound {bound_ms:.6f} ms (bytes, {bytes_moved} B)")
@@ -334,36 +356,66 @@ def phase_kernels(device) -> dict:
     return rows
 
 
-def fused_inputs(N, E, K, seed, device, sentinel_rows: bool = False):
+def fused_inputs(N, E, K, seed, device, kind: str = "random"):
     """Candidate rows of sorted distinct site ids, each with a random number
     of sentinel (``E``) pads; integral sizes; caps scaled as in
-    ``assign_inputs``."""
+    ``assign_inputs``.  ``kind``: ``sentinel_rows`` makes half the rows all
+    sentinels, ``sentinel_tile`` rows 256..511 (a whole tile of the kernel),
+    ``one_site`` gives every row site 3 as its only candidate (the longest
+    chain of claims) with room for half of them, and ``boundary`` gives
+    every row size 8 against caps that are multiples of 8, so that admitted
+    rows end exactly at their cap."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     scores = rng.normal(size=(N, K)).astype(np.float32)
-    cand = np.argsort(rng.random((N, E)), axis=1)[:, :K]
+    if N * E <= 30_000_000:
+        cand = np.argsort(rng.random((N, E)), axis=1)[:, :K]
+    else:
+        cand = np.stack([rng.choice(E, K, replace=False) for _ in range(N)])
     filled = rng.integers(0, K + 1, N)
     cand = np.where(np.arange(K)[None, :] < filled[:, None], cand, E)
-    if sentinel_rows:
+    if kind == "sentinel_rows":
         cand[rng.random(N) < 0.5] = E
+    elif kind == "sentinel_tile":
+        cand[256:512] = E
+    elif kind == "one_site":
+        cand[:] = E
+        cand[:, 0] = 3
     cand = np.sort(cand, axis=1).astype(np.int32)
     engine = N == ENGINE_J
     sizes = rng.choice([1.0, 8.0] if engine else [1.0, 2.0, 8.0], size=N)
     caps = rng.uniform(2, 40, size=E) * (N / E if engine else 1.0)
+    if kind == "one_site":
+        caps[3] = sizes.sum() // 2
+    elif kind == "boundary":
+        sizes[:] = 8.0
+        caps = 8.0 * rng.integers(0, 2 * N // E + 2, size=E)
     return (torch.from_numpy(scores).to(device), torch.from_numpy(cand).to(device),
             torch.from_numpy(sizes.astype(np.float32)).to(device),
             torch.from_numpy(caps.astype(np.float32)).to(device))
 
 
-FUSED_CASES = [  # (N, E, K, block_n, seed, sentinel_rows)
-    (ENGINE_J, ENGINE_S, ENGINE_K, 256, 0, False),  # the engine shape
-    *[(97, 7, 4, 32, seed, False) for seed in range(5)],
-    (97, 7, 4, 32, 5, True),                        # half the rows all-sentinel
-    (1000, 300, 48, 256, 6, False),                 # K above a warp
-    (2048, 50, 50, 256, 7, False),                  # topk = S at the drain's S
+FUSED_CASES = [  # (N, E, K, block_n, seed, kind)
+    (ENGINE_J, ENGINE_S, ENGINE_K, 256, 0, "random"),  # the engine shape
+    *[(97, 7, 4, 32, seed, "random") for seed in range(5)],
+    (97, 7, 4, 32, 5, "sentinel_rows"),             # half the rows all-sentinel
+    (1000, 300, 48, 256, 6, "random"),              # K above a warp
+    (2048, 50, 50, 256, 7, "random"),               # topk = S at the drain's S
+    (1, 7, 4, 256, 8, "random"),                    # N = 1
+    (1000, 300, 16, 256, 9, "random"),              # N not a multiple of the 256-row tile
+    (5000, 300, 16, 256, 10, "one_site"),           # every row claims one site
+    (3000, 300, 16, 256, 11, "sentinel_tile"),      # a whole tile of sentinel rows
+    (3000, 50, 1, 256, 12, "random"),               # K = 1: one lane a row
+    (3000, 50, 3, 256, 13, "random"),               # K = 3: no 16-byte loads
+    (3000, 50, 8, 256, 14, "random"),               # K = 8: two lanes a row
+    (20000, 512, 16, 256, 15, "random"),            # E = 512
+    (5000, 300, 16, 256, 16, "boundary"),           # sizes 8 against caps at the boundary
+    (3000, 6000, 8, 256, 18, "random"),             # bases and caps past shared memory
+    (3000, 20000, 8, 256, 17, "random"),            # sites past the shared-memory totals
 ]
+FUSED_KERNELS = ("fused_rows_kernel", "fused_base_kernel", "fused_place_kernel")
 
 
 def phase_fused_kernel(device) -> dict:
@@ -372,38 +424,40 @@ def phase_fused_kernel(device) -> dict:
     from repro_torch.kernels.assign.fused_cuda import fused_assign_cuda
     from repro_torch.kernels.assign.fused_ref import fused_assign_ref
 
-    for N, E, K, bn, seed, sentinel_rows in FUSED_CASES:
-        args = fused_inputs(N, E, K, seed, device, sentinel_rows)
+    for N, E, K, bn, seed, kind in FUSED_CASES:
+        args = fused_inputs(N, E, K, seed, device, kind)
         want = fused_assign_ref(*args, block_n=bn)
         got = fused_assign_cuda(*args)
         torch.cuda.synchronize()
         for name, w, g in zip(("site", "admit"), want, got):
             bad = int((w != g).sum())
-            check(bad == 0, f"fused N={N} E={E} K={K} seed={seed}: {bad} {name} entries differ")
-        print(f"[kernels] fused N={N} E={E} K={K} block_n={bn} seed={seed}"
-              f"{' sentinel rows' if sentinel_rows else ''}: site/admit exact, "
-              f"picked={int((got[0] >= 0).sum())}, admitted={int(got[1].sum())}")
+            check(bad == 0, f"fused N={N} E={E} K={K} seed={seed} {kind}: {bad} {name} entries "
+                            "differ")
+        print(f"[kernels] fused N={N} E={E} K={K} block_n={bn} seed={seed} {kind}: site/admit "
+              f"exact, picked={int((got[0] >= 0).sum())}, admitted={int(got[1].sum())}")
 
     N, E, K = ENGINE_J, ENGINE_S, ENGINE_K
     args = fused_inputs(N, E, K, 0, device)
     call_ms = cuda_ms(lambda: fused_assign_cuda(*args), iters=200)
-    parts = device_ms(lambda: fused_assign_cuda(*args),
-                      ("fused_tile_kernel", "fused_scan_kernel", "fused_admit_kernel"), iters=200)
+    per_call = {}
+    parts = device_ms(lambda: fused_assign_cuda(*args), FUSED_KERNELS, iters=200,
+                      counts=per_call)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: fused_assign_ref(*args), iters=5)
     bytes_moved = N * K * (4 + 4) + N * 4 + E * 4 + N * (4 + 1)
     ops = N * K * 3          # validity test, select, compare per slot
     bound_ms = max(bytes_moved / PEAK_HBM_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S) * 1e3
     print(f"[kernels] fused at the engine shape N={N} K={K} E={E}: kernel {ms:.4f} ms of device "
-          f"time ({', '.join(f'{k} {v:.4f}' for k, v in parts.items())}; {call_ms:.4f} ms a call "
-          f"between CUDA events, host launch time included), plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms (bytes, {bytes_moved} B), "
-          "library: no single PyTorch call computes this function")
+          f"time ({', '.join(f'{k} {v:.4f}' for k, v in parts.items())}; launches a call "
+          f"{json.dumps(per_call)}), {call_ms:.4f} ms a call between CUDA events (host launch "
+          f"work included); plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes, "
+          f"{bytes_moved} B), library: no single PyTorch call computes this function")
     return dict(
         name="fused_assign", route="cuda",
         source="src/repro_torch/kernels/assign/csrc/fused.cu",
         replaces="src/repro/kernels/assign/fused.py:38", launches=None, max_abs_err=0.0,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+        cuda_ms=call_ms, device_ms=ms, kernels_per_call=sum(per_call.values()),
     )
 
 
@@ -743,7 +797,8 @@ def phase_full_width(device, max_rounds: int) -> dict:
     check_invariants(res, "full")
     snap1 = snapshot(res)
 
-    # second run: determinism, and the assign kernel's device time per launch
+    # second run: determinism, and the assign kernel's call time (CUDA events
+    # around the wrapper: host launch work included, not device time)
     timings = []
     real_assign = assign_ops.assign_cuda
 
@@ -768,11 +823,13 @@ def phase_full_width(device, max_rounds: int) -> dict:
     check(not bad, f"two runs on the card differ: {bad}")
     kernel_s = sum(s.elapsed_time(e) for s, e in timings) / 1e3
     print(f"[full] second run bit-identical; rounds/s first={res.rounds / wall1:.2f} "
-          f"second={res2.rounds / wall2:.2f}; assign kernel {len(timings)} launches, "
-          f"{kernel_s * 1e3:.3f} ms device time = {100 * kernel_s / wall2:.2f}% of the run's "
-          f"wall time ({1e3 * kernel_s / max(len(timings), 1):.4f} ms/launch)")
+          f"second={res2.rounds / wall2:.2f}; assign {len(timings)} calls, "
+          f"{kernel_s * 1e3:.3f} ms of call time between CUDA events (host launch work "
+          f"included) = {100 * kernel_s / wall2:.2f}% of the run's wall time "
+          f"({1e3 * kernel_s / max(len(timings), 1):.4f} ms a call)")
     print(f"[full] {T.summary_str(T.compute_metrics(res))}")
-    profile_rounds(lambda: T.simulate(jobs, sites, policy, key, max_rounds=100, device=device))
+    profile_rounds(lambda: T.simulate(jobs, sites, policy, key, max_rounds=100, device=device),
+                   names=ASSIGN_KERNELS)
     return launches
 
 
@@ -843,7 +900,8 @@ def phase_sparse_full_width(device, max_rounds: int) -> dict:
     print(f"[sparse] candidate build at init: {build_s:.4f} s for i32[{ENGINE_J}, {ENGINE_K}] "
           f"({100 * full_rows:.1f}% of rows hold {ENGINE_K} feasible sites)")
 
-    # second run: determinism, and the fused kernel's device time per launch
+    # second run: determinism, and the fused kernel's call time (CUDA events
+    # around the wrapper: host launch work included, not device time)
     timings = []
     real_fused = assign_ops.fused_assign_cuda
 
@@ -869,9 +927,10 @@ def phase_sparse_full_width(device, max_rounds: int) -> dict:
     check(not bad, f"two sparse runs on the card differ: {bad}")
     kernel_s = sum(s.elapsed_time(e) for s, e in timings) / 1e3
     print(f"[sparse] second run bit-identical; rounds/s first={res.rounds / wall1:.2f} "
-          f"second={res2.rounds / wall2:.2f}; fused kernel {len(timings)} launches, "
-          f"{kernel_s * 1e3:.3f} ms device time = {100 * kernel_s / wall2:.2f}% of the run's "
-          f"wall time ({1e3 * kernel_s / max(len(timings), 1):.4f} ms/launch)")
+          f"second={res2.rounds / wall2:.2f}; fused {len(timings)} calls, "
+          f"{kernel_s * 1e3:.3f} ms of call time between CUDA events (host launch work "
+          f"included) = {100 * kernel_s / wall2:.2f}% of the run's wall time "
+          f"({1e3 * kernel_s / max(len(timings), 1):.4f} ms a call)")
     print(f"[sparse] {T.summary_str(T.compute_metrics(res))}")
 
     # the same policy and depth through the dense path, for the rate
@@ -894,13 +953,14 @@ def phase_sparse_full_width(device, max_rounds: int) -> dict:
           f" over {res_d.rounds} rounds; first 100 rounds: sparse {first['sparse']:.2f}, "
           f"dense {first['dense']:.2f} rounds/s")
     profile_rounds(lambda: T.simulate(jobs, sites, policy, key, max_rounds=100, topk=ENGINE_K,
-                                      device=device), "sparse")
+                                      device=device), "sparse", names=FUSED_KERNELS)
     return launches
 
 
-def profile_rounds(run, label: str = "profile") -> None:
+def profile_rounds(run, label: str = "profile", names=()) -> None:
     """Device busy share and the kernels that take the most device time over
-    the first 100 rounds of a full-width run (``torch.profiler``)."""
+    the first 100 rounds of a full-width run (``torch.profiler``), and the
+    device time per launch of each kernel named in ``names``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -924,6 +984,17 @@ def profile_rounds(run, label: str = "profile") -> None:
           f"{sorts} of them DeviceRadixSortOnesweepKernel")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[{label}]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    total_ms, most = 0.0, 0
+    for name in names:
+        hits = [e for e in kernels if name in e.key]
+        ms, count = sum(e.self_device_time_total for e in hits) / 1e3, sum(e.count for e in hits)
+        check(count > 0, f"the profiled rounds launched no {name}")
+        total_ms, most = total_ms + ms, max(most, count)
+        print(f"[{label}] {name}: {ms:.3f} ms of device time in {count} launches = "
+              f"{ms / count:.4f} ms a launch")
+    if names:
+        print(f"[{label}] {' + '.join(names)}: {total_ms / most:.4f} ms of device time a call "
+              "(profiler, inside the run)")
 
 
 def phase_drain(device) -> None:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's segment-sum and assignment kernels against another
-checkout's, on one GPU, in turns (other, this, this, other).
+"""Time the port's segment-sum, assignment and fused assignment kernels
+against another checkout's, on one GPU, in turns (other, this, this, other).
 
     python3 scripts/compare_kernels.py --other DIR [--rounds N]
 
@@ -11,10 +11,12 @@ For each version and each input, the script checks the kernel against the
 plain version (bit for bit, gate to rtol 1e-5), then reports the time of a
 call between CUDA events (host launch work included), the device time of a
 call and the kernels launched a call (``torch.profiler``: every kernel the
-call runs, sorts included).  Inputs are those of ``chip_smoke.py``: the
-assignment at the engine shape (N=100000, E=300, k=1) and the segment sum
-at J=100000, S=300 on a uniform id mix and on one where 95% of rows carry
-the padding id, f32 ``[J]`` and i32 ``[J, 3]``.  With ``--rounds N`` it also
+call runs, sorts included), with each kernel's device time.  Inputs are
+those of ``chip_smoke.py``: the assignment at the engine shape (N=100000,
+E=300, k=1), the fused candidate-set assignment at the sparse engine shape
+(N=100000, K=16, E=300; site and admit bit for bit) and the segment sum at
+J=100000, S=300 on a uniform id mix and on one where 95% of rows carry the
+padding id, f32 ``[J]`` and i32 ``[J, 3]``.  With ``--rounds N`` it also
 runs N dense and N sparse rounds of the full-width engine scenario with
 each version and reports rounds/s.  It writes its numbers to
 ``chiprun_out/compare_kernels.json`` and needs a CUDA device.
@@ -55,14 +57,17 @@ def load_version(pkg_name: str):
         assign_ref=sub("kernels.assign.ref").assign_ref,
         segsum=sub("kernels.segment_sum.segment_sum_cuda").segment_sum_cuda,
         segsum_ref=sub("kernels.segment_sum.ops").segment_sum_ref,
+        fused=sub("kernels.assign.fused_cuda").fused_assign_cuda,
+        fused_ref=sub("kernels.assign.fused_ref").fused_assign_ref,
         core=sub("core"),
         kernels_assign=sub("kernels.assign"),
     )
 
 
-def profile_call(fn, iters: int) -> tuple[float, float]:
+def profile_call(fn, iters: int, parts: dict | None = None) -> tuple[float, float]:
     """(device ms a call, kernels a call) over ``iters`` calls, from
-    ``torch.profiler``: every kernel the calls ran."""
+    ``torch.profiler``: every kernel the calls ran.  ``parts``, when given,
+    receives each kernel's device ms a call by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -75,13 +80,42 @@ def profile_call(fn, iters: int) -> tuple[float, float]:
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if parts is not None:
+        for e in kernels:
+            name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0]
+            parts[name] = parts.get(name, 0.0) + e.self_device_time_total / 1e3 / iters
     return busy / iters, sum(e.count for e in kernels) / iters
 
 
-def time_kernels(v: dict, label: str, device, out: dict) -> None:
+def time_fused(v: dict, label: str, device, out: dict) -> None:
     import torch
 
-    from chip_smoke import ENGINE_J, ENGINE_S, assign_inputs, check, cuda_ms, segsum_inputs
+    from chip_smoke import (ENGINE_J, ENGINE_K, ENGINE_S, PEAK_HBM_BYTES_PER_S, check, cuda_ms,
+                            fused_inputs)
+
+    args = fused_inputs(ENGINE_J, ENGINE_S, ENGINE_K, 0, device)
+    want = v["fused_ref"](*args)
+    got = v["fused"](*args)
+    for w, g in zip(want, got):
+        check(torch.equal(w, g), f"{label}: fused differs from the plain version")
+    call = cuda_ms(lambda: v["fused"](*args), iters=200)
+    parts = {}
+    dev, per_call = profile_call(lambda: v["fused"](*args), iters=100, parts=parts)
+    N, K, E = ENGINE_J, ENGINE_K, ENGINE_S
+    bound = (N * K * (4 + 4) + N * 4 + E * 4 + N * (4 + 1)) / PEAK_HBM_BYTES_PER_S * 1e3
+    out.setdefault("fused", []).append(dict(version=label, cuda_ms=call, device_ms=dev,
+                                            kernels_per_call=per_call, parts=parts,
+                                            bound_ms=bound))
+    print(f"[compare] {label} fused N={N} K={K} E={E}: {call:.4f} ms a call (CUDA events), "
+          f"{dev:.4f} ms device time ({', '.join(f'{k} {t:.4f}' for k, t in parts.items())}), "
+          f"{per_call:g} kernels a call; bound {bound:.4f} ms (bytes)")
+
+
+def time_assign(v: dict, label: str, device, out: dict) -> None:
+    import torch
+
+    from chip_smoke import ENGINE_J, ENGINE_S, assign_inputs, check, cuda_ms
 
     scores, sizes, caps = assign_inputs(ENGINE_J, ENGINE_S, ENGINE_J * 31 + ENGINE_S, device)
     want = v["assign_ref"](scores, sizes, caps, k=1)
@@ -95,6 +129,13 @@ def time_kernels(v: dict, label: str, device, out: dict) -> None:
                                              kernels_per_call=per_call))
     print(f"[compare] {label} assign N={ENGINE_J} E={ENGINE_S} k=1: {call:.4f} ms a call "
           f"(CUDA events), {dev:.4f} ms device time, {per_call:g} kernels a call")
+
+
+def time_segsum(v: dict, label: str, device, out: dict) -> None:
+    import torch
+
+    from chip_smoke import ENGINE_J, ENGINE_S, check, cuda_ms, segsum_inputs
+
     for mix in ("uniform", "padding95"):
         f32, seg = (t.to(device) for t in segsum_inputs(mix, ENGINE_J, ENGINE_S, 1, "float32",
                                                          "int32", 1))
@@ -161,10 +202,12 @@ def main() -> int:
                                       .__name__),
                 "this": load_version(import_package(ROOT / "src", "repro_torch").__name__)}
     for label, v in versions.items():
-        print(f"[compare] {label} build seconds {v['build'].build(['assign', 'segment_sum'])}")
+        print(f"[compare] {label} build seconds "
+              f"{v['build'].build(['assign', 'fused', 'segment_sum'])}")
     out: dict = {"card": gpu_name_and_power()}
     for label in ("other", "this", "this", "other"):
-        time_kernels(versions[label], label, device, out)
+        for time_kernel in (time_fused, time_assign, time_segsum):
+            time_kernel(versions[label], label, device, out)
     if args.rounds:
         for label in ("other", "this"):          # warm-up: first calls, allocator
             engine_rates(versions[label], f"{label} warm-up", 20, device, {})

@@ -62,11 +62,12 @@ def assign_cuda(scores: torch.Tensor, sizes: torch.Tensor, caps: torch.Tensor, *
     if floats is None:
         floats = _SCRATCH[N, E, k, block_n] = lib.assign_scratch_floats(N, E, k, block_n)
     scratch = torch.empty(floats, dtype=torch.float32, device=dev)
-    rc = lib.assign_launch(
-        scores.data_ptr(), sizes.data_ptr(), caps.data_ptr(), N, E, k, block_n,
-        idx.data_ptr(), gate.data_ptr(), admit.data_ptr(), pos.data_ptr(), scratch.data_ptr(),
-        _build.stream_handle(dev),
-    )
+    with torch.cuda.device(dev):
+        rc = lib.assign_launch(
+            scores.data_ptr(), sizes.data_ptr(), caps.data_ptr(), N, E, k, block_n,
+            idx.data_ptr(), gate.data_ptr(), admit.data_ptr(), pos.data_ptr(),
+            scratch.data_ptr(), _build.stream_handle(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"assign kernel launch failed: cudaError {rc}")
     launches += 1

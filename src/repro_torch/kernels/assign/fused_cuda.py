@@ -4,8 +4,9 @@
 Replaces the TPU kernel ``src/repro/kernels/assign/fused.py:_fused_kernel``
 (entry point ``fused_assign_pallas``).  The kernel reads the ``N x K`` f32
 scores and i32 candidates once, so it is bound by device-memory bandwidth:
-13.7 MB at the engine's N=100000, K=16, E=300.  See the source for the
-tiled three-pass design.
+13.7 MB at the engine's N=100000, K=16, E=300.  Three launches: rows (picks
+and in-tile prefixes over 256-row tiles), a scan of the per-site tile
+totals, then positions and admits; see the source.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from ... import _build
 
 # kernel launches since the count was last reset (see chip_smoke.py)
 launches = 0
+_TILE_ROWS = None   # rows of a tile (fused_tile_rows)
 
 
 def _lib():
@@ -24,9 +26,9 @@ def _lib():
     if lib.fused_launch.restype is not ctypes.c_int or lib.fused_launch.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.fused_n_tiles.argtypes = [i]
-        lib.fused_n_tiles.restype = i
-        lib.fused_launch.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p, p, p]
+        lib.fused_tile_rows.argtypes = []
+        lib.fused_tile_rows.restype = i
+        lib.fused_launch.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p]
         lib.fused_launch.restype = i
     return lib
 
@@ -38,7 +40,7 @@ def fused_assign_cuda(scores_k: torch.Tensor, cand: torch.Tensor, sizes: torch.T
     contiguous float32 ``scores_k [N, K]``, int32 ``cand [N, K]``, float32
     ``sizes [N]`` and ``caps [E]`` on one CUDA device, ``K, E >= 1``, and
     raises on anything else."""
-    global launches
+    global launches, _TILE_ROWS
     if scores_k.dim() != 2:
         raise ValueError(f"scores_k must be [N, K], got {tuple(scores_k.shape)}")
     N, K = scores_k.shape
@@ -59,18 +61,19 @@ def fused_assign_cuda(scores_k: torch.Tensor, cand: torch.Tensor, sizes: torch.T
         raise ValueError(f"K and E must be positive, got K={K}, E={E}")
     lib = _lib()
     dev = scores_k.device
-    site = torch.empty((N,), dtype=torch.int32, device=dev)
-    admit = torch.empty((N,), dtype=torch.bool, device=dev)
-    bin_ = torch.empty((N,), dtype=torch.int32, device=dev)
-    local = torch.empty((N,), dtype=torch.float32, device=dev)
-    tiles = lib.fused_n_tiles(N)
-    tile_tot = torch.empty((tiles, E), dtype=torch.float32, device=dev)
-    base = torch.empty((tiles, E), dtype=torch.float32, device=dev)
-    rc = lib.fused_launch(
-        scores_k.data_ptr(), cand.data_ptr(), sizes.data_ptr(), caps.data_ptr(), N, K, E,
-        site.data_ptr(), admit.data_ptr(), bin_.data_ptr(), local.data_ptr(),
-        tile_tot.data_ptr(), base.data_ptr(), _build.stream_handle(dev),
-    )
+    if _TILE_ROWS is None:
+        _TILE_ROWS = lib.fused_tile_rows()
+    tiles = -(-N // _TILE_ROWS)
+    # one allocation: site i32[N], local f32[N], tile totals f32[E, tiles], admit bool[N]
+    buf = torch.empty((8 * N + 4 * E * tiles + N,), dtype=torch.uint8, device=dev)
+    site = buf[:4 * N].view(torch.int32)
+    admit = buf[buf.numel() - N:].view(torch.bool)
+    with torch.cuda.device(dev):
+        rc = lib.fused_launch(
+            scores_k.data_ptr(), cand.data_ptr(), sizes.data_ptr(), caps.data_ptr(), N, K, E,
+            site.data_ptr(), admit.data_ptr(), buf.data_ptr() + 4 * N,
+            buf.data_ptr() + 8 * N, _build.stream_handle(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"fused assign kernel launch failed: cudaError {rc}")
     launches += 1

@@ -91,11 +91,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = float(scale if scale is not None else D ** -0.5)
     out = torch.empty((B, Hq, S, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in t.stride()[:3]))
-    rc = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-        B, Hq, Hkv, S, Skv, D, strides, scale, int(causal), int(window),
-        _build.stream_handle(q.device),
-    )
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            B, Hq, Hkv, S, Skv, D, strides, scale, int(causal), int(window),
+            _build.stream_handle(q.device),
+        )
     if rc >= _NO_ENCODER:
         raise RuntimeError("flash attention: the driver has no cuTensorMapEncodeTiled")
     if rc >= _TENSOR_MAP_ERROR:

@@ -1,4 +1,5 @@
-// Per-segment sums in row order, deterministic, in one launch (sm_90a).
+// Per-segment sums in row order, deterministic, in one launch up to 25599
+// segments (sm_90a).
 //
 // Takes the place of the engine's scatter-adds (src/repro/core/engine.py:142,
 // jax.ops.segment_sum; no TPU kernel: XLA lowers it to a scatter).  On the
@@ -37,10 +38,24 @@
 //      order, add each 32 rows with one warp-wide add.
 // The caller gives scratch for the counts (G x S ints), the totals (S) and
 // the grouped values (J x F).
+//
+// Many segments: a CTA keeps (warps + 1) x S + 1 counts in shared memory,
+// which caps S at 25599.  Above the cap, float sums run the same kernel once
+// for each window of 10239 segments (4 warps a CTA), each launch counting
+// only the ids inside its window, so every sum still folds in row order;
+// integer sums, exact in any order, add each row into its segment's sum in
+// device memory (segment_add_kernel) after a memset of the output.
+//
+// Launch state (the SM count, the occupancy, the shared-memory attribute) is
+// kept for each device that cudaGetDevice names, so the caller makes the
+// tensors' device current before it calls.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -105,7 +120,7 @@ __device__ __forceinline__ int load_batch(T (&v)[kBatch][F], const T* __restrict
 
 template <typename T, typename IdT, int F>
 __global__ void segment_sum_kernel(const T* __restrict__ values, const IdT* __restrict__ ids,
-                                   long long n, int segments, int* __restrict__ cnt,
+                                   long long n, long long lo, int segments, int* __restrict__ cnt,
                                    int* __restrict__ tot, T* __restrict__ list,
                                    T* __restrict__ out) {
   extern __shared__ int smem[];  // [warps][S] counts, then bases; [S + 1] starts
@@ -119,14 +134,14 @@ __global__ void segment_sum_kernel(const T* __restrict__ values, const IdT* __re
   int* wcnt = smem + warp * S;
   int* start = smem + warps * S;
   const long long per_warp = ((n + n_warps - 1) / n_warps + 31) / 32 * 32;
-  const long long lo = gw * per_warp;
-  const long long hi = lo + per_warp < n ? lo + per_warp : n;
+  const long long r_lo = gw * per_warp;
+  const long long r_hi = r_lo + per_warp < n ? r_lo + per_warp : n;
 
   // ---- A. per-warp counts, then this CTA's -------------------------------
   for (int i = threadIdx.x; i < warps * S; i += blockDim.x) smem[i] = 0;
   __syncthreads();
-  for (long long r = lo + lane; r < hi; r += 32) {
-    const IdT id = ids[r];
+  for (long long r = r_lo + lane; r < r_hi; r += 32) {
+    const long long id = static_cast<long long>(ids[r]) - lo;
     if (id >= 0 && id < S) atomicAdd(&wcnt[id], 1);
   }
   __syncthreads();
@@ -174,9 +189,9 @@ __global__ void segment_sum_kernel(const T* __restrict__ values, const IdT* __re
     }
   }
   __syncthreads();
-  for (long long r0 = lo; r0 < hi; r0 += 32) {
+  for (long long r0 = r_lo; r0 < r_hi; r0 += 32) {
     const long long r = r0 + lane;
-    const IdT id = r < hi ? ids[r] : IdT(-1);
+    const long long id = r < r_hi ? static_cast<long long>(ids[r]) - lo : -1;
     const int s = id >= 0 && id < S ? static_cast<int>(id) : -1;
     const unsigned peers = __match_any_sync(kFull, s);
     int base = 0;
@@ -218,36 +233,86 @@ __global__ void segment_sum_kernel(const T* __restrict__ values, const IdT* __re
   }
 }
 
+// Integer sums over more segments than the counting plan keeps in shared
+// memory: integer adds are exact in any order, so each row adds its values
+// to its segment's sums in device memory (zeroed before the launch).
+template <typename IdT, int F>
+__global__ void segment_add_kernel(const int* __restrict__ values, const IdT* __restrict__ ids,
+                                   long long n, int segments, int* __restrict__ out) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; r < n;
+       r += step) {
+    const IdT id = ids[r];
+    if (id >= 0 && id < segments) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) atomicAdd(&out[static_cast<long long>(id) * F + f], values[r * F + f]);
+    }
+  }
+}
+
+// A launch's shape.  Up to the shared-memory cap (`window` == segments) one
+// launch counts every segment; above it float sums take ceil(segments /
+// window) launches, each over the ids of one window of segments, and integer
+// sums take segment_add_kernel.
 struct Plan {
-  int warps, grid;  // grid 0: too many segments for a CTA's shared memory
+  int warps, grid, window;  // grid 0: no plan (bad arguments or too many devices)
   size_t smem;
 };
+
+constexpr int kWindowWarps = 4;  // warps of a CTA when the segments take windows
+constexpr int kMaxDevices = 64;
+
+// Launch state of one kernel instance on one device: the SM count, the
+// dynamic shared memory the attribute allows, and the occupancy of the last
+// (warps, smem) asked for.
+struct DeviceState {
+  int sms = 0;
+  size_t attr_smem = 0;
+  int occ_warps = 0;
+  size_t occ_smem = 0;
+  int per_sm = 0;
+};
+
+std::mutex g_state_mutex;
 
 template <typename T, typename IdT, int F>
 Plan plan(long long n, int segments) {
   Plan p{};
   if (segments < 1) return p;
   int warps = (kSmemBudget / 4 - segments - 1) / segments;
-  warps = warps > kMaxWarps ? kMaxWarps : warps;
-  if (warps < 1) return p;
-  p.warps = warps;
-  p.smem = sizeof(int) * (static_cast<size_t>(warps + 1) * segments + 1);
-  static int sms = 0, per_sm = 0, cached_warps = 0;
-  static size_t cached_smem = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (warps >= 1) {
+    p.window = segments;
+    p.warps = warps > kMaxWarps ? kMaxWarps : warps;
+  } else {
+    p.window = (kSmemBudget / 4 - 1) / (kWindowWarps + 1);
+    p.warps = kWindowWarps;
   }
-  if (cached_warps != warps || cached_smem != p.smem) {
-    cudaFuncSetAttribute(segment_sum_kernel<T, IdT, F>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, segment_sum_kernel<T, IdT, F>,
-                                                  32 * warps, p.smem);
-    cached_warps = warps;
-    cached_smem = p.smem;
+  p.smem = sizeof(int) * (static_cast<size_t>(p.warps + 1) * p.window + 1);
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return p;
+  static DeviceState states[kMaxDevices];  // one a device, for this instance
+  int sms, per_sm;
+  {
+    std::lock_guard<std::mutex> guard(g_state_mutex);
+    DeviceState& st = states[dev];
+    if (st.sms == 0) cudaDeviceGetAttribute(&st.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (p.smem > st.attr_smem) {
+      if (cudaFuncSetAttribute(segment_sum_kernel<T, IdT, F>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(p.smem)) != cudaSuccess)
+        return p;
+      st.attr_smem = p.smem;
+    }
+    if (st.occ_warps != p.warps || st.occ_smem != p.smem) {
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&st.per_sm, segment_sum_kernel<T, IdT, F>,
+                                                    32 * p.warps, p.smem);
+      st.occ_warps = p.warps;
+      st.occ_smem = p.smem;
+    }
+    sms = st.sms;
+    per_sm = st.per_sm;
   }
-  long long grid = (n + 128LL * warps - 1) / (128LL * warps);  // ~4 rows a lane
+  long long grid = (n + 128LL * p.warps - 1) / (128LL * p.warps);  // ~4 rows a lane
   const long long most = static_cast<long long>(sms) * per_sm;
   grid = grid > most ? most : grid;
   p.grid = static_cast<int>(grid < 1 ? 1 : grid);
@@ -259,19 +324,36 @@ cudaError_t launch(const T* values, const IdT* ids, long long n, int segments, v
                    T* out, cudaStream_t st) {
   const Plan p = plan<T, IdT, F>(n, segments);
   if (p.grid == 0) return cudaErrorInvalidValue;
+  if (std::is_integral<T>::value && p.window < segments) {  // exact in any order
+    cudaError_t err = cudaMemsetAsync(out, 0, sizeof(T) * F * static_cast<size_t>(segments), st);
+    if (err != cudaSuccess || n == 0) return err;
+    long long blocks = (n + 255) / 256;
+    const long long most = 32LL * 1024;
+    blocks = blocks > most ? most : blocks;
+    segment_add_kernel<IdT, F><<<static_cast<int>(blocks), 256, 0, st>>>(
+        reinterpret_cast<const int*>(values), ids, n, segments, reinterpret_cast<int*>(out));
+    return cudaGetLastError();
+  }
   int* cnt = static_cast<int*>(scratch);
-  int* tot = cnt + static_cast<size_t>(p.grid) * segments;
-  T* list = reinterpret_cast<T*>(tot + segments);
-  void* args[] = {&values, &ids, &n, &segments, &cnt, &tot, &list, &out};
-  return cudaLaunchCooperativeKernel(segment_sum_kernel<T, IdT, F>, dim3(p.grid),
-                                     dim3(32 * p.warps), args, p.smem, st);
+  int* tot = cnt + static_cast<size_t>(p.grid) * p.window;
+  T* list = reinterpret_cast<T*>(tot + p.window);
+  for (long long lo = 0; lo < segments; lo += p.window) {
+    int seg = static_cast<int>(segments - lo < p.window ? segments - lo : p.window);
+    T* o = out + lo * F;
+    void* args[] = {&values, &ids, &n, &lo, &seg, &cnt, &tot, &list, &o};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        segment_sum_kernel<T, IdT, F>, dim3(p.grid), dim3(32 * p.warps), args, p.smem, st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, typename IdT, int F>
 long long scratch_bytes(long long n, int segments) {
   const Plan p = plan<T, IdT, F>(n, segments);
   if (p.grid == 0) return -1;
-  return 4LL * (static_cast<long long>(p.grid) + 1) * segments +
+  if (std::is_integral<T>::value && p.window < segments) return 0;
+  return 4LL * (static_cast<long long>(p.grid) + 1) * p.window +
          static_cast<long long>(sizeof(T)) * n * F;
 }
 
@@ -306,9 +388,9 @@ long long dispatch_scratch(int features, long long n, int segments) {
 }  // namespace
 
 // NAME: `segments` sums of `features` columns of `values` ([n, features],
-// row-major) by the ids `ids` ([n], int32 or int64), one launch on `stream`,
-// with `scratch` of NAME_scratch's bytes (-1: more segments than a CTA's
-// shared memory can count).
+// row-major) by the ids `ids` ([n], int32 or int64), launched on `stream`,
+// with `scratch` of NAME_scratch's bytes (-1: no plan for the current
+// device).
 #define SEGMENT_SUM_ENTRY(NAME, T, IdT)                                                   \
   extern "C" int NAME(const T* values, int features, const IdT* ids, long long n,         \
                       int segments, void* scratch, T* out, void* stream) {                \

@@ -5,6 +5,8 @@ Replaces the engine's ``jax.ops.segment_sum`` scatter-adds
 cooperative launch a call: a stable counting sort of the rows by segment,
 then one warp a segment folds its rows in row order, so float sums carry the
 same bits as the CPU's sequential scatter and do not change from run to run.
+Above 25599 segments float sums take one such launch a window of segments,
+and integer sums add directly in device memory; see the source.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ _NAMES = {torch.float32: "f32", torch.int32: "i32"}
 _IDS = {torch.int32: "i32", torch.int64: "i64"}
 _MAX_FEATURES = 4
 _FNS: dict = {}
-_SCRATCH: dict = {}   # scratch bytes by (dtype, id dtype, features, rows, segments)
+_SCRATCH: dict = {}   # scratch bytes by (device, dtype, id dtype, features, rows, segments)
 
 
 def _fn(dtype, id_dtype):
@@ -64,18 +66,20 @@ def segment_sum_cuda(values: torch.Tensor, seg: torch.Tensor, num_segments: int)
     if num_segments == 0:
         return out[:, 0] if values.dim() == 1 else out
     fn, size = _fn(values.dtype, seg.dtype)
-    key = (values.dtype, seg.dtype, features, seg.shape[0], num_segments)
-    nbytes = _SCRATCH.get(key)
-    if nbytes is None:
-        nbytes = _SCRATCH[key] = size(features, seg.shape[0], num_segments)
-    if nbytes < 0:
-        raise ValueError(f"segment_sum_cuda: {num_segments} segments do not fit a CTA's "
-                         "shared memory")
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=values.device)
-    rc = fn(
-        values.data_ptr(), features, seg.data_ptr(), seg.shape[0], num_segments,
-        scratch.data_ptr(), out.data_ptr(), _build.stream_handle(values.device),
-    )
+    dev = values.device
+    with torch.cuda.device(dev):
+        key = (dev.index, values.dtype, seg.dtype, features, seg.shape[0], num_segments)
+        nbytes = _SCRATCH.get(key)
+        if nbytes is None:
+            nbytes = _SCRATCH[key] = size(features, seg.shape[0], num_segments)
+        if nbytes < 0:
+            raise RuntimeError(f"segment_sum_cuda: no launch plan for {num_segments} segments "
+                               f"on {dev}")
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        rc = fn(
+            values.data_ptr(), features, seg.data_ptr(), seg.shape[0], num_segments,
+            scratch.data_ptr(), out.data_ptr(), _build.stream_handle(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError {rc}")
     launches += 1

@@ -198,6 +198,66 @@ def test_segment_sum_kernel_matches_row_order_on_id_mixes(cuda_device, mix, J, S
         assert (_bits(got[0::4]) == 0).all() and (_bits(got[1::4]) == 0).all()  # +0.0
 
 
+MANY_SEGMENTS = 300 * 300 + 1   # the link sums' S*S + 1 segments at S=300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["uniform", "mostly_padding"])
+@pytest.mark.parametrize("F", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_segment_sum_kernel_takes_many_segments(cuda_device, mix, F, dtype):
+    """Past the one-launch cap of 25599 segments: f32 in windows of
+    segments, i32 added directly; both bit for bit the CPU's row-order sums."""
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as mod
+
+    v, seg = _segsum_inputs(mix, 100_000, MANY_SEGMENTS, F, dtype, torch.int32, F + 11)
+    want = segment_sum_ref(v, seg, MANY_SEGMENTS)
+    before = mod.launches
+    got = mod.segment_sum_cuda(v.to(cuda_device), seg.to(cuda_device), MANY_SEGMENTS).cpu()
+    assert mod.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_tensors_device(cuda_device):
+    """With cuda:0 current, every wrapper given tensors on cuda:1 launches
+    there and matches its plain version; the segment sum sets its launch
+    state (shared-memory attribute, occupancy) for each device it meets."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.kernels.assign.assign_cuda import assign_cuda
+    from repro_torch.kernels.assign.fused_cuda import fused_assign_cuda
+    from repro_torch.kernels.flash_attention.flash_attention_cuda import flash_attention_cuda
+    from repro_torch.kernels.segment_sum.segment_sum_cuda import segment_sum_cuda
+
+    torch.cuda.set_device(0)
+    for S in (5000, 300):  # 5000: above 48 KB of dynamic shared memory
+        v, seg = _segsum_inputs("uniform", 50_000, S, 1, torch.float32, torch.int32, S)
+        want = segment_sum_ref(v, seg, S)
+        for dev in ("cuda:0", "cuda:1", "cuda:0"):
+            got = segment_sum_cuda(v.to(dev), seg.to(dev), S)
+            assert got.device == torch.device(dev)
+            assert torch.equal(_bits(got.cpu()), _bits(want))
+    d1 = torch.device("cuda:1")
+    scores, sizes, caps = _inputs(5000, 64, 1, d1)
+    want = assign_ref(scores.cpu(), sizes.cpu(), caps.cpu(), k=2)
+    got = assign_cuda(scores, sizes, caps, k=2)
+    assert got[0].device == d1 and torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+    args = _fused_inputs(5000, 300, 16, 3, d1, False)
+    want = fused_assign_ref(*(a.cpu() for a in args))
+    got = fused_assign_cuda(*args)
+    assert got[0].device == d1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    q, k, v = _flash_inputs(1, 4, 2, 256, 256, 128, torch.bfloat16, 0, d1)
+    got = flash_attention_cuda(q, k, v)
+    assert got.device == d1
+    want = attention_ref(q.float().cpu(), k.float().cpu(), v.float().cpu())
+    assert float((got.float().cpu() - want).abs().max()) <= 2e-2
+    assert torch.cuda.current_device() == 0
+
+
 @pytest.mark.cuda
 def test_segment_sum_kernel_reads_unaligned_ids(cuda_device):
     """ids that do not start on 16 bytes take the kernel's plain loads."""
@@ -252,6 +312,68 @@ def test_fused_kernel_matches_plain(cuda_device, N, E, K, bn, sentinel_rows):
     if sentinel_rows:
         empty = (args[1] == E).all(-1)
         assert (got[0][empty] == -1).all() and not got[1][empty].any()
+
+
+FUSED_EDGE_CASES = [
+    # (N, E, K, kind)
+    (1, 7, 4, "random"),               # N = 1
+    (1000, 300, 16, "random"),         # N not a multiple of the 256-row tile
+    (5000, 300, 16, "one_site"),       # every row claims one site: the longest chain
+    (3000, 300, 16, "sentinel_tile"),  # a whole tile of sentinel rows
+    (3000, 50, 1, "random"),           # K = 1: one lane a row
+    (3000, 50, 3, "random"),           # K = 3: no 16-byte loads
+    (3000, 50, 8, "random"),           # K = 8: two lanes a row
+    (20000, 512, 16, "random"),        # E = 512
+    (5000, 300, 16, "boundary"),       # sizes 8 against caps right at the boundary
+    (3000, 6000, 8, "random"),         # bases and caps past the kernel's shared memory
+    (3000, 20000, 8, "random"),        # sites past the kernel's shared-memory totals
+    (2000, 40, 150, "random"),         # K > 128: several groups of 4 slots a lane
+]
+
+
+def _fused_edge_inputs(N, E, K, kind, seed, device):
+    rng = np.random.default_rng(seed)
+    scores = rng.normal(size=(N, K)).astype(np.float32)
+    cand = np.stack([np.sort(rng.choice(E, min(K, E), replace=False)) for _ in range(N)])
+    cand = np.concatenate([cand, np.full((N, K - cand.shape[1]), E)], axis=1)
+    filled = rng.integers(0, K + 1, N)
+    cand = np.where(np.arange(K)[None, :] < filled[:, None], cand, E).astype(np.int32)
+    sizes = rng.choice([1.0, 2.0, 8.0], size=N).astype(np.float32)
+    caps = (rng.uniform(2, 40, size=E) * max(1.0, N / (10 * E))).astype(np.float32)
+    if kind == "sentinel_tile":
+        cand[256:512] = E
+    elif kind == "one_site":
+        cand[:] = E
+        cand[:, 0] = 3
+        caps[3] = sizes.sum() // 2
+    elif kind == "boundary":
+        sizes[:] = 8.0
+        caps = (8 * rng.integers(0, 2 * N // E + 2, size=E)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device) for x in (scores, cand, sizes, caps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,E,K,kind", FUSED_EDGE_CASES)
+def test_fused_kernel_matches_plain_on_edge_cases(cuda_device, N, E, K, kind):
+    from repro_torch.kernels.assign import fused_cuda as mod
+
+    args = _fused_edge_inputs(N, E, K, kind, N + E + K, cuda_device)
+    want = fused_assign_ref(*args)
+    before = mod.launches
+    got = mod.fused_assign_cuda(*args)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if kind == "one_site":
+        assert 0 < int(got[1].sum()) < N
+    if kind == "boundary":  # some admitted row ends exactly at its site's cap
+        site, admit = (t.cpu().numpy() for t in got)
+        sizes, caps = (t.cpu().numpy() for t in args[2:])
+        used, exact = np.zeros(E, np.float32), 0
+        for r in np.flatnonzero(site >= 0):  # claims in row order
+            exact += bool(admit[r] and used[site[r]] + sizes[r] == caps[site[r]])
+            used[site[r]] += sizes[r]
+        assert exact > 0
 
 
 @pytest.mark.cuda
