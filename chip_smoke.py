@@ -37,9 +37,10 @@ check does not hold:
    candidate build's seconds, the fused call's time between CUDA events in
    the second run, and the fused kernels' device time per launch in a
    profile of 100 rounds;
-5. drain a 50-site, 5000-job scenario with failures to the end on the card
-   and on the CPU, and require the same rounds, makespan, per-job outcomes
-   and site counters;
+5. run a 50-site, 5000-job scenario with failures on the card and on the
+   CPU, cut to its first DRAIN_ROUNDS rounds (of the 10103 that drain it,
+   to keep the smoke's time with phases 9 and 10), and require the same
+   rounds, makespan, per-job outcomes and site counters;
 6. on the same scenario, cut to its first SPARSE_DRAIN_ROUNDS rounds: the
    fused sparse path at ``topk=S`` must equal the dense capacity dispatch on
    the card, and ``topk=8`` on the card must equal ``topk=8`` on the CPU;
@@ -58,6 +59,22 @@ check does not hold:
    prefill), bit-identical tokens, and prefill logits within
    2e-2 of the largest logit of the same prefill through the plain
    ``chunked_attention``; print prefill and decode tokens/s and peak memory.
+
+9. drive the subsystem pipeline at WLCG scale (run after phase 4): 300 sites
+   under the flaky-site outage calendar (availability, ``mtbf`` 4 h), 100000
+   jobs in 25000 4-stage ATLAS MC workflow DAGs, ``critical_path_first``
+   with capacity dispatch and a 256-row event log with its ``site_avail``
+   column, 2000 rounds twice, counters set to 0 just before the first run;
+   require the assignment kernel once in every round with work, a preempted
+   job, and the two runs bit-identical (subsystem states and log included);
+   print rounds/s beside phase 3's, segment sums a round, the device busy
+   share over 100 profiled rounds, and the host seconds of
+   ``transition_rows`` and ``ml_dataset``;
+10. the same pipeline at 50 sites and 1250 workflows, with the flaky-site
+   windows and a rolling brown-out's in one calendar, cut to CROSS_ROUNDS
+   rounds, every round logged: dense capacity dispatch and fused ``topk=8``
+   on the card each equal the CPU (log included), and their transition CSV,
+   availability CSV and ML NDJSON exports are byte-identical.
 
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
@@ -84,7 +101,9 @@ ENGINE_J, ENGINE_S = 100_000, 300
 ENGINE_K = 16                  # bench_wlcg_scale.py's top-k
 MANY_SEGMENTS = ENGINE_S * ENGINE_S + 1   # the link sums' segments at S=300
 FULL_MAX_ROUNDS = 2000
-SPARSE_DRAIN_ROUNDS = 1000     # depth cut of phase 6 (the drain takes 10103)
+DRAIN_ROUNDS = 2500            # depth cut of phase 5 (the whole drain takes 10103)
+SPARSE_DRAIN_ROUNDS = 1000     # depth cut of phase 6
+CROSS_ROUNDS = 2000            # depth cut of phase 10
 ASSIGN_CASES = [  # (N, E, k, block_n)
     (ENGINE_J, ENGINE_S, 1, 256),   # the engine shape
     (64, 8, 1, 32),
@@ -830,7 +849,7 @@ def phase_full_width(device, max_rounds: int) -> dict:
     print(f"[full] {T.summary_str(T.compute_metrics(res))}")
     profile_rounds(lambda: T.simulate(jobs, sites, policy, key, max_rounds=100, device=device),
                    names=ASSIGN_KERNELS)
-    return launches
+    return launches, (res.rounds / wall1, res2.rounds / wall2)
 
 
 def phase_sparse_full_width(device, max_rounds: int) -> dict:
@@ -997,7 +1016,7 @@ def profile_rounds(run, label: str = "profile", names=()) -> None:
               "(profiler, inside the run)")
 
 
-def phase_drain(device) -> None:
+def phase_drain(device, max_rounds: int) -> None:
     import torch
 
     from repro_torch import core as T
@@ -1015,7 +1034,7 @@ def phase_drain(device) -> None:
         torch.set_num_threads(1 if dev.type == "cpu" else threads)
         t0 = time.perf_counter()
         try:
-            res = T.simulate(jobs, sites, policy, T.PRNGKey(0), device=dev)
+            res = T.simulate(jobs, sites, policy, T.PRNGKey(0), max_rounds=max_rounds, device=dev)
         finally:
             torch.set_num_threads(threads)
         if dev.type == "cuda":
@@ -1024,7 +1043,8 @@ def phase_drain(device) -> None:
         active = int(((res.jobs.state <= T.RUNNING) & res.jobs.valid).sum())
         print(f"[drain] {dev.type}: rounds={res.rounds} makespan={float(res.makespan)!r} "
               f"active_left={active} wall={wall:.2f}s ({res.rounds / wall:.1f} rounds/s)")
-        check(active == 0, f"{dev.type}: the drain left {active} active jobs")
+        check(res.rounds == max_rounds or active == 0,
+              f"{dev.type}: the drain stopped with {active} active jobs")
         check_invariants(res, f"drain-{dev.type}")
         snaps[dev.type] = snapshot(res)
         print(f"[drain] {dev.type}: {T.summary_str(T.compute_metrics(res))}")
@@ -1083,6 +1103,217 @@ def phase_sparse_drain(device, max_rounds: int) -> None:
     check(mismatches(card8, full), "topk=8 gave the topk=S run: the cut did not bind")
 
 
+# bench_availability.py's preemption-churn setting has mtbf = 4 h: at 300 sites
+# its first outages within 2000 rounds hit no site with running jobs, so no
+# job is preempted; at 1 h neither; at 30 min 155 jobs are (a CPU run of the
+# same scenario cut to the jobs that arrive in those rounds)
+SUB_MTBF = 1800.0
+SUB_CHAINS = 25_000            # atlas_mc_workflows tasks: 4 jobs each, J = 100000
+SUB_LOG_ROWS = 256
+CROSS_S, CROSS_CHAINS = 50, 1250   # phase 10: card against CPU
+
+
+def sub_snapshot(res) -> dict:
+    """``snapshot`` plus the subsystem states and the log's ``site_avail``."""
+    from repro_torch.core import result_to_numpy
+
+    out = result_to_numpy(res)
+    snap = snapshot(res)
+    for group in ("avail", "wf"):
+        snap.update({f"{group}.{k}": v for k, v in out[group].items()})
+    snap["log.site_avail"] = out["log"]["extra"]["site_avail"]
+    return snap
+
+
+def subsystem_scenario(device, n_sites, n_chains, flaky_windows=False):
+    """Sites, 4-stage ATLAS MC workflows (``atlas_mc_workflows``) and the
+    flaky-site calendar at ``SUB_MTBF``; with ``flaky_windows`` the
+    calendar's windows are read back and joined by a rolling brown-out's
+    into one ``make_availability`` calendar."""
+    import numpy as np
+
+    from repro_torch import core as T
+
+    sites = T.atlas_like_platform(n_sites, seed=1, fail_rate=0.02, device=device)
+    scn = T.atlas_mc_workflows(n_chains, seed=0, arrival_span=3600.0, device=device)
+    av = T.flaky_sites(n_sites, np.arange(n_sites), horizon=86400.0, mtbf=SUB_MTBF,
+                       mean_down=1800.0, seed=2, device=device)
+    if flaky_windows:
+        brown = T.rolling_brownout(n_sites, horizon=86400.0, factor=0.5, device="cpu")
+        windows = []
+        for state in (av, brown):
+            start, end = state.win_start.cpu().numpy(), state.win_end.cpu().numpy()
+            factor, preempt = state.win_factor.cpu().numpy(), state.win_preempt.cpu().numpy()
+            windows += [dict(site=int(s), start=float(start[s, w]), end=float(end[s, w]),
+                             factor=float(factor[s, w]), preempt=bool(preempt[s, w]))
+                        for s, w in zip(*np.nonzero(np.isfinite(start)))]
+        av = T.make_availability(n_sites, windows, device=device)
+    return scn, sites, av
+
+
+def phase_subsystems_full_width(device, max_rounds: int, plain_rates) -> dict:
+    """The subsystem pipeline at WLCG scale: 300 sites with flaky-site
+    outages (availability), 100000 jobs in 4-stage workflow DAGs,
+    ``critical_path_first`` with capacity dispatch, the event log with its
+    ``site_avail`` column; twice, with the launch counters set to 0 just
+    before the first run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import events as TE
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import make_capacity_assign
+    from repro_torch.kernels.assign import ops as assign_ops
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    t0 = time.perf_counter()
+    scn, sites, av = subsystem_scenario(device, ENGINE_S, SUB_CHAINS)
+    print(f"[subsys] scenario built in {time.perf_counter() - t0:.2f}s: S={ENGINE_S} "
+          f"J={scn.jobs.capacity} in {SUB_CHAINS} 4-stage workflows, "
+          f"{int(torch.isfinite(av.win_start).sum())} outage windows (mtbf {SUB_MTBF:g} s, "
+          f"W={av.max_windows})")
+    work_rounds = [0]
+    capacity_assign = make_capacity_assign(scn.jobs.cores)
+
+    def counted_assign(*args):
+        work_rounds[0] += 1          # assign runs once per round with work
+        return capacity_assign(*args)
+
+    policy = T.with_capacity_assign(T.get_policy("critical_path_first"), counted_assign)
+    key = T.PRNGKey(0)
+
+    def run(rounds=max_rounds):
+        return T.simulate(scn.jobs, sites, policy, key, availability=av, workflow=scn.workflow,
+                          max_rounds=rounds, log_rows=SUB_LOG_ROWS, device=device)
+
+    def no_plain_version(*args, **kw):
+        raise SmokeFailure("the subsystem path called assign_ref on the card")
+
+    plain = assign_ops.assign_ref
+    assign_ops.assign_ref = no_plain_version
+    try:
+        assign_mod.launches = 0
+        segsum_mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        launches = {"assign": assign_mod.launches, "segment_sum": segsum_mod.launches}
+        rounds_with_work = work_rounds[0]
+        t0 = time.perf_counter()
+        res2 = run()
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    finally:
+        assign_ops.assign_ref = plain
+    n_pre = int(res.avail.n_preempted.sum())
+    print(f"[subsys] rounds={res.rounds} rounds_with_work={rounds_with_work} "
+          f"launches={json.dumps(launches)} ({launches['segment_sum'] / res.rounds:.2f} "
+          f"segment sums a round) makespan={float(res.makespan)!r} n_preempted={n_pre} "
+          f"n_cancelled={int(res.wf.n_cancelled)} log rows written={res.log.cursor}")
+    check(launches["assign"] > 0, "the subsystem path never launched the assign kernel")
+    check(launches["assign"] == rounds_with_work,
+          f"assign launches {launches['assign']} != rounds with work {rounds_with_work}")
+    check(launches["segment_sum"] > 0, "the subsystem path never launched the segment sum")
+    check(n_pre > 0, "no running job was preempted: the path did not exercise preemption")
+    check_invariants(res, "subsys")
+    check(bool(torch.isfinite(res.log.extra["site_avail"]).all()), "site_avail not finite")
+    bad = mismatches(sub_snapshot(res), sub_snapshot(res2))
+    check(not bad, f"two subsystem runs on the card differ: {bad}")
+    print(f"[subsys] second run bit-identical; rounds/s first={res.rounds / wall1:.2f} "
+          f"second={res2.rounds / wall2:.2f}; the plain dense path in this call (phase 3): "
+          f"first={plain_rates[0]:.2f} second={plain_rates[1]:.2f}")
+    print(f"[subsys] {T.summary_str(T.compute_metrics(res))}")
+    t0 = time.perf_counter()
+    n_rows = len(TE.transition_rows(res))
+    rows_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ml = TE.ml_dataset(res)
+    ml_s = time.perf_counter() - t0
+    check(ml["features"].shape[1] == len(ml["feature_names"]) and
+          bool(np.isfinite(ml["features"]).all()), "ml_dataset features malformed")
+    print(f"[subsys] transition_rows: {n_rows} rows in {rows_s:.3f}s on the host; ml_dataset: "
+          f"{ml['features'].shape[0]} rows x {ml['features'].shape[1]} features in "
+          f"{ml_s:.3f}s on the host")
+    profile_rounds(lambda: run(100), "subsys-profile", names=ASSIGN_KERNELS)
+    launches["rounds"] = res.rounds
+    return launches
+
+
+def phase_subsystems_card_vs_cpu(device, max_rounds: int) -> dict:
+    """The subsystem path at S=50 (1250 workflows, flaky-site outages and a
+    rolling brown-out in one calendar), cut to ``max_rounds``: dense
+    capacity dispatch and fused ``topk=8`` on the card each equal the CPU,
+    and so do their transition rows and ML datasets, byte for byte."""
+    import io
+
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import events as TE
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import fused_cuda as fused_mod
+    from repro_torch.kernels.assign import make_capacity_assign, make_fused_capacity_assign
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    def run(dev, fused):
+        scn, sites, av = subsystem_scenario(dev, CROSS_S, CROSS_CHAINS, flaky_windows=True)
+        base = T.get_policy("critical_path_first")
+        policy = (T.with_fused_assign(base, make_fused_capacity_assign(scn.jobs.cores)) if fused
+                  else T.with_capacity_assign(base, make_capacity_assign(scn.jobs.cores)))
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1 if dev.type == "cpu" else threads)
+        t0 = time.perf_counter()
+        try:
+            res = T.simulate(scn.jobs, sites, policy, T.PRNGKey(0), availability=av,
+                             workflow=scn.workflow, max_rounds=max_rounds, log_rows=max_rounds,
+                             topk=8 if fused else None, device=dev)
+        finally:
+            torch.set_num_threads(threads)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        label = f"{dev.type} {'fused topk=8' if fused else 'dense capacity'}"
+        check_invariants(res, f"cross {label}")
+        buf = io.StringIO()
+        TE.write_ml_dataset(res, buf)
+        exports = dict(csv=TE.to_csv(TE.transition_rows(res)), ml=buf.getvalue(),
+                       avail_csv=TE.to_csv(TE.availability_rows(res)))
+        print(f"[cross] {label}: rounds={res.rounds} makespan={float(res.makespan)!r} "
+              f"n_preempted={int(res.avail.n_preempted.sum())} "
+              f"n_cancelled={int(res.wf.n_cancelled)} W={av.max_windows} wall={wall:.2f}s "
+              f"({res.rounds / wall:.1f} rounds/s); {exports['csv'].count(chr(10))} CSV lines, "
+              f"{exports['ml'].count(chr(10))} NDJSON lines")
+        return res, sub_snapshot(res), exports
+
+    cpu = torch.device("cpu")
+    out = {}
+    for fused in (False, True):
+        name = "fused topk=8" if fused else "dense"
+        assign_mod.launches = fused_mod.launches = segsum_mod.launches = 0
+        card, card_snap, card_exp = run(device, fused)
+        kernel, launched = (("fused_assign", fused_mod.launches) if fused
+                            else ("assign", assign_mod.launches))
+        out[kernel] = launched
+        print(f"[cross] {name} on the card: {launched} {kernel} launches, "
+              f"{segsum_mod.launches} segment_sum launches")
+        check(launched > 0 and segsum_mod.launches > 0,
+              f"the {name} subsystem run did not launch {kernel} and segment_sum")
+        _, cpu_snap, cpu_exp = run(cpu, fused)
+        bad = mismatches(card_snap, cpu_snap)
+        print(f"[cross] {name} card vs CPU mismatch counts: {json.dumps(bad)}")
+        check(not bad, f"the card's {name} subsystem run differs from the CPU's")
+        for k in card_exp:
+            check(card_exp[k] == cpu_exp[k], f"{name}: the card's {k} export differs from the CPU's")
+        check(int(card.avail.n_preempted.sum()) > 0, f"{name}: no preemption at S={CROSS_S}")
+        check(bool((card.log.extra["site_avail"] == 0.5).any()), f"{name}: no brown-out logged")
+        print(f"[cross] {name}: transition CSV, availability CSV and ML NDJSON byte-identical "
+              f"({len(card_exp['csv'])}, {len(card_exp['avail_csv'])} and {len(card_exp['ml'])} B)")
+    return out
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1110,14 +1341,21 @@ def main() -> int:
     rows = phase_kernels(device)
     rows["fused_assign"] = phase_fused_kernel(device)
     rows["flash_attention"] = phase_flash_kernel(device)
-    launches = phase_full_width(device, FULL_MAX_ROUNDS)
+    launches, plain_rates = phase_full_width(device, FULL_MAX_ROUNDS)
     sparse_launches = phase_sparse_full_width(device, FULL_MAX_ROUNDS)
-    phase_drain(device)
+    sub_launches = phase_subsystems_full_width(device, FULL_MAX_ROUNDS, plain_rates)
+    phase_drain(device, DRAIN_ROUNDS)
     phase_sparse_drain(device, SPARSE_DRAIN_ROUNDS)
+    cross_launches = phase_subsystems_card_vs_cpu(device, CROSS_ROUNDS)
     serve_launches = phase_serve(device)
     for name, row in rows.items():
         row["launches"] = (sparse_launches[name] if name == "fused_assign" else
                            serve_launches[name] if name == "flash_attention" else launches[name])
+        # the subsystem paths' own counts (phases 9 and 10)
+        if name in sub_launches:
+            row["launches_subsystems"] = sub_launches[name]
+        if name in cross_launches:
+            row["launches_subsystems_s50"] = cross_launches[name]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

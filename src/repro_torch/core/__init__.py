@@ -1,7 +1,10 @@
 """CGSim core on PyTorch: the event-round engine (``engine.simulate``) and its
-sparse top-k candidate index (``sparse``), the plugin policy system
-(``policies``), PanDA-shaped workloads (``workload``), platform builders
-(``platform``), metrics, and the numpy bridge (``convert``).
+sparse top-k candidate index (``sparse``), the subsystem protocol
+(``subsystems``) with site availability (``availability``) and workflow DAGs
+(``workflows``), the plugin policy system (``policies``), PanDA-shaped
+workloads and calendars (``workload``), platform builders (``platform``),
+metrics, the event-level ML dataset (``events``), monitoring (``monitor``),
+and the numpy bridge (``convert``).
 """
 from .types import (  # noqa: F401
     ASSIGNED,
@@ -28,8 +31,26 @@ from .engine import (  # noqa: F401
     compute_time,
     default_assign,
     default_assign_cand,
+    queue_times,
     service_time,
     simulate,
+    walltimes,
+)
+from .subsystems import (  # noqa: F401
+    RoundCtx,
+    Subsystem,
+    make_subsystem,
+    pad_ext_jobs,
+    resolve_subsystems,
+)
+from .availability import (  # noqa: F401
+    AvailabilityState,
+    availability_factor,
+    availability_subsystem,
+    downtime_fraction,
+    make_availability,
+    next_window_edge,
+    sample_correlated_outages,
 )
 from .policies import (  # noqa: F401
     REGISTRY,
@@ -37,13 +58,37 @@ from .policies import (  # noqa: F401
     Policy,
     get_policy,
     make_policy,
+    critical_path_first,
     register,
     with_capacity_assign,
     with_fused_assign,
 )
+from .workflows import (  # noqa: F401
+    WorkflowScenario,
+    WorkflowState,
+    atlas_mc_workflows,
+    chain_workflows,
+    make_workflow,
+    map_reduce_workflows,
+    parent_status,
+    workflow_locality,
+    workflow_subsystem,
+)
 from .sparse import bytes_per_round, build_candidates, static_feasibility  # noqa: F401
-from .workload import synthetic_panda_jobs  # noqa: F401
-from .platform import atlas_like_platform  # noqa: F401
+from .workload import (  # noqa: F401
+    flaky_sites,
+    maintenance_calendar,
+    rolling_brownout,
+    synthetic_panda_jobs,
+)
+from .platform import atlas_like_platform, load_availability  # noqa: F401
 from .metrics import Metrics, compute_metrics, summary_str  # noqa: F401
-from .convert import jobs_from_numpy, result_to_numpy, sites_from_numpy  # noqa: F401
+from .events import read_ml_trace, recorded_trace, stream_rows, write_ml_dataset  # noqa: F401
+from .convert import (  # noqa: F401
+    availability_from_numpy,
+    jobs_from_numpy,
+    result_to_numpy,
+    sites_from_numpy,
+    workflow_from_numpy,
+)
 from .rng import PRNGKey  # noqa: F401

@@ -1,17 +1,22 @@
 """State carried between numpy and the port.
 
-``jobs_from_numpy``/``sites_from_numpy`` take a mapping of field name to
-array (what ``{k: np.asarray(v) for k, v in state._asdict().items()}`` gives
-for a JAX-package ``JobsState``/``SiteState``) and build the port's state on
-a device; ``result_to_numpy`` turns a ``SimResult`` back into nested dicts of
-numpy arrays.  The tests feed both implementations identical inputs this way.
+``jobs_from_numpy``/``sites_from_numpy``/``availability_from_numpy``/
+``workflow_from_numpy`` take a mapping of field name to array (what
+``{k: np.asarray(v) for k, v in state._asdict().items()}`` gives for the JAX
+package's ``JobsState``/``SiteState``/``AvailabilityState``/
+``WorkflowState``) and build the port's state on a device;
+``result_to_numpy`` turns a ``SimResult`` back into nested dicts of numpy
+arrays, through ``to_numpy``.  The tests feed both implementations
+identical inputs this way.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .availability import AvailabilityState
 from .types import JobsState, SimResult, SiteState, resolve_device
+from .workflows import WorkflowState
 
 
 def _from_numpy(cls, arrays, device):
@@ -32,22 +37,37 @@ def sites_from_numpy(arrays, device="cuda") -> SiteState:
     return _from_numpy(SiteState, arrays, device)
 
 
-def _to_numpy(value):
+def availability_from_numpy(arrays, device="cuda") -> AvailabilityState:
+    return _from_numpy(AvailabilityState, arrays, device)
+
+
+def workflow_from_numpy(arrays, device="cuda") -> WorkflowState:
+    return _from_numpy(WorkflowState, arrays, device)
+
+
+def to_numpy(value):
+    """A tensor on any device as a numpy array; NamedTuple states and dicts
+    as dicts of them; any other value through ``np.asarray``."""
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
     if isinstance(value, dict):
-        return {k: _to_numpy(v) for k, v in value.items()}
+        return {k: to_numpy(v) for k, v in value.items()}
     if isinstance(value, tuple) and hasattr(value, "_asdict"):
-        return {k: _to_numpy(v) for k, v in value._asdict().items()}
+        return {k: to_numpy(v) for k, v in value._asdict().items()}
     return np.asarray(value)
 
 
 def result_to_numpy(res: SimResult) -> dict:
-    """``{"makespan", "rounds", "jobs": {...}, "sites": {...}, "log": {...}}``."""
-    return dict(
-        makespan=_to_numpy(res.makespan),
+    """``{"makespan", "rounds", "jobs": {...}, "sites": {...}, "log": {...}}``,
+    plus ``"avail"`` and ``"wf"`` when those subsystems ran."""
+    out = dict(
+        makespan=to_numpy(res.makespan),
         rounds=np.int32(res.rounds),
-        jobs=_to_numpy(res.jobs),
-        sites=_to_numpy(res.sites),
-        log=_to_numpy(res.log),
+        jobs=to_numpy(res.jobs),
+        sites=to_numpy(res.sites),
+        log=to_numpy(res.log),
     )
+    for name in ("avail", "wf"):
+        if getattr(res, name) is not None:
+            out[name] = to_numpy(getattr(res, name))
+    return out

@@ -8,14 +8,19 @@ masked dense updates:
 
   round(t*):
     1. completions   — running jobs with t_finish <= t*  → DONE/FAILED/resubmit
-    2. arrivals      — pending jobs with arrival  <= t*  → QUEUED at the server
-    3. assignment    — the policy plugin scores QUEUED jobs against sites
+    2. subsystems    — post-completion transitions (outage preemption,
+                       DAG cascade-cancel) via ``on_completions`` hooks
+    3. arrivals      — pending jobs with arrival  <= t*  → QUEUED at the server
+    4. assignment    — the policy plugin scores QUEUED jobs against sites
                        (all of them, or a candidate index with ``topk``);
                        feasible best-site rows become ASSIGNED (site queue)
-    4. starts        — per-site FIFO-with-capacity: sort ASSIGNED rows by
+    5. starts        — per-site FIFO-with-capacity: sort ASSIGNED rows by
                        (site, -priority, -rank, arrival), start the per-site
                        prefix whose cumulative core/memory demand fits
-    5. bookkeeping   — service times, failure sampling, counters, event log
+    6. bookkeeping   — service times, failure sampling, counters, event log
+
+Engine extensions are ``Subsystem`` hook bundles (``subsystems.py``) called at
+the JAX engine's points of the round; a run without one runs none of its code.
 
 The results equal the JAX package's bit for bit: the same key stream
 (``rng``), the same float orders (``scan``), and sorts whose keys are a strict
@@ -29,6 +34,7 @@ from . import rng as _rng
 from ..kernels.segment_sum import segment_sum
 from .scan import cumsum_f32, fma_f32
 from .sparse import CAND_SALT, build_candidates
+from .subsystems import RoundCtx, resolve_subsystems
 from .types import (
     ASSIGNED,
     DONE,
@@ -192,14 +198,19 @@ def default_assign_cand(scores_k, queued, feas_k, cand, sites=None):
 
 
 def _init_state(
-    jobs0: JobsState, sites0: SiteState, policy, key, log_rows: int, topk: int | None = None,
+    jobs0: JobsState, sites0: SiteState, policy, key, ext0: dict, subsystems: tuple,
+    log_rows: int, topk: int | None = None,
 ) -> EngineState:
-    """Build the round-loop carry: run the policy's init hook, allocate the
-    frame ring buffer, build the sparse candidate index (``topk``), precompute
-    the packed start-order key when allowed."""
+    """Build the round-loop carry: run the policy's and the subsystems' init
+    hooks, build the sparse candidate index (``topk``), precompute the packed
+    start-order key when allowed, allocate the frame ring buffer with the
+    subsystems' log columns."""
     device = jobs0.arrival.device
     pstate0 = policy.init(jobs0, sites0)
-    ext0 = {}
+    ext0 = dict(ext0)
+    for sub in subsystems:
+        if sub.init is not None:
+            ext0[sub.name] = sub.init(sub, ext0[sub.name], jobs0, sites0)
     if topk is not None:
         # sparse-mode candidate index: "~" keys are engine-internal carry,
         # dropped from SimResult.ext in _finalize
@@ -207,8 +218,15 @@ def _init_state(
             jobs0, sites0, policy, pstate0, torch.zeros((), dtype=torch.float32, device=device),
             _rng.fold_in(key, CAND_SALT), ext0, topk,
         )
-    if _packed_order_ok(policy, jobs0.capacity, sites0.capacity):
+    # the packed key assumes run-constant arrivals: a subsystem that pushes
+    # arrivals back disables it
+    mutates_arrival = any(getattr(sub.config, "mutates_arrival", False) for sub in subsystems)
+    if not mutates_arrival and _packed_order_ok(policy, jobs0.capacity, sites0.capacity):
         ext0["~srank"] = _static_start_rank(jobs0)
+    log_extra0 = {}
+    for sub in subsystems:
+        if sub.log_spec is not None:
+            log_extra0.update(sub.log_spec(sub, ext0[sub.name], jobs0, sites0))
     return EngineState(
         clock=torch.zeros((), dtype=torch.float32, device=device),
         round=0,
@@ -216,14 +234,24 @@ def _init_state(
         sites=sites0,
         rng=key,
         policy_state=pstate0,
-        log=make_log(log_rows, sites0.capacity, device=device),
+        log=make_log(log_rows, sites0.capacity, extra=log_extra0, device=device),
         halted=torch.zeros((), dtype=torch.bool, device=device),
         ext=ext0,
     )
 
 
+def _static_feasible(jobs: JobsState, sites: SiteState) -> torch.Tensor:
+    """``bool[J, S]``: the job can ever fit the site."""
+    return (
+        sites.active[None, :]
+        & (jobs.cores[:, None] <= sites.cores[None, :])
+        & (jobs.memory[:, None] <= sites.memory[None, :])
+    )
+
+
 def _round_fns(
     policy,
+    subsystems: tuple,
     *,
     max_rounds: int,
     log_rows: int,
@@ -236,6 +264,14 @@ def _round_fns(
 ):
     """The round loop's ``(cond, body)`` pair for one configuration.  ``cond``
     reads one flag back from the device."""
+
+    def hooks(name):
+        """``(subsystem, hook)`` pairs of one hook point, in tuple order."""
+        return [(sub, getattr(sub, name)) for sub in subsystems if getattr(sub, name) is not None]
+
+    gate_hooks, event_hooks = hooks("arrival_gate"), hooks("event_times")
+    filter_hooks, completion_hooks = hooks("completion_filter"), hooks("on_completions")
+    assign_hooks, start_hooks, log_hooks = hooks("pre_assign"), hooks("on_start"), hooks("log_columns")
 
     def cond(st: EngineState, horizon) -> bool:
         if st.round >= max_rounds:
@@ -250,18 +286,32 @@ def _round_fns(
         J = st.jobs.capacity
         jobs, sites = st.jobs, st.sites
         key, k_fail, k_frac, k_policy = _rng.split(st.rng, 4)
+        # subsystem key streams fold off the round's carry key (RoundCtx.subkey)
+        ctx = RoundCtx(jobs=jobs, sites=sites, ext=dict(st.ext), clock_prev=st.clock,
+                       max_retries=max_retries, rng=st.rng)
 
         # ---- 1. advance the clock to the next event ------------------------
         arrivable = (jobs.state == PENDING) & jobs.valid
+        for sub, fn in gate_hooks:
+            # gated jobs are not an event source: their wake-up event is
+            # whatever un-gates them (e.g. a DAG parent's completion)
+            arrivable = arrivable & fn(sub, ctx)
         arr_t = torch.where(arrivable, jobs.arrival, INF)
         fin_t = torch.where(jobs.state == RUNNING, jobs.t_finish, INF)
         t_next = torch.minimum(arr_t.amin(), fin_t.amin())
+        for sub, fn in event_hooks:
+            # subsystem event sources (outage window edges) join the
+            # min-reduction so rounds land exactly on their boundaries
+            t_next = torch.minimum(t_next, fn(sub, ctx))
         if quantum > 0.0:
             t_next = t_next + quantum
         clock = torch.where(torch.isfinite(t_next), torch.maximum(st.clock, t_next), st.clock)
+        ctx.clock = clock
 
         # ---- 2. completions -------------------------------------------------
         comp = (jobs.state == RUNNING) & (jobs.t_finish <= clock)
+        for sub, fn in filter_hooks:
+            comp = fn(sub, ctx, comp)
         comp_site = torch.where(comp, jobs.site, S)  # padded segment for non-events
         freed_mem = _site_sum(torch.where(comp, jobs.memory, 0.0), comp_site, S)
         failed_now = comp & jobs.will_fail
@@ -291,49 +341,68 @@ def _round_fns(
             n_finished=sites.n_finished + comp_sums[:, 1],
             n_failed=sites.n_failed + comp_sums[:, 2],
         )
+        ctx.jobs, ctx.sites = jobs, sites
+        ctx.comp, ctx.done_now, ctx.failed_now = comp, done_now, failed_now
+
+        # ---- 2b. subsystem post-completion transitions -----------------------
+        # (availability preemption and brown-out, workflow cascade-cancel)
+        for sub, fn in completion_hooks:
+            fn(sub, ctx)
+        jobs, sites = ctx.jobs, ctx.sites
 
         # ---- 3. arrivals -----------------------------------------------------
         arrived = (jobs.state == PENDING) & (jobs.arrival <= clock) & jobs.valid
+        for sub, fn in gate_hooks:
+            # re-gate against post-completion states so a job un-gated this
+            # round arrives (and can start) this round
+            arrived = arrived & fn(sub, ctx)
         jobs = jobs._replace(state=torch.where(arrived, QUEUED, jobs.state))
+        ctx.jobs, ctx.arrived = jobs, arrived
 
         # ---- 4+5. assignment & starts ----------------------------------------
         queued = jobs.state == QUEUED
-        ext = st.ext
         if topk is not None and topk_refresh > 0 and st.round % topk_refresh == 0:
             # periodic candidate rebuild: O(J*S), only on refresh rounds
-            ext = dict(ext)
-            ext["~cand"] = build_candidates(
+            ctx.ext["~cand"] = build_candidates(
                 jobs, sites, policy, st.policy_state, clock,
-                _rng.fold_in(st.rng, CAND_SALT), ext, topk,
+                _rng.fold_in(st.rng, CAND_SALT), ctx.ext, topk,
             )
-        start_cores = sites.free_cores
-        sites_serv = sites
+        ctx.start_cores = sites.free_cores
+        ctx.sites_serv = sites
+        if assign_hooks:
+            # the static fit is built here only when a hook composes with it;
+            # otherwise inside _assign_and_start, which phase-skip rounds skip
+            ctx.feasible = (
+                _static_feasible(jobs, sites) if topk is None else sites.active[None, :]
+            )
+            for sub, fn in assign_hooks:
+                fn(sub, ctx)
         pstate = st.policy_state
         rank_fn = getattr(policy, "rank", None)
+        start_cores = ctx.start_cores
 
         def _assign_and_start(jobs, sites):
             """Phases 4 (policy assignment, the plugin hot spot) and 5
             (per-site FIFO-with-capacity starts).  With no QUEUED or ASSIGNED
             rows every update in here is a masked no-op, which is what makes
             the phase-skip guard below exact."""
+            feasible = ctx.feasible
             if topk is None:
-                # static feasibility: job can ever fit the site
-                feasible = (
-                    sites.active[None, :]
-                    & (jobs.cores[:, None] <= sites.cores[None, :])
-                    & (jobs.memory[:, None] <= sites.memory[None, :])
-                )
+                if feasible is None:
+                    feasible = _static_feasible(jobs, sites)
                 scores = policy.score(jobs, sites, pstate, clock, k_policy)  # [J, S]
                 site_pick, assigned_now = policy.assign(scores, queued, feasible, sites)
             else:
                 # the static core/memory fit lives in the candidate index;
-                # per-round feasibility is a per-site [1, S] mask
-                feasible = sites.active[None, :]
-                cand = ext["~cand"]                         # i32[J, K]
+                # per-round feasibility is a per-site [1, S] mask, or a
+                # [J, S] one that a hook wrote
+                if feasible is None:
+                    feasible = sites.active[None, :]
+                cand = ctx.ext["~cand"]                     # i32[J, K]
                 cand_c = cand.clamp_max(S - 1).long()
                 # re-check everything the dense mask carries, gathered at the
-                # candidates: validity, per-round feasibility ([1, S], or a
-                # [J, S] mask by row) and the static core/memory fit
+                # candidates: validity, per-round feasibility and the static
+                # core/memory fit
                 f_at = (
                     feasible[0][cand_c] if feasible.shape[0] == 1
                     else feasible.gather(1, cand_c)
@@ -396,6 +465,7 @@ def _round_fns(
             started = torch.zeros((J,), dtype=torch.bool, device=clock.device)
         else:
             jobs, sites, started = _assign_and_start(jobs, sites)
+        ctx.jobs, ctx.sites = jobs, sites
 
         start_site = torch.where(started, jobs.site, S)
         start_sums = _site_sum_stacked(
@@ -407,8 +477,13 @@ def _round_fns(
         site_c = jobs.site.clamp_max(S - 1).long()
         share = start_sums[:, 1][site_c].float()
 
-        # ---- 5b. service times, failure sampling -----------------------------
-        t_serv = service_time(jobs, sites_serv, site_c, share, share)
+        # ---- 5b. service times + subsystem adjustments -----------------------
+        ctx.started, ctx.site_c = started, site_c
+        ctx.share, ctx.start_site = share, start_site
+        ctx.t_serv = service_time(jobs, ctx.sites_serv, site_c, share, share)
+        for sub, fn in start_hooks:
+            fn(sub, ctx)
+        jobs, t_serv = ctx.jobs, ctx.t_serv
         # both per-job draws hash the same counters: one threefry pass, two keys
         bits = _rng.random_bits(torch.stack([k_fail, k_frac]), (J,))
         u_fail = _rng.uniform_from_bits(bits[0])
@@ -428,12 +503,15 @@ def _round_fns(
             free_cores=sites.free_cores - start_sums[:, 0],
             free_memory=sites.free_memory - used_mem,
         )
+        ctx.jobs, ctx.sites = jobs, sites
         pstate = policy.on_step(pstate, jobs, sites, comp, started, clock)
 
         # ---- 6. halt detection & event log -----------------------------------
         n_started = started.sum()
         n_completed = comp.sum()
-        progressed = (n_started > 0) | (n_completed > 0) | arrived.any()
+        # subsystem transitions (preemption, cascade rounds) count as progress
+        # so halt detection gives the dispatcher a round to react to them
+        progressed = (n_started > 0) | (n_completed > 0) | arrived.any() | ctx.progressed
         halted = ~torch.isfinite(t_next) & ~progressed
 
         log = st.log
@@ -452,6 +530,9 @@ def _round_fns(
                 ones, torch.where(jobs.state == ASSIGNED, jobs.site, S), S)
             log.site_running[slot] = _site_sum(
                 ones, torch.where(jobs.state == RUNNING, jobs.site, S), S)
+            for sub, fn in log_hooks:
+                for name, value in fn(sub, ctx, True).items():
+                    log.extra[name][slot] = value
             log = log._replace(cursor=log.cursor + 1)
 
         return EngineState(
@@ -463,17 +544,22 @@ def _round_fns(
             policy_state=pstate,
             log=log,
             halted=halted,
-            ext=ext,
+            ext=ctx.ext,
         )
 
     return cond, body
 
 
-def _finalize(st: EngineState, policy) -> SimResult:
-    """End-of-run policy hook plus SimResult assembly; "~"-prefixed carries
-    are engine-internal and dropped."""
+def _finalize(st: EngineState, policy, subsystems: tuple) -> SimResult:
+    """End-of-run hooks (policy ``on_end``, subsystem ``finalize``) plus
+    SimResult assembly; "~"-prefixed carries are engine-internal and dropped."""
     pstate = policy.on_end(st.policy_state, st.jobs, st.sites, st.clock)
     ext = {k: v for k, v in st.ext.items() if not k.startswith("~")}
+    result_fields = {}
+    for sub in subsystems:
+        if sub.finalize is not None:
+            ext[sub.name], fields = sub.finalize(sub, ext[sub.name], st.jobs, st.sites, st.clock)
+            result_fields.update(fields)
     return SimResult(
         makespan=st.clock,
         rounds=st.round,
@@ -482,15 +568,27 @@ def _finalize(st: EngineState, policy) -> SimResult:
         log=st.log,
         policy_state=pstate,
         ext=ext,
+        **result_fields,
     )
 
 
 def _check_device(state, device: torch.device, what: str) -> None:
-    for name, t in state._asdict().items():
-        if t.device.type != device.type or (
-            device.index is not None and t.device.index != device.index
+    """Every tensor in ``state`` (a tensor, or NamedTuples, dicts, tuples and
+    lists of them) lies on ``device``."""
+    if isinstance(state, torch.Tensor):
+        if state.device.type != device.type or (
+            device.index is not None and state.device.index != device.index
         ):
-            raise ValueError(f"{what}.{name} lies on {t.device}, the run on {device}")
+            raise ValueError(f"{what} lies on {state.device}, the run on {device}")
+    elif isinstance(state, tuple) and hasattr(state, "_asdict"):
+        for name, t in state._asdict().items():
+            _check_device(t, device, f"{what}.{name}")
+    elif isinstance(state, dict):
+        for name, t in state.items():
+            _check_device(t, device, f"{what}[{name!r}]")
+    elif isinstance(state, (tuple, list)):
+        for i, t in enumerate(state):
+            _check_device(t, device, f"{what}[{i}]")
 
 
 def simulate(
@@ -499,6 +597,14 @@ def simulate(
     policy,
     rng: torch.Tensor,
     *,
+    availability=None,
+    workflow=None,
+    subsystems=(),
+    data_policy=None,
+    network=None,
+    replicas=None,
+    transfers=None,
+    faults=None,
     max_rounds: int = 100_000,
     horizon: float = float("inf"),
     log_rows: int = 0,
@@ -512,8 +618,9 @@ def simulate(
 ) -> SimResult:
     """Run the grid simulation to completion (or ``max_rounds``/``horizon``).
 
-    ``jobs0`` and ``sites0`` must lie on ``device`` (build them with the same
-    ``device=``); the key moves there.  ``device="cuda"`` raises without a GPU.
+    ``jobs0``, ``sites0`` and the subsystem states must lie on ``device``
+    (build them with the same ``device=``); the key moves there.
+    ``device="cuda"`` raises without a GPU.
 
     ``phase_skip`` (default on) skips the assignment and start phases in
     rounds with no QUEUED/ASSIGNED rows, with identical results.  ``quantum``
@@ -528,15 +635,39 @@ def simulate(
     its pre-ranked candidates.  The index is built once at init from the
     policy's pre-rank; ``topk_refresh=N`` rebuilds it every N rounds (0 =
     never).
+
+    Subsystems:
+
+    - ``availability=`` (an ``AvailabilityState`` downtime calendar): window
+      edges become event rounds, full outages block assignment and starts
+      and either preempt running jobs (back to QUEUED with a retry) or drain
+      them, and brown-out windows scale a site's speed and usable cores.
+    - ``workflow=`` (a ``WorkflowState`` DAG): a job stays PENDING until
+      every parent is DONE, and a terminally failed parent cascade-cancels
+      its descendants.
+    - ``subsystems=((Subsystem, state0), ...)`` appends custom subsystems
+      after the built-ins.
+
+    ``data_policy=``/``network=``/``replicas=``, ``transfers=`` and
+    ``faults=`` raise ``NotImplementedError``: those subsystems are not
+    ported yet (ROADMAP Queue 1 items 7, 8 and 9).
     """
     device = resolve_device(device)
     _check_device(jobs0, device, "jobs0")
     _check_device(sites0, device, "sites0")
+    subs, ext0 = resolve_subsystems(
+        availability=availability, workflow=workflow, subsystems=subsystems,
+        data_policy=data_policy, network=network, replicas=replicas, transfers=transfers,
+        faults=faults, jobs=jobs0, sites=sites0,
+    )
+    for name, state in ext0.items():
+        _check_device(state, device, name)
     if topk is not None:
         topk = min(int(topk), sites0.capacity)  # k >= S is exactly dense
-    st = _init_state(jobs0, sites0, policy, rng.to(device), log_rows, topk)
+    st = _init_state(jobs0, sites0, policy, rng.to(device), ext0, subs, log_rows, topk)
     cond, body = _round_fns(
         policy,
+        subs,
         max_rounds=max_rounds,
         log_rows=log_rows,
         max_retries=max_retries,
@@ -548,4 +679,13 @@ def simulate(
     )
     while cond(st, horizon):
         st = body(st)
-    return _finalize(st, policy)
+    return _finalize(st, policy, subs)
+
+
+def walltimes(result: SimResult) -> torch.Tensor:
+    """Per-job walltime (t_finish - t_start); inf for jobs that never ran."""
+    return result.jobs.t_finish - result.jobs.t_start
+
+
+def queue_times(result: SimResult) -> torch.Tensor:
+    return result.jobs.t_start - result.jobs.arrival

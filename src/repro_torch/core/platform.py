@@ -1,10 +1,12 @@
-"""Platform builders.
+"""Platform builders and the availability calendar's JSON loader.
 
 The same generator as the JAX package's ``platform.atlas_like_platform``:
 numpy's ``default_rng`` draws every column on the host, so a seed gives the
 same sites bit for bit in both packages.
 """
 from __future__ import annotations
+
+import json
 
 import numpy as np
 
@@ -43,3 +45,35 @@ def atlas_like_platform(
         capacity=capacity,
         device=device,
     )
+
+
+def load_availability(spec: dict | str, names=None, *, n_sites: int | None = None,
+                      device="cuda"):
+    """Build an ``AvailabilityState`` from a CGSim-style JSON payload.
+
+    spec: {"windows": [{"site": <name or index>, "start": s, "end": s,
+                        "factor"?: 0.0, "preempt"?: false}, ...]}
+    Site names resolve through ``names``; ``n_sites`` defaults to
+    ``len(names)``.
+    """
+    from .availability import make_availability
+
+    if isinstance(spec, str):
+        spec = json.loads(spec)
+    if n_sites is None:
+        if names is None:
+            raise ValueError("load_availability needs names= or n_sites=")
+        n_sites = len(names)
+    index = {nm: i for i, nm in enumerate(names or [])}
+    windows = []
+    for w in spec.get("windows", []):
+        site = w["site"]
+        if isinstance(site, str):
+            if site not in index:
+                raise ValueError(f"unknown site name {site!r}")
+            site = index[site]
+        windows.append(
+            dict(site=site, start=w["start"], end=w["end"],
+                 factor=w.get("factor", 0.0), preempt=w.get("preempt", False))
+        )
+    return make_availability(n_sites, windows, device=device)

@@ -131,7 +131,8 @@ class EngineState(NamedTuple):
     policy_state: object       # policy-defined value
     log: EventLog
     halted: torch.Tensor       # bool[] no further progress possible
-    ext: dict                  # engine-internal carries ("~srank")
+    ext: dict                  # {subsystem name: state}; "~"-prefixed keys are
+                               # engine-internal carries ("~cand", "~srank")
 
 
 class SimResult(NamedTuple):
@@ -141,7 +142,11 @@ class SimResult(NamedTuple):
     sites: SiteState
     log: EventLog
     policy_state: object
-    ext: object = None
+    replicas: object = None    # final replica catalog (None without a data policy)
+    data_state: object = ()
+    avail: object = None       # final AvailabilityState (None without availability)
+    wf: object = None          # final WorkflowState (None without a workflow DAG)
+    ext: object = None         # {name: final state} for every attached subsystem
 
 
 def make_jobs(
@@ -285,11 +290,14 @@ def make_sites(
     )
 
 
-def make_log(rows: int, n_sites: int, device="cuda") -> EventLog:
-    """Allocate the ring buffer (at least one row, as the JAX engine does)."""
+def make_log(rows: int, n_sites: int, extra: dict | None = None, device="cuda") -> EventLog:
+    """Allocate the ring buffer (at least one row, as the JAX engine does).
+    ``extra`` maps subsystem column names to their time-zero row values;
+    unwritten rows keep that initial value."""
     device = resolve_device(device)
     r = max(rows, 1)
     i32 = torch.int32
+    extra = {k: torch.as_tensor(v, device=device) for k, v in (extra or {}).items()}
     return EventLog(
         time=torch.full((r,), float("nan"), dtype=torch.float32, device=device),
         round_idx=torch.full((r,), -1, dtype=i32, device=device),
@@ -299,6 +307,6 @@ def make_log(rows: int, n_sites: int, device="cuda") -> EventLog:
         site_free=torch.zeros((r, n_sites), dtype=i32, device=device),
         site_queued=torch.zeros((r, n_sites), dtype=i32, device=device),
         site_running=torch.zeros((r, n_sites), dtype=i32, device=device),
-        extra={},
+        extra={k: v[None].expand((r,) + v.shape).clone() for k, v in extra.items()},
         cursor=0,
     )

@@ -1,8 +1,10 @@
-"""PanDA-shaped synthetic workloads.
+"""PanDA-shaped synthetic workloads and availability scenario calendars.
 
-The same generator as the JAX package's ``workload.synthetic_panda_jobs``:
-numpy's ``default_rng`` draws every column on the host, so a seed gives the
-same jobs bit for bit in both packages.
+The same generators as the JAX package's ``workload`` module
+(``synthetic_panda_jobs``, ``maintenance_calendar``, ``flaky_sites``,
+``rolling_brownout``): numpy's ``default_rng`` draws every column and
+window on the host, so a seed gives the same jobs and windows bit for bit
+in both packages.
 """
 from __future__ import annotations
 
@@ -70,3 +72,102 @@ def synthetic_panda_jobs(
         capacity=capacity,
         device=device,
     )
+
+
+def maintenance_calendar(
+    n_sites: int,
+    *,
+    horizon: float,
+    period: float = 7 * 86400.0,
+    duration: float = 4 * 3600.0,
+    first: float | None = None,
+    stagger: bool = True,
+    sites=None,
+    preempt: bool = False,
+    device="cuda",
+):
+    """Scheduled-maintenance scenario: periodic full-outage windows per site.
+
+    Each selected site goes down for ``duration`` every ``period`` seconds,
+    starting at ``first`` (default one period in).  ``stagger`` offsets sites
+    evenly across the period (rolling maintenance, so the grid never loses
+    every site at once).  Drain semantics by default: maintenance is
+    announced, queues pause, running jobs finish.
+    """
+    from .availability import make_availability
+
+    chosen = range(n_sites) if sites is None else sites
+    base = period if first is None else first
+    windows = []
+    for s in chosen:
+        offset = (period * (s / max(n_sites, 1))) if stagger else 0.0
+        t0 = base + offset
+        while t0 < horizon:
+            windows.append(dict(site=int(s), start=t0, end=t0 + duration, preempt=preempt))
+            t0 += period
+    return make_availability(n_sites, windows, device=device)
+
+
+def flaky_sites(
+    n_sites: int,
+    flaky,
+    *,
+    horizon: float,
+    mtbf: float = 12 * 3600.0,
+    mean_down: float = 1800.0,
+    seed: int = 0,
+    preempt: bool = True,
+    max_windows: int | None = None,
+    device="cuda",
+):
+    """Flaky-T2 scenario: unannounced short outages that kill running jobs.
+
+    Sites flagged in ``flaky`` (bool mask or index list) fail as a Poisson
+    process with mean time between failures ``mtbf`` and log-normal repair
+    time around ``mean_down``; jobs caught running are preempted and
+    resubmitted (a retry).  numpy's ``default_rng`` draws as the JAX
+    package's builder does, so a seed gives the same windows.
+    """
+    from .availability import make_availability
+
+    mask = np.zeros(n_sites, bool)
+    flaky = np.asarray(flaky)
+    mask[flaky.astype(np.int64) if flaky.dtype != np.bool_ else flaky] = True
+    rng = np.random.default_rng(seed)
+    windows = []
+    for s in np.flatnonzero(mask):
+        t = float(rng.exponential(mtbf))
+        while t < horizon:
+            down = float(rng.lognormal(np.log(mean_down), 0.5))
+            windows.append(dict(site=int(s), start=t, end=t + down, preempt=preempt))
+            t += down + float(rng.exponential(mtbf))
+    return make_availability(n_sites, windows, max_windows=max_windows, device=device)
+
+
+def rolling_brownout(
+    n_sites: int,
+    *,
+    horizon: float,
+    factor: float = 0.5,
+    duration: float | None = None,
+    start: float = 0.0,
+    sites=None,
+    device="cuda",
+):
+    """Rolling brown-out: a degradation wave crosses the grid site by site.
+
+    Each site in turn runs at ``factor`` of its speed and cores for one slot;
+    slots tile ``[start, horizon]`` back to back (``duration`` overrides the
+    slot length).
+    """
+    from .availability import make_availability
+
+    chosen = list(range(n_sites) if sites is None else sites)
+    if not chosen:
+        return make_availability(n_sites, device=device)
+    slot = duration if duration is not None else (horizon - start) / len(chosen)
+    windows = [
+        dict(site=int(s), start=start + i * slot, end=start + (i + 1) * slot, factor=factor)
+        for i, s in enumerate(chosen)
+    ]
+    return make_availability(n_sites, windows, device=device)

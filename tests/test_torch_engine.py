@@ -136,10 +136,27 @@ def test_entry_points_default_to_the_gpu():
         T.synthetic_panda_jobs(10, seed=0)
     with pytest.raises(RuntimeError, match="cuda"):
         T.atlas_like_platform(3, seed=0)
+    builders = [
+        lambda: T.make_availability(3, [(0, 1.0, 2.0)]),
+        lambda: T.maintenance_calendar(3, horizon=86400.0 * 14),
+        lambda: T.flaky_sites(3, [0, 1], horizon=86400.0),
+        lambda: T.rolling_brownout(3, horizon=3600.0),
+        lambda: T.sample_correlated_outages(3, [0, 0, 1], horizon=86400.0),
+        lambda: T.load_availability({"windows": []}, n_sites=3),
+        lambda: T.chain_workflows(2, 3),
+        lambda: T.atlas_mc_workflows(2),
+        lambda: T.map_reduce_workflows(2, 2),
+    ]
+    for build in builders:
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
     jobs = T.synthetic_panda_jobs(10, seed=0, device="cpu")
     sites = T.atlas_like_platform(3, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         T.simulate(jobs, sites, T.get_policy("panda_dispatch"), PRNGKey(0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.simulate(jobs, sites, T.get_policy("panda_dispatch"), PRNGKey(0),
+                   availability=T.make_availability(3, device="cpu"))
 
 
 def test_builders_match_the_jax_package():
