@@ -39,7 +39,7 @@ check does not hold:
    profile of 100 rounds;
 5. run a 50-site, 5000-job scenario with failures on the card and on the
    CPU, cut to its first DRAIN_ROUNDS rounds (of the 10103 that drain it,
-   to keep the smoke's time with phases 9 and 10), and require the same
+   to keep the smoke's time with phases 9 to 12), and require the same
    rounds, makespan, per-job outcomes and site counters;
 6. on the same scenario, cut to its first SPARSE_DRAIN_ROUNDS rounds: the
    fused sparse path at ``topk=S`` must equal the dense capacity dispatch on
@@ -76,6 +76,30 @@ check does not hold:
    on the card each equal the CPU (log included), and their transition CSV,
    availability CSV and ML NDJSON exports are byte-identical.
 
+11. data movement at WLCG scale (run after phase 10): 300 sites, 100000 jobs
+   reading a 1024-dataset Zipf catalog (``make_replicas`` of
+   ``zipf_dataset_sizes(1024)``, disks of ``memory * 1e9`` bytes) over
+   ``atlas_like_network(300)``, ``cache_on_read``; counters set to 0 just
+   before each run: (a) ``panda_dispatch`` with capacity dispatch, 2000
+   rounds twice, bit-identical (jobs, catalog, log), with WAN transfers and
+   cache hits, the catalog invariants, the assignment kernel once in every
+   round with work; print rounds/s beside phase 3's, segment sums and
+   kernels a round, the device busy share over 100 profiled rounds, and the
+   calls of ``insert_mask`` under storage pressure; (b) the same with the
+   FTS transfer queues (``max_active=4``, ``queue_slots=256``), cut to
+   DATA_TR_ROUNDS rounds: the ledger ``n_enq = n_done + n_cancel + in
+   flight`` must balance; print ``n_overflow`` and rounds/s; (c)
+   ``data_locality`` with the fused kernel at ``topk=16`` and the catalog
+   (the candidate index's data branch), cut to DATA_SPARSE_ROUNDS rounds;
+12. card against CPU at S=50, cut to XDATA_ROUNDS rounds, every round
+   logged: 1250 ATLAS MC workflows with ``scenario_replicas``, flaky-site
+   outages, ``cache_on_read`` and the transfer queues under dense capacity
+   dispatch; and 5000 synthetic jobs on the 1024-dataset catalog with
+   ``data_locality`` and the fused kernel at ``topk=8``.  Each must go under
+   storage pressure, equal the CPU (catalog and transfer rings included),
+   and export the same transfer rows, transition rows and ML NDJSON byte
+   for byte.
+
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero without
@@ -101,9 +125,9 @@ ENGINE_J, ENGINE_S = 100_000, 300
 ENGINE_K = 16                  # bench_wlcg_scale.py's top-k
 MANY_SEGMENTS = ENGINE_S * ENGINE_S + 1   # the link sums' segments at S=300
 FULL_MAX_ROUNDS = 2000
-DRAIN_ROUNDS = 2500            # depth cut of phase 5 (the whole drain takes 10103)
+DRAIN_ROUNDS = 1000            # depth cut of phase 5 (the whole drain takes 10103)
 SPARSE_DRAIN_ROUNDS = 1000     # depth cut of phase 6
-CROSS_ROUNDS = 2000            # depth cut of phase 10
+CROSS_ROUNDS = 1000            # depth cut of phase 10
 ASSIGN_CASES = [  # (N, E, k, block_n)
     (ENGINE_J, ENGINE_S, 1, 256),   # the engine shape
     (64, 8, 1, 32),
@@ -350,6 +374,7 @@ def phase_kernels(device) -> dict:
               f"between CUDA events, {dev:.4f} ms device time, "
               f"{per_call['segment_sum_kernel']:g} launches a call; plain {plain:.4f} ms, "
               f"index_add_ {library:.4f} ms")
+    many = {}
     for dtype, kernel in (("float32", "segment_sum_kernel"), ("int32", "segment_add_kernel")):
         vals, seg_d = (t.to(device) for t in segsum_inputs("uniform", ENGINE_J, MANY_SEGMENTS, 1,
                                                             dtype, "int32", 2))
@@ -357,9 +382,20 @@ def phase_kernels(device) -> dict:
         per_call = {}
         dev = device_ms(lambda: segment_sum_cuda(vals, seg_d, MANY_SEGMENTS), (kernel,), iters=50,
                         counts=per_call)[kernel]
+        plain = cuda_ms(lambda: segment_sum_ref(vals, seg_d, MANY_SEGMENTS), iters=50)
+        idx64 = seg_d.long()
+        acc = torch.zeros(MANY_SEGMENTS + 1, dtype=vals.dtype, device=device)
+        library = cuda_ms(lambda: acc.index_add_(0, idx64, vals), iters=50)
+        # the link sums' shape: J values and ids read once, S*S + 1 sums written
+        many_bytes = ENGINE_J * (4 + 4) + MANY_SEGMENTS * 4
+        many_bound = max(many_bytes / PEAK_HBM_BYTES_PER_S, ENGINE_J / PEAK_FP32_OPS_PER_S) * 1e3
+        many[dtype] = dict(cuda_ms=call, device_ms=dev, launches_per_call=per_call[kernel],
+                           plain_ms=plain, library_ms=library, bound_ms=many_bound,
+                           bound_by="bytes")
         print(f"[kernels] segment_sum uniform J={ENGINE_J} S={MANY_SEGMENTS} {dtype}: {call:.4f} "
               f"ms a call between CUDA events, {dev:.4f} ms device time in {per_call[kernel]:g} "
-              f"launches of {kernel} a call")
+              f"launches of {kernel} a call; plain {plain:.4f} ms, index_add_ {library:.4f} ms; "
+              f"bound {many_bound:.6f} ms (bytes, {many_bytes} B)")
     bytes_moved = ENGINE_J * (4 + 4) + ENGINE_S * 4
     bound_ms = max(bytes_moved / PEAK_HBM_BYTES_PER_S, ENGINE_J / PEAK_FP32_OPS_PER_S) * 1e3
     print(f"[kernels] segment_sum bound {bound_ms:.6f} ms (bytes, {bytes_moved} B)")
@@ -371,6 +407,7 @@ def phase_kernels(device) -> dict:
         ms=u["device_ms"], plain_ms=u["plain_ms"], bound_ms=bound_ms, bound_by="bytes",
         library_ms=u["library_ms"], cuda_ms=u["cuda_ms"], device_ms=u["device_ms"],
         kernels_per_call=u["kernels_per_call"], padding95=timed["padding95"],
+        many_segments=many,
     )
     return rows
 
@@ -700,7 +737,7 @@ def profile_serve(model, params, batch, cache_len, n_layers: int) -> None:
     steps (``torch.profiler``); the prefill's flash launches must all be
     ``FLASH_KERNEL``, one a layer."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     cache = model.init_cache(batch["tokens"].shape[0], cache_len)
     logits, cache = model.prefill(params, batch, cache)
@@ -709,13 +746,22 @@ def profile_serve(model, params, batch, cache_len, n_layers: int) -> None:
                        ("decode x8", lambda: [model.decode(params, token, dict(cache, len=cache["len"]))
                                               for _ in range(8)])):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # one warm-up step, not recorded: the tracer can drop the first
+        # kernels of a window it has just started
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+        # the step marker is an annotation on the device timeline, not a kernel
         kernels = [e for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and not e.key.startswith("ProfilerStep")]
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
         print(f"[serve-profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
               f"{busy:.1f} ms = {100 * busy / wall_ms:.1f}%, {sum(e.count for e in kernels)} kernels")
@@ -743,11 +789,20 @@ def snapshot(res) -> dict:
 
 
 def mismatches(a: dict, b: dict) -> dict:
+    """Count of differing elements per key; NaN equals NaN (the log's
+    unwritten rows)."""
     import numpy as np
 
-    return {k: int(np.size(a[k]) if np.shape(a[k]) != np.shape(b[k])
-                   else np.count_nonzero(np.asarray(a[k]) != np.asarray(b[k])))
-            for k in a if not np.array_equal(a[k], b[k])}
+    def differ(x, y):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.shape != y.shape:
+            return max(x.size, 1)
+        ne = x != y
+        if x.dtype.kind == "f":
+            ne &= ~(np.isnan(x) & np.isnan(y))
+        return int(np.count_nonzero(ne))
+
+    return {k: n for k in a if (n := differ(a[k], b[k]))}
 
 
 def check_invariants(res, label: str) -> None:
@@ -976,7 +1031,7 @@ def phase_sparse_full_width(device, max_rounds: int) -> dict:
     return launches
 
 
-def profile_rounds(run, label: str = "profile", names=()) -> None:
+def profile_rounds(run, label: str = "profile", names=()) -> dict:
     """Device busy share and the kernels that take the most device time over
     the first 100 rounds of a full-width run (``torch.profiler``), and the
     device time per launch of each kernel named in ``names``."""
@@ -995,7 +1050,7 @@ def profile_rounds(run, label: str = "profile", names=()) -> None:
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if device_ms == 0.0:
         print(f"[{label}] the profiler saw no device time: busy share not measured")
-        return
+        return {}
     sorts = sum(e.count for e in kernels if "DeviceRadixSortOnesweepKernel" in e.key)
     print(f"[{label}] 100 rounds: wall {wall_ms:.1f} ms (profiled), device busy "
           f"{device_ms:.1f} ms = {100 * device_ms / wall_ms:.1f}%, idle "
@@ -1014,6 +1069,7 @@ def profile_rounds(run, label: str = "profile", names=()) -> None:
     if names:
         print(f"[{label}] {' + '.join(names)}: {total_ms / most:.4f} ms of device time a call "
               "(profiler, inside the run)")
+    return dict(wall_ms=wall_ms, device_ms=device_ms, kernels=sum(e.count for e in kernels))
 
 
 def phase_drain(device, max_rounds: int) -> None:
@@ -1113,16 +1169,22 @@ SUB_LOG_ROWS = 256
 CROSS_S, CROSS_CHAINS = 50, 1250   # phase 10: card against CPU
 
 
-def sub_snapshot(res) -> dict:
-    """``snapshot`` plus the subsystem states and the log's ``site_avail``."""
+def full_snapshot(res) -> dict:
+    """Every array of ``result_to_numpy`` (jobs, sites, log and its columns,
+    the subsystem states: catalog and transfer rings included), flat."""
     from repro_torch.core import result_to_numpy
 
-    out = result_to_numpy(res)
-    snap = snapshot(res)
-    for group in ("avail", "wf"):
-        snap.update({f"{group}.{k}": v for k, v in out[group].items()})
-    snap["log.site_avail"] = out["log"]["extra"]["site_avail"]
-    return snap
+    out = {}
+
+    def walk(prefix, value):
+        if isinstance(value, dict):
+            for k, v in value.items():
+                walk(f"{prefix}.{k}" if prefix else k, v)
+        else:
+            out[prefix] = value
+
+    walk("", result_to_numpy(res))
+    return out
 
 
 def subsystem_scenario(device, n_sites, n_chains, flaky_windows=False):
@@ -1220,7 +1282,7 @@ def phase_subsystems_full_width(device, max_rounds: int, plain_rates) -> dict:
     check(n_pre > 0, "no running job was preempted: the path did not exercise preemption")
     check_invariants(res, "subsys")
     check(bool(torch.isfinite(res.log.extra["site_avail"]).all()), "site_avail not finite")
-    bad = mismatches(sub_snapshot(res), sub_snapshot(res2))
+    bad = mismatches(full_snapshot(res), full_snapshot(res2))
     check(not bad, f"two subsystem runs on the card differ: {bad}")
     print(f"[subsys] second run bit-identical; rounds/s first={res.rounds / wall1:.2f} "
           f"second={res2.rounds / wall2:.2f}; the plain dense path in this call (phase 3): "
@@ -1286,7 +1348,7 @@ def phase_subsystems_card_vs_cpu(device, max_rounds: int) -> dict:
               f"n_cancelled={int(res.wf.n_cancelled)} W={av.max_windows} wall={wall:.2f}s "
               f"({res.rounds / wall:.1f} rounds/s); {exports['csv'].count(chr(10))} CSV lines, "
               f"{exports['ml'].count(chr(10))} NDJSON lines")
-        return res, sub_snapshot(res), exports
+        return res, full_snapshot(res), exports
 
     cpu = torch.device("cpu")
     out = {}
@@ -1314,6 +1376,308 @@ def phase_subsystems_card_vs_cpu(device, max_rounds: int) -> dict:
     return out
 
 
+# phases 11 and 12: data movement and transfer queues
+DATA_D = 1024                  # bench_data_movement.py:65's largest catalog
+DATA_LOG_ROWS = 256
+DATA_QUEUE_SLOTS = 256         # the [L, Q] rings at S=300: 2 x 90000 x 256 int32 = 184 MB
+DATA_TR_ROUNDS = 600           # depth cut of run (b)
+DATA_SPARSE_ROUNDS = 1000      # depth cut of run (c)
+XDATA_S, XDATA_J, XDATA_CHAINS = 50, 5000, 1250   # phase 12: card against CPU
+XDATA_ROUNDS = 400             # depth cut of phase 12
+# disk = memory x this, bytes: the workflow run's disks are ten times tighter
+# than the fused run's, since even in 1000 rounds (~800 s simulated) only the
+# small evgen outputs land and disks of memory x 1e8 fill to 57% at most (a
+# CPU run of the same scenario); at 1e7 the outputs overflow a disk within
+# ~200 rounds
+XDATA_DISK = {"workflows": 1e7, "fused": 1e8}
+
+
+def total_device_ms(fn, iters: int) -> tuple:
+    """Device milliseconds and kernel launches per call of ``fn``, summed
+    over every kernel it launches (``torch.profiler``, ``iters`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3 / iters,
+            sum(e.count for e in kernels) / iters)
+
+
+def ledger(ts) -> dict:
+    """The transfer ledger; every enqueue ends done or cancelled, or is
+    queued or active at the cut."""
+    import torch
+
+    in_flight = int((ts.stat > 0).sum())
+    led = dict(n_enq=int(ts.n_enq), n_done=int(ts.n_done), n_cancel=int(ts.n_cancel),
+               in_flight=in_flight, n_overflow=int(ts.n_overflow),
+               queued=int((ts.stat == 1).sum()), active=int(ts.active.sum()))
+    check(led["n_enq"] == led["n_done"] + led["n_cancel"] + in_flight,
+          f"the transfer ledger does not balance: {led}")
+    check(bool(torch.isfinite(ts.bytes_done)), "bytes_done not finite")
+    return led
+
+
+def phase_data_full_width(device, max_rounds: int, plain_rates) -> dict:
+    """Data movement at WLCG scale: 300 sites, 100000 jobs reading a 1024-
+    dataset Zipf catalog over the ATLAS-like WAN, ``cache_on_read`` under
+    storage pressure; (a) panda_dispatch with capacity dispatch twice,
+    (b) the same with the transfer queues, (c) ``data_locality`` with the
+    fused kernel at ``topk=16``.  Counters set to 0 just before each."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import replicas as TR
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import fused_cuda as fused_mod
+    from repro_torch.kernels.assign import make_capacity_assign, make_fused_capacity_assign
+    from repro_torch.kernels.assign import ops as assign_ops
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    t0 = time.perf_counter()
+    sites = T.atlas_like_platform(ENGINE_S, seed=1, device=device)
+    jobs = T.synthetic_panda_jobs(ENGINE_J, seed=0, duration=6 * 3600.0, n_datasets=DATA_D,
+                                  zipf_alpha=1.2, device=device)
+    net = T.atlas_like_network(ENGINE_S, seed=2, device=device)
+    rep = T.make_replicas(T.zipf_dataset_sizes(DATA_D, seed=3), sites.memory * 1e9, seed=4,
+                          device=device)
+    data = T.get_data_policy("cache_on_read")
+    sizes = rep.size.cpu()
+    print(f"[data] scenario built in {time.perf_counter() - t0:.2f}s: S={ENGINE_S} "
+          f"J={ENGINE_J} D={DATA_D} datasets (median {float(sizes.median()) / 1e9:.1f} GB, "
+          f"largest {float(sizes.max()) / 1e9:.1f} GB); disks {float(rep.disk_cap.min()) / 1e9:.0f}"
+          f"-{float(rep.disk_cap.max()) / 1e9:.0f} GB, {float(rep.disk_used.sum()) / 1e12:.2f} "
+          f"TB of origin copies")
+    work_rounds = [0]
+    capacity_assign = make_capacity_assign(jobs.cores)
+
+    def counted_assign(*args):
+        work_rounds[0] += 1          # assign runs once per round with work
+        return capacity_assign(*args)
+
+    policy = T.with_capacity_assign(T.get_policy("panda_dispatch"), counted_assign)
+
+    def run(rounds=max_rounds, **kw):
+        return T.simulate(jobs, sites, policy, T.PRNGKey(0), data_policy=data, network=net,
+                          replicas=rep, max_rounds=rounds, log_rows=DATA_LOG_ROWS,
+                          device=device, **kw)
+
+    def reset():
+        assign_mod.launches = fused_mod.launches = segsum_mod.launches = 0
+        TR.evicting_calls = 0
+        work_rounds[0] = 0
+
+    def no_plain_version(*args, **kw):
+        raise SmokeFailure("the data path called a plain assignment version on the card")
+
+    out = {}
+    plain = assign_ops.assign_ref, assign_ops.fused_assign_ref
+    assign_ops.assign_ref = assign_ops.fused_assign_ref = no_plain_version
+    try:
+        # (a) the dense data path, twice
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        launches = {"assign": assign_mod.launches, "segment_sum": segsum_mod.launches}
+        evicting, rounds_with_work = TR.evicting_calls, work_rounds[0]
+        t0 = time.perf_counter()
+        res2 = run()
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        r = res.replicas
+        inv = T.catalog_invariants(r)
+        print(f"[data] (a) rounds={res.rounds} rounds_with_work={rounds_with_work} "
+              f"launches={json.dumps(launches)} ({launches['segment_sum'] / res.rounds:.2f} "
+              f"segment sums a round); n_hits={int(r.n_hits)} n_transfers={int(r.n_transfers)} "
+              f"bytes_moved={float(r.bytes_moved):.6e}; insert_mask calls under storage "
+              f"pressure (need > 0, the evicting path): {evicting} of {res.rounds}; "
+              f"invariants {json.dumps(inv)}")
+        check(launches["assign"] > 0 and launches["assign"] == rounds_with_work,
+              f"assign launches {launches['assign']} != rounds with work {rounds_with_work}")
+        check(launches["segment_sum"] > 0, "the data path never launched the segment sum")
+        check(int(r.n_transfers) > 0 and int(r.n_hits) > 0, "no WAN transfer or no cache hit")
+        check(all(inv.values()), f"catalog invariants broken: {inv}")
+        check_invariants(res, "data")
+        bad = mismatches(full_snapshot(res), full_snapshot(res2))
+        check(not bad, f"two data runs on the card differ: {bad}")
+        print(f"[data] (a) second run bit-identical (jobs, catalog, log); rounds/s "
+              f"first={res.rounds / wall1:.2f} second={res2.rounds / wall2:.2f}; the plain "
+              f"dense path in this call (phase 3): first={plain_rates[0]:.2f} "
+              f"second={plain_rates[1]:.2f}")
+        print(f"[data] (a) {T.summary_str(T.compute_metrics(res))}")
+        prof = profile_rounds(lambda: run(100), "data-profile", names=ASSIGN_KERNELS)
+        if prof:
+            print(f"[data] (a) {prof['kernels'] / 100:.1f} kernels a round over the 100 "
+                  f"profiled rounds")
+        # source selection alone, as each round calls it: every job's
+        # nearest replica toward its site
+        dst = res.jobs.site.clamp(0, ENGINE_S - 1)
+        ns_call = cuda_ms(lambda: T.nearest_source(res.replicas, net, jobs.dataset, dst), 20)
+        ns_dev, ns_kernels = total_device_ms(
+            lambda: T.nearest_source(res.replicas, net, jobs.dataset, dst), 20)
+        print(f"[data] (a) nearest_source at J={ENGINE_J} S={ENGINE_S}: {ns_call:.4f} ms a call "
+              f"between CUDA events, {ns_dev:.4f} ms device time in {ns_kernels:g} kernels")
+        out["a"] = launches
+
+        # (b) the same with the FTS transfer queues
+        reset()
+        ts0 = T.make_transfers(ENGINE_S, jobs, max_active=4, queue_slots=DATA_QUEUE_SLOTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_b = run(DATA_TR_ROUNDS, transfers=ts0)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        launches = {"assign": assign_mod.launches, "segment_sum": segsum_mod.launches}
+        led = ledger(res_b.ext["transfers"])
+        print(f"[data] (b) transfers (max_active=4, queue_slots={DATA_QUEUE_SLOTS}): "
+              f"rounds={res_b.rounds} rounds/s={res_b.rounds / wall_b:.2f} "
+              f"launches={json.dumps(launches)} ({launches['segment_sum'] / res_b.rounds:.2f} "
+              f"segment sums a round); ledger {json.dumps(led)}; n_overflow={led['n_overflow']}; "
+              f"evicting insert_mask calls {TR.evicting_calls}")
+        check(led["n_enq"] > 0 and led["n_done"] > 0, "no transfer was enqueued and landed")
+        check(launches["assign"] == work_rounds[0] > 0, "assign launches != rounds with work")
+        check_invariants(res_b, "data+tr")
+        out["b"] = launches
+
+        # (c) sparse: data_locality, the fused kernel, topk=16, with the catalog
+        reset()
+        fused_assign = make_fused_capacity_assign(jobs.cores)
+
+        def counted_fused(*args):
+            work_rounds[0] += 1
+            return fused_assign(*args)
+
+        sparse_policy = T.with_fused_assign(T.get_policy("data_locality"), counted_fused)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_c = T.simulate(jobs, sites, sparse_policy, T.PRNGKey(0), data_policy=data,
+                           network=net, replicas=rep, max_rounds=DATA_SPARSE_ROUNDS, topk=ENGINE_K,
+                           log_rows=DATA_LOG_ROWS, device=device)
+        torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+        launches = {"fused_assign": fused_mod.launches, "assign": assign_mod.launches,
+                    "segment_sum": segsum_mod.launches}
+        print(f"[data] (c) sparse data_locality topk={ENGINE_K}: rounds={res_c.rounds} "
+              f"rounds/s={res_c.rounds / wall_c:.2f} launches={json.dumps(launches)}; "
+              f"n_hits={int(res_c.replicas.n_hits)} n_transfers={int(res_c.replicas.n_transfers)}")
+        check(launches["fused_assign"] > 0 and launches["fused_assign"] == work_rounds[0],
+              f"fused launches {launches['fused_assign']} != rounds with work {work_rounds[0]}")
+        check(launches["assign"] == 0, "the sparse data path launched the dense assign kernel")
+        check(all(T.catalog_invariants(res_c.replicas).values()), "sparse: catalog invariants")
+        check_invariants(res_c, "data sparse")
+        out["c"] = launches
+    finally:
+        assign_ops.assign_ref, assign_ops.fused_assign_ref = plain
+    return out
+
+
+def data_cross_scenario(dev, combo: str, max_rounds: int):
+    """Phase 12's two runs at S=50 with disks of ``memory * XDATA_DISK``:
+    ``"workflows"`` is 1250 ATLAS MC workflows with ``scenario_replicas``,
+    the flaky-site calendar, ``cache_on_read`` and the transfer queues
+    (``max_active=2``) under dense capacity dispatch; ``"fused"`` is 5000
+    synthetic jobs on a 1024-dataset catalog, ``data_locality`` with the
+    fused kernel at ``topk=8`` under ``cache_on_read``."""
+    from repro_torch import core as T
+    from repro_torch.kernels.assign import make_capacity_assign, make_fused_capacity_assign
+
+    net = T.atlas_like_network(XDATA_S, seed=2, device=dev)
+    data = T.get_data_policy("cache_on_read")
+    kw = dict(max_rounds=max_rounds, log_rows=max_rounds, device=dev)
+    if combo == "workflows":
+        scn, sites, av = subsystem_scenario(dev, XDATA_S, XDATA_CHAINS)
+        rep = T.scenario_replicas(scn, sites.memory.cpu().numpy() * XDATA_DISK[combo], seed=1)
+        policy = T.with_capacity_assign(T.get_policy("critical_path_first"),
+                                        make_capacity_assign(scn.jobs.cores))
+        return T.simulate(scn.jobs, sites, policy, T.PRNGKey(0), availability=av,
+                          workflow=scn.workflow, data_policy=data, network=net, replicas=rep,
+                          transfers=T.make_transfers(XDATA_S, scn.jobs, max_active=2,
+                                                     queue_slots=DATA_QUEUE_SLOTS, device=dev),
+                          **kw)
+    sites = T.atlas_like_platform(XDATA_S, seed=1, fail_rate=0.02, device=dev)
+    jobs = T.synthetic_panda_jobs(XDATA_J, seed=0, n_datasets=DATA_D, device=dev)
+    rep = T.make_replicas(T.zipf_dataset_sizes(DATA_D, seed=3), sites.memory * XDATA_DISK[combo],
+                          seed=4, device=dev)
+    policy = T.with_fused_assign(T.get_policy("data_locality"),
+                                 make_fused_capacity_assign(jobs.cores))
+    return T.simulate(jobs, sites, policy, T.PRNGKey(0), data_policy=data, network=net,
+                      replicas=rep, topk=8, **kw)
+
+
+def phase_data_card_vs_cpu(device, max_rounds: int) -> dict:
+    """Phase 12: each of ``data_cross_scenario``'s runs on the card equals
+    the CPU's (catalog and transfer state included), goes under storage
+    pressure at least once, and exports the same transfer rows, transition
+    rows and ML NDJSON byte for byte."""
+    import io
+
+    import torch
+
+    from repro_torch.core import events as TE
+    from repro_torch.core import replicas as TR
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import fused_cuda as fused_mod
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    out = {}
+    for combo in ("workflows", "fused"):
+        runs = {}
+        for dev in (device, torch.device("cpu")):
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1 if dev.type == "cpu" else threads)
+            assign_mod.launches = fused_mod.launches = segsum_mod.launches = 0
+            TR.evicting_calls = 0
+            t0 = time.perf_counter()
+            try:
+                res = data_cross_scenario(dev, combo, max_rounds)
+            finally:
+                torch.set_num_threads(threads)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                kernel = "fused_assign" if combo == "fused" else "assign"
+                launched = fused_mod.launches if combo == "fused" else assign_mod.launches
+                out[kernel] = out.get(kernel, 0) + launched
+                out["segment_sum"] = out.get("segment_sum", 0) + segsum_mod.launches
+                check(launched > 0 and segsum_mod.launches > 0,
+                      f"{combo}: the run did not launch {kernel} and the segment sum")
+            wall = time.perf_counter() - t0
+            evicting = TR.evicting_calls
+            buf = io.StringIO()
+            TE.write_ml_dataset(res, buf)
+            exports = dict(transfers=TE.to_csv(TE.transfer_rows(res)), ml=buf.getvalue(),
+                           transitions=TE.to_csv(TE.transition_rows(res)))
+            extra = ""
+            if "transfers" in res.ext:
+                extra = f" ledger {json.dumps(ledger(res.ext['transfers']))}"
+            print(f"[xdata] {combo} {dev.type}: rounds={res.rounds} "
+                  f"makespan={float(res.makespan)!r} n_hits={int(res.replicas.n_hits)} "
+                  f"n_transfers={int(res.replicas.n_transfers)} evicting insert_mask calls "
+                  f"{evicting} wall={wall:.2f}s ({res.rounds / wall:.1f} rounds/s);"
+                  f"{extra} {exports['transfers'].count(chr(10))} transfer CSV lines")
+            check(evicting > 0, f"{combo} {dev.type}: no storage pressure in the run")
+            check(int(res.replicas.n_transfers) > 0, f"{combo}: no WAN transfer")
+            check_invariants(res, f"xdata {combo} {dev.type}")
+            runs[dev.type] = full_snapshot(res), exports
+        bad = mismatches(runs["cuda"][0], runs["cpu"][0])
+        print(f"[xdata] {combo} card vs CPU mismatch counts: {json.dumps(bad)}")
+        check(not bad, f"{combo}: the card's run differs from the CPU's")
+        for k, text in runs["cuda"][1].items():
+            check(text == runs["cpu"][1][k], f"{combo}: the card's {k} export differs")
+        print(f"[xdata] {combo}: transfer CSV, transition CSV and ML NDJSON byte-identical "
+              f"({', '.join(str(len(t)) for t in runs['cuda'][1].values())} B)")
+    return out
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1337,17 +1701,36 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        print(f"[time] phase {phase} done at {time.perf_counter() - t_start:.1f}s")
+
     phase_build()
     rows = phase_kernels(device)
     rows["fused_assign"] = phase_fused_kernel(device)
+    lap("2")
     rows["flash_attention"] = phase_flash_kernel(device)
+    lap("7")
     launches, plain_rates = phase_full_width(device, FULL_MAX_ROUNDS)
+    lap("3")
     sparse_launches = phase_sparse_full_width(device, FULL_MAX_ROUNDS)
+    lap("4")
     sub_launches = phase_subsystems_full_width(device, FULL_MAX_ROUNDS, plain_rates)
+    lap("9")
     phase_drain(device, DRAIN_ROUNDS)
+    lap("5")
     phase_sparse_drain(device, SPARSE_DRAIN_ROUNDS)
+    lap("6")
     cross_launches = phase_subsystems_card_vs_cpu(device, CROSS_ROUNDS)
+    lap("10")
+    print(f"[power] {gpu_name_and_power()}")
+    data_launches = phase_data_full_width(device, FULL_MAX_ROUNDS, plain_rates)
+    lap("11")
+    xdata_launches = phase_data_card_vs_cpu(device, XDATA_ROUNDS)
+    lap("12")
+    print(f"[power] {gpu_name_and_power()}")
     serve_launches = phase_serve(device)
+    lap("8")
     for name, row in rows.items():
         row["launches"] = (sparse_launches[name] if name == "fused_assign" else
                            serve_launches[name] if name == "flash_attention" else launches[name])
@@ -1356,6 +1739,12 @@ def main() -> int:
             row["launches_subsystems"] = sub_launches[name]
         if name in cross_launches:
             row["launches_subsystems_s50"] = cross_launches[name]
+        # the data paths' own counts (phases 11 and 12)
+        for part, counts in data_launches.items():
+            if name in counts:
+                row[f"launches_data_{part}"] = counts[name]
+        if name in xdata_launches:
+            row["launches_data_s50"] = xdata_launches[name]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

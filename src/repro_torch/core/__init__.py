@@ -1,7 +1,9 @@
 """CGSim core on PyTorch: the event-round engine (``engine.simulate``) and its
 sparse top-k candidate index (``sparse``), the subsystem protocol
 (``subsystems``) with site availability (``availability``) and workflow DAGs
-(``workflows``), the plugin policy system (``policies``), PanDA-shaped
+(``workflows``), data movement (``network``, ``replicas``,
+``datapolicies``) with FTS-style transfer queues (``transfers``), the
+plugin policy system (``policies``), PanDA-shaped
 workloads and calendars (``workload``), platform builders (``platform``),
 metrics, the event-level ML dataset (``events``), monitoring (``monitor``),
 and the numpy bridge (``convert``).
@@ -52,6 +54,42 @@ from .availability import (  # noqa: F401
     next_window_edge,
     sample_correlated_outages,
 )
+from .network import (  # noqa: F401
+    NetworkState,
+    atlas_like_network,
+    link_caps,
+    link_index,
+    matrix_network,
+    network_from_sites,
+    shared_transfer_times,
+    star_network,
+    tiered_network,
+    uniform_network,
+    with_bandwidth,
+)
+from .replicas import (  # noqa: F401
+    ReplicaState,
+    catalog_invariants,
+    insert_replicas,
+    make_replicas,
+    materialize_outputs,
+    nearest_source,
+    zipf_dataset_sizes,
+)
+from .datapolicies import (  # noqa: F401
+    DataExt,
+    DataPlugin,
+    DataPolicy,
+    data_subsystem,
+    get_data_policy,
+    make_data_policy,
+    register_data,
+)
+from .transfers import (  # noqa: F401
+    TransferState,
+    make_transfers,
+    transfers_subsystem,
+)
 from .policies import (  # noqa: F401
     REGISTRY,
     AllocationPlugin,
@@ -71,6 +109,8 @@ from .workflows import (  # noqa: F401
     make_workflow,
     map_reduce_workflows,
     parent_status,
+    scenario_replicas,
+    validate_workflow_data,
     workflow_locality,
     workflow_subsystem,
 )
@@ -87,8 +127,11 @@ from .events import read_ml_trace, recorded_trace, stream_rows, write_ml_dataset
 from .convert import (  # noqa: F401
     availability_from_numpy,
     jobs_from_numpy,
+    network_from_numpy,
+    replicas_from_numpy,
     result_to_numpy,
     sites_from_numpy,
+    transfers_from_numpy,
     workflow_from_numpy,
 )
 from .rng import PRNGKey  # noqa: F401

@@ -1,10 +1,10 @@
 """State carried between numpy and the port.
 
 ``jobs_from_numpy``/``sites_from_numpy``/``availability_from_numpy``/
-``workflow_from_numpy`` take a mapping of field name to array (what
+``workflow_from_numpy``/``network_from_numpy``/``replicas_from_numpy``/
+``transfers_from_numpy`` take a mapping of field name to array (what
 ``{k: np.asarray(v) for k, v in state._asdict().items()}`` gives for the JAX
-package's ``JobsState``/``SiteState``/``AvailabilityState``/
-``WorkflowState``) and build the port's state on a device;
+package's state of the same name) and build the port's state on a device;
 ``result_to_numpy`` turns a ``SimResult`` back into nested dicts of numpy
 arrays, through ``to_numpy``.  The tests feed both implementations
 identical inputs this way.
@@ -15,6 +15,9 @@ import numpy as np
 import torch
 
 from .availability import AvailabilityState
+from .network import NetworkState
+from .replicas import ReplicaState
+from .transfers import TransferState
 from .types import JobsState, SimResult, SiteState, resolve_device
 from .workflows import WorkflowState
 
@@ -45,6 +48,18 @@ def workflow_from_numpy(arrays, device="cuda") -> WorkflowState:
     return _from_numpy(WorkflowState, arrays, device)
 
 
+def network_from_numpy(arrays, device="cuda") -> NetworkState:
+    return _from_numpy(NetworkState, arrays, device)
+
+
+def replicas_from_numpy(arrays, device="cuda") -> ReplicaState:
+    return _from_numpy(ReplicaState, arrays, device)
+
+
+def transfers_from_numpy(arrays, device="cuda") -> TransferState:
+    return _from_numpy(TransferState, arrays, device)
+
+
 def to_numpy(value):
     """A tensor on any device as a numpy array; NamedTuple states and dicts
     as dicts of them; any other value through ``np.asarray``."""
@@ -59,7 +74,8 @@ def to_numpy(value):
 
 def result_to_numpy(res: SimResult) -> dict:
     """``{"makespan", "rounds", "jobs": {...}, "sites": {...}, "log": {...}}``,
-    plus ``"avail"`` and ``"wf"`` when those subsystems ran."""
+    plus ``"avail"``, ``"wf"``, ``"replicas"``, ``"data_state"`` and
+    ``"transfers"`` when those subsystems ran."""
     out = dict(
         makespan=to_numpy(res.makespan),
         rounds=np.int32(res.rounds),
@@ -67,7 +83,11 @@ def result_to_numpy(res: SimResult) -> dict:
         sites=to_numpy(res.sites),
         log=to_numpy(res.log),
     )
-    for name in ("avail", "wf"):
+    for name in ("avail", "wf", "replicas"):
         if getattr(res, name) is not None:
             out[name] = to_numpy(getattr(res, name))
+    if res.replicas is not None:
+        out["data_state"] = to_numpy(res.data_state)
+    if "transfers" in (res.ext or {}):
+        out["transfers"] = to_numpy(res.ext["transfers"])
     return out

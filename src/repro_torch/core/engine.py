@@ -2,9 +2,10 @@
 
 The JAX package runs the rounds inside a ``lax.while_loop``; here a Python
 loop drives them and reads back two flags a round (whether to go on, and
-whether the round has dispatch work).  Each round advances the clock to the
-next event time and applies every transition that fires at that instant as
-masked dense updates:
+whether the round has dispatch work; the data subsystem's cache insertion
+reads a third, whether some storage element must evict).  Each round
+advances the clock to the next event time and applies every transition that
+fires at that instant as masked dense updates:
 
   round(t*):
     1. completions   — running jobs with t_finish <= t*  → DONE/FAILED/resubmit
@@ -645,12 +646,25 @@ def simulate(
     - ``workflow=`` (a ``WorkflowState`` DAG): a job stays PENDING until
       every parent is DONE, and a terminally failed parent cascade-cancels
       its descendants.
+    - ``data_policy=`` (a ``DataPolicy``, with ``network=`` a
+      ``NetworkState`` and ``replicas=`` a ``ReplicaState``) prices the
+      stage-in of dataset jobs as a WAN read from the policy-selected
+      replica over the shared link matrix (local replicas are free hits)
+      and keeps the catalog; the policy may cache-on-read at the compute
+      site, evicting LRU replicas under storage pressure.  Jobs with
+      ``dataset == -1`` keep the flat per-site link.  With ``workflow=``,
+      a completing parent materializes its ``out_dataset`` at its site.
+    - ``transfers=`` (a ``TransferState``, needs ``data_policy=``) queues
+      those WAN reads in per-link FIFO rings with an active-transfer cap:
+      a staging job waits, RUNNING with ``t_finish = inf``, until its
+      transfer lands.
     - ``subsystems=((Subsystem, state0), ...)`` appends custom subsystems
       after the built-ins.
 
-    ``data_policy=``/``network=``/``replicas=``, ``transfers=`` and
-    ``faults=`` raise ``NotImplementedError``: those subsystems are not
-    ported yet (ROADMAP Queue 1 items 7, 8 and 9).
+    ``faults=`` raises ``NotImplementedError``: that subsystem is not ported
+    yet (ROADMAP Queue 1 item 9).  ``SimResult.replicas`` and
+    ``SimResult.data_state`` hold the data subsystem's final catalog and
+    policy state.
     """
     device = resolve_device(device)
     _check_device(jobs0, device, "jobs0")

@@ -7,10 +7,11 @@ a result to the host once (``state_to_np``) and expands it into
 Table-1-style rows and ML feature matrices in numpy, with the JAX package's
 code, so both packages export the same bytes from the same run.
 
-The port has no data, transfers or faults subsystem yet (ROADMAP Queue 1
-items 7, 8 and 9): ``transfer_rows`` and ``fault_rows`` give what the JAX
-package gives for runs without them, and ``ml_dataset`` has no transfer or
-fault columns.
+``transfer_rows`` gives a row per stage-in of the data subsystem, and
+``ml_dataset`` gains the transfer-queue columns when the transfer queues
+ran.  The port has no faults subsystem yet (ROADMAP Queue 1 item 9):
+``fault_rows`` gives what the JAX package gives for runs without one, and
+``ml_dataset`` has no fault columns.
 """
 from __future__ import annotations
 
@@ -274,7 +275,7 @@ def _ml_context(result: SimResult) -> dict:
         "site_fail_rate", "log_xfer_bytes", "xfer_time", "has_dataset",
         "n_parents", "dag_depth", "wf_id",
     ]
-    ctx = dict(jobs=jobs, sites=sites, down_frac=None, site_pre=None)
+    ctx = dict(jobs=jobs, sites=sites, down_frac=None, site_pre=None, net_bw=None)
     avail = getattr(result, "avail", None)
     if avail is not None:
         from .availability import downtime_fraction
@@ -282,6 +283,12 @@ def _ml_context(result: SimResult) -> dict:
         ctx["down_frac"] = downtime_fraction(avail, float(result.makespan))
         ctx["site_pre"] = to_numpy(avail.n_preempted).astype(np.float64)
         names = names + ["n_preempted", "site_downtime_frac", "site_log_preempted"]
+    ext = getattr(result, "ext", None) or {}
+    if "transfers" in ext and "data" in ext:
+        # transfer-queue features, appended only when the subsystem ran, so
+        # the exports of other runs keep their bytes
+        ctx["net_bw"] = to_numpy(ext["data"].network.bw).astype(np.float64)
+        names = names + ["xfer_queue_wait", "xfer_queue_depth", "src_link_log_bw"]
     ctx["names"] = names
     return ctx
 
@@ -328,6 +335,18 @@ def _ml_block(ctx: dict, sl: slice = slice(None)) -> dict[str, np.ndarray]:
                 jobs["preempted"].astype(np.float64),
                 ctx["down_frac"][sid],
                 np.log1p(ctx["site_pre"][sid]),
+            ],
+            axis=-1,
+        )[done]
+        feats = np.concatenate([feats, extra], axis=-1)
+    if ctx["net_bw"] is not None:
+        src = jobs["xfer_src"]
+        src_c = np.clip(src, 0, ctx["net_bw"].shape[0] - 1)
+        extra = np.stack(
+            [
+                jobs["xfer_wait"],
+                jobs["xfer_qdepth"].astype(np.float64),
+                np.where(src >= 0, np.log1p(ctx["net_bw"][src_c, sid]), 0.0),
             ],
             axis=-1,
         )[done]

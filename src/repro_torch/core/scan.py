@@ -6,7 +6,8 @@ exactly, on the CPU and on the GPU, because it spells those operations out:
 
 - ``cumsum_f32``: XLA evaluates ``jnp.cumsum`` as a two-level scan of base
   16, here written as explicit f32 adds;
-- ``sum_f32``: XLA reduces a long axis in windows of 32, then the windows;
+- ``sum_f32``: XLA reduces a long axis in windows of 32, then the windows
+  (on the GPU, for few enough windows, one segment-sum launch a level);
 - ``segment_sum_f32``: XLA's scatter adds rows in index order; the port's
   segment sum keeps that order on the GPU too (a CUDA kernel, no atomics);
 - ``fma_f32``: XLA contracts ``x * y + z`` into one fused multiply-add.
@@ -24,6 +25,9 @@ from ..kernels.segment_sum import segment_sum
 
 _BASE = 16     # cumsum row length
 _WINDOW = 32   # reduce window
+# float segment sums up to this many segments take one launch of the
+# segment-sum kernel (``segment_sum.cu``); above it, one launch a window
+_ONE_LAUNCH_SEGMENTS = 25599
 
 
 def _row_scan(cols, dim: int):
@@ -64,6 +68,8 @@ def sum_f32(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     if dim != 0:
         return sum_f32(x.movedim(dim, 0), 0)
     n, rest = x.shape[0], x.shape[1:]
+    if x.is_cuda and n and x.numel() // n * -(-n // _WINDOW) <= _ONE_LAUNCH_SEGMENTS:
+        return _sum_f32_segments(x)
     if n > _WINDOW:
         pad = -n % _WINDOW
         lo = pad // 2
@@ -75,6 +81,28 @@ def sum_f32(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     for row in x.unbind(0):
         acc = acc + row
     return acc
+
+
+def _sum_f32_segments(x: torch.Tensor) -> torch.Tensor:
+    """``sum_f32(x, 0)`` with each level's windows as segments of one
+    segment sum: the kernel folds a segment's rows in order from +0.0,
+    which is the sequential window sum.  One launch a level instead of one
+    a row; the same bits."""
+    n, rest = x.shape[0], x.shape[1:]
+    if n == 0:
+        return x.new_zeros(rest)
+    cols = x.reshape(n, -1).t()                          # [M, n]: one row a sum
+    while True:
+        n = cols.shape[1]
+        w = _WINDOW if n > _WINDOW else n
+        if n > _WINDOW and n % _WINDOW:
+            pad = -n % _WINDOW
+            cols = torch.nn.functional.pad(cols, (pad // 2, pad - pad // 2))
+        flat = cols.reshape(-1)
+        seg = torch.arange(flat.shape[0], dtype=torch.int32, device=flat.device) // w
+        cols = segment_sum(flat, seg, flat.shape[0] // w).view(cols.shape[0], -1)
+        if w == n:
+            return cols.reshape(rest)
 
 
 def segment_sum_f32(values: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:

@@ -14,8 +14,9 @@ statically feasible sites and the sparse argmax equals the dense first-max
 tie-break bit for bit; at ``k < S`` assignment is an approximation, the same
 one as the JAX package's.
 
-The JAX package also ranks replica holders of a job's dataset first (its
-``"data"`` subsystem); the port has no data subsystem yet.
+With the data subsystem attached, replica holders of a job's dataset (and
+the nearest WAN source toward its pre-rank-best site) rank ahead of equally
+scored sites, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -61,9 +62,6 @@ def build_candidates(jobs, sites, policy, pstate, clock, key, ext, k: int) -> to
     force-included, so ``k >= S`` is "all feasible sites in dense scan
     order" and the set holds the dense argmax whenever any site is feasible.
     """
-    if "data" in ext:
-        raise NotImplementedError(
-            "replica-aware candidates need the data subsystem, which the port lacks")
     S = sites.capacity
     k = min(int(k), S)
     feas = static_feasibility(jobs, sites)
@@ -73,7 +71,28 @@ def build_candidates(jobs, sites, policy, pstate, clock, key, ext, k: int) -> to
     iota = torch.arange(S, device=masked.device)
     best = torch.where(masked == best_val[:, None], iota, S).amin(-1)  # first max
 
-    idx = _top_k_indices(masked, k)
+    sel = masked
+    if "data" in ext:
+        # data-locality bonus: replica holders of the job's dataset, plus the
+        # nearest WAN source toward the pre-rank-best destination, outrank
+        # equally scored non-holders.  The bonus exceeds the row's finite
+        # score range, so it reorders between the groups, never within.
+        from .replicas import nearest_source
+
+        dext = ext["data"]
+        rep, net = dext.replicas, dext.network
+        D = rep.present.shape[-2]
+        has_ds = jobs.dataset >= 0
+        holders = rep.present[jobs.dataset.clamp(0, D - 1).long()]      # [J, S]
+        src = nearest_source(rep, net, jobs.dataset, best)               # [J]
+        local = holders | (iota[None, :] == src[:, None])
+        row_min = torch.where(feas, masked, float("inf")).amin(-1)
+        span = torch.where(torch.isfinite(best_val) & torch.isfinite(row_min),
+                           best_val - row_min, 0.0)
+        bonus = (span + 1.0)[:, None]
+        sel = torch.where(feas & local & has_ds[:, None], masked + bonus, masked)
+
+    idx = _top_k_indices(sel, k)
     # force-include the dense pre-rank argmax in the last slot
     missing = torch.isfinite(best_val) & ~(idx == best[:, None]).any(-1)
     idx[:, -1] = torch.where(missing, best, idx[:, -1])

@@ -25,9 +25,9 @@ results.  The protocol is the JAX package's, hook for hook:
   capacity padding (host)    | pad_jobs(sub, state0, old_J, new_J) -> state0
 
 Hooks fire in subsystem-tuple order within each phase; the built-ins come
-first in the order (availability, workflow), then explicit ``subsystems=``
-pairs in caller order.  The data, transfers and faults subsystems are not
-ported yet (ROADMAP Queue 1 items 7, 8 and 9): asking for them raises.
+first in the JAX package's order (availability, workflow, data, transfers),
+then explicit ``subsystems=`` pairs in caller order.  The faults subsystem
+is not ported yet (ROADMAP Queue 1 item 9): asking for it raises.
 """
 from __future__ import annotations
 
@@ -134,16 +134,6 @@ class RoundCtx:
         return _rng.fold_in(key, salt) if salt else key
 
 
-# the built-in subsystems the port does not have yet, by keyword
-_NOT_PORTED = {
-    "data_policy": "ROADMAP Queue 1 item 7 (data movement)",
-    "network": "ROADMAP Queue 1 item 7 (data movement)",
-    "replicas": "ROADMAP Queue 1 item 7 (data movement)",
-    "transfers": "ROADMAP Queue 1 item 8 (transfer queues)",
-    "faults": "ROADMAP Queue 1 item 9 (faults)",
-}
-
-
 def resolve_subsystems(
     *,
     data_policy=None,
@@ -159,19 +149,20 @@ def resolve_subsystems(
     validate=True,
 ):
     """Normalize the engine's keyword API into ``(tuple of Subsystem, ext0
-    dict)``: ``availability=`` and ``workflow=`` map onto the built-in
+    dict)``: ``availability=``, ``workflow=``, ``data_policy=`` (with
+    ``network=`` and ``replicas=``) and ``transfers=`` map onto the built-in
     subsystems in that order, followed by explicit ``subsystems=((Subsystem,
     state0), ...)`` pairs in caller order.  The ``validate`` hooks run here.
 
-    ``data_policy=``/``network=``/``replicas=``, ``transfers=`` and
-    ``faults=`` raise ``NotImplementedError`` when given: those subsystems
-    are not ported yet, and a run must not quietly leave them out."""
-    given = dict(data_policy=data_policy, network=network, replicas=replicas,
-                 transfers=transfers, faults=faults)
-    for kw, value in given.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{kw}= needs a subsystem the port does not have yet: {_NOT_PORTED[kw]}")
+    ``data_policy=`` needs both ``network=`` and ``replicas=``, and
+    ``transfers=`` needs the data subsystem (it owns the WAN matrices and the
+    catalog): both raise ``ValueError`` otherwise, as in the JAX package.
+    ``faults=`` raises ``NotImplementedError``: that subsystem is not ported
+    yet, and a run must not quietly leave it out."""
+    if faults is not None:
+        raise NotImplementedError(
+            "faults= needs a subsystem the port does not have yet: ROADMAP Queue 1 "
+            "item 9 (faults)")
     pairs: list[tuple[Subsystem, Any]] = []
     if availability is not None:
         from .availability import availability_subsystem
@@ -181,6 +172,20 @@ def resolve_subsystems(
         from .workflows import workflow_subsystem
 
         pairs.append((workflow_subsystem(), workflow))
+    if data_policy is not None:
+        if network is None or replicas is None:
+            raise ValueError("data_policy requires both network= and replicas=")
+        from .datapolicies import data_subsystem
+
+        pairs.append((data_subsystem(data_policy), (network, replicas)))
+    if transfers is not None:
+        if data_policy is None:
+            raise ValueError(
+                "transfers= requires the data subsystem (data_policy= with "
+                "network=/replicas=): it owns the WAN matrices and catalog")
+        from .transfers import transfers_subsystem
+
+        pairs.append((transfers_subsystem(), transfers))
     for entry in subsystems:
         if isinstance(entry, Subsystem):
             raise TypeError(

@@ -20,10 +20,10 @@ production shape.  Job dependencies stay in the fixed-shape regime:
   the ATLAS-like 4-stage MC production, with the same numpy draws as the
   JAX package's builders.
 
-Parents materializing their output datasets into a replica catalog needs the
-data subsystem, which the port does not have yet (ROADMAP Queue 1 item 7):
-until then the ``on_start`` hook is a no-op, as the JAX package's is without
-a data policy.
+With the data subsystem attached, a completing parent materializes its
+output dataset into the replica catalog at the site it ran on, so its
+children stage in from there (``scenario_replicas`` builds the catalog of a
+scenario, ``validate_workflow_data`` checks a hand-built one).
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from . import policies as _policies
+from .replicas import ReplicaState, make_replicas, materialize_outputs
 from .types import CANCELLED, DONE, FAILED, PENDING, JobsState, make_jobs
 
 
@@ -112,12 +113,21 @@ def _wf_on_completions(sub, ctx):
 
 def _wf_on_start(sub, ctx):
     """Output production: completing parents materialize their output
-    dataset at the site they ran on.  A no-op unless the data subsystem is
-    attached (without a catalog there is nowhere to materialize into), and
-    the port has none yet (ROADMAP Queue 1 item 7)."""
-    if ctx.ext.get("data") is None:
+    dataset at the site they ran on, before the data subsystem's source
+    selection (it comes later in the tuple), so a child starting in the same
+    round already stages in from the parent's site.  A no-op unless the data
+    subsystem is attached: without a catalog there is nowhere to
+    materialize into."""
+    dext = ctx.ext.get("data")
+    if dext is None:
         return
-    raise NotImplementedError("materialize_outputs needs the data subsystem (ROADMAP Queue 1 item 7)")
+    jobs = ctx.jobs
+    produced = ctx.done_now & (jobs.out_dataset >= 0)
+    rep = materialize_outputs(dext.replicas, jobs.out_dataset, jobs.site.clamp(0, ctx.S - 1),
+                              produced, ctx.clock)
+    ctx.ext["data"] = dext._replace(replicas=rep)
+    wf = ctx.ext["workflow"]
+    ctx.ext["workflow"] = wf._replace(n_produced=wf.n_produced + produced.sum().int())
 
 
 def _wf_pad_jobs(sub, wf: WorkflowState, old_capacity: int, new_capacity: int):
@@ -278,8 +288,8 @@ class WorkflowScenario(NamedTuple):
 
     ``ds_sizes[d]`` is the byte size of dataset ``d``; ``ds_origin``/
     ``ds_materialized`` describe the initial catalog (-1/False = the dataset
-    does not exist yet; some job materializes it mid-run).  They feed the
-    replica catalog of the data subsystem (ROADMAP Queue 1 item 7).
+    does not exist yet; some job materializes it mid-run).  Feed them to
+    ``scenario_replicas`` to build the matching ``ReplicaState``.
     """
 
     jobs: JobsState
@@ -287,6 +297,66 @@ class WorkflowScenario(NamedTuple):
     ds_sizes: np.ndarray        # f32[D]
     ds_origin: np.ndarray       # i32[D]
     ds_materialized: np.ndarray  # bool[D]
+
+
+def scenario_replicas(scn: WorkflowScenario, disk_capacity, *, seed: int = 0) -> ReplicaState:
+    """Replica catalog for a workflow scenario, on the scenario's device:
+    intermediate datasets start absent and appear at their producer's site
+    mid-run."""
+    rep = make_replicas(
+        scn.ds_sizes,
+        disk_capacity,
+        origin=scn.ds_origin,
+        materialized=scn.ds_materialized,
+        seed=seed,
+        device=scn.jobs.arrival.device,
+    )
+    validate_workflow_data(scn.jobs, scn.workflow, rep)
+    return rep
+
+
+def validate_workflow_data(jobs: JobsState, workflow, replicas: ReplicaState) -> None:
+    """Host-side check of a hand-built configuration: every catalogued input
+    that starts *unmaterialized* (no replica anywhere, ``origin = -1``) must
+    be produced by a DAG ancestor of the job that reads it; otherwise the
+    dependency gate cannot guarantee the data exists when the job starts,
+    and ``nearest_source``'s origin fallback would price the read from a
+    clipped bogus site.  Raises ``ValueError`` on violations; the built-in
+    scenario builders are safe by construction."""
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    present = host(replicas.present)
+    origin = host(replicas.origin)
+    unmat = ~present.any(axis=1) & (origin < 0)       # not readable at t=0
+    dataset = host(jobs.dataset)
+    out_ds = host(jobs.out_dataset)
+    valid = host(jobs.valid)
+    parents = None if workflow is None else host(workflow.parents)
+    D = present.shape[0]
+    for j in np.flatnonzero(valid & (dataset >= 0)):
+        d = dataset[j]
+        if d >= D:
+            raise ValueError(f"job row {j} reads dataset {d} outside the {D}-row catalog")
+        if not unmat[d]:
+            continue
+        producers = set(np.flatnonzero((out_ds == d) & valid))
+        if parents is None or not producers:
+            raise ValueError(
+                f"job row {j} reads unmaterialized dataset {d} that no job produces"
+            )
+        ancestors, stack = set(), [int(j)]
+        while stack:
+            for p in parents[stack.pop()]:
+                if p >= 0 and p not in ancestors:
+                    ancestors.add(int(p))
+                    stack.append(int(p))
+        if not (producers & ancestors):
+            raise ValueError(
+                f"job row {j} reads unmaterialized dataset {d}, but no DAG ancestor "
+                f"produces it (producers: {sorted(producers)}); the dependency gate "
+                "cannot guarantee the data exists before the job starts"
+            )
 
 
 def _stage_tuple(x, n_stages, default):

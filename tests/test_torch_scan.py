@@ -110,3 +110,22 @@ def test_segment_sum_ref_signed_zeros_match_jax():
     np.testing.assert_array_equal(want, got)
     np.testing.assert_array_equal(np.signbit(want), np.signbit(got))
     assert not np.signbit(got).any()
+
+
+@pytest.mark.parametrize("shape", [(2,), (32,), (33,), (100_000,), (40, 7), (1024, 300),
+                                   (64, 2, 3)])
+def test_sum_matches_xla_and_the_segment_form(shape):
+    """``sum_f32`` over axis 0 against ``jnp.sum`` under ``jit`` (a masked
+    column sum, as the replica catalog computes it), and the segment-sum form
+    the GPU takes (run here through the CPU's row-order segment sum): the
+    same bits, signed zeros included."""
+    from repro_torch.core.scan import _sum_f32_segments, sum_f32
+
+    rng = np.random.default_rng(sum(shape))
+    x = (rng.lognormal(20.0, 1.0, shape) * (rng.random(shape) < 0.6)).astype(np.float32)
+    x.reshape(-1)[:2] = [-0.0, 3.5]
+    want = np.asarray(jax.jit(lambda v: jnp.sum(jnp.where(v != 0, v, 0.0), axis=0))(x))
+    got = sum_f32(torch.from_numpy(x), 0).numpy()
+    np.testing.assert_array_equal(want.view(np.int32), got.view(np.int32))
+    seg = _sum_f32_segments(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), seg.view(np.int32))

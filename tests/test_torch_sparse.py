@@ -92,10 +92,32 @@ def test_signed_zeros_ties_and_force_include():
 
 
 def test_data_locality_candidates_are_not_ported():
-    jobs, sites = _to_torch(*_scenario(10, 0, 3, 1, 600.0, 0.0))
-    with pytest.raises(NotImplementedError):
-        T.build_candidates(jobs, sites, T.get_policy("data_locality"), (), torch.tensor(0.0),
-                           PRNGKey(0), {"data": None}, 2)
+    """The data branch of the candidate index (ported since the data
+    subsystem, the name kept): replica holders of a job's dataset and the
+    nearest WAN source toward its pre-rank-best site rank first, equal to
+    the JAX package's at every ``k``."""
+    jobs = R.synthetic_panda_jobs(60, seed=0, duration=600.0, n_datasets=9)
+    sites = R.atlas_like_platform(6, seed=1)
+    rng = np.random.default_rng(4)
+    rep = R.make_replicas(R.zipf_dataset_sizes(9, seed=1), np.full(6, 1e13),
+                          placement=rng.random((9, 6)) < 0.3, seed=2)
+    net = R.atlas_like_network(6, seed=3)
+    ext_j = {"data": R.DataExt(network=net, replicas=rep, state=(),
+                               net_acc=jnp.zeros(6, jnp.float32))}
+    ext_t = {"data": T.DataExt(network=T.network_from_numpy(_np_state(net), device="cpu"),
+                               replicas=T.replicas_from_numpy(_np_state(rep), device="cpu"),
+                               state=(), net_acc=torch.zeros(6))}
+    tj, ts = _to_torch(jobs, sites)
+    pj, pt = R.get_policy("data_locality"), T.get_policy("data_locality")
+    for k in (1, 2, 3, 6):
+        want = np.asarray(R.build_candidates(jobs, sites, pj, (), 0.0, jax.random.PRNGKey(0),
+                                             ext_j, k))
+        got = T.build_candidates(tj, ts, pt, (), torch.tensor(0.0), PRNGKey(0), ext_t,
+                                 k).numpy()
+        np.testing.assert_array_equal(want, got, err_msg=f"k={k}")
+    plain = T.build_candidates(tj, ts, pt, (), torch.tensor(0.0), PRNGKey(0), {}, 2).numpy()
+    local = T.build_candidates(tj, ts, pt, (), torch.tensor(0.0), PRNGKey(0), ext_t, 2).numpy()
+    assert (plain != local).any(), "the locality bonus changed no candidate"
 
 
 def test_static_feasibility_and_bytes_model():

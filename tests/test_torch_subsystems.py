@@ -334,10 +334,29 @@ def test_resolve_subsystems_rules():
     jobs = T.synthetic_panda_jobs(10, seed=0, device="cpu")
     sites = T.atlas_like_platform(3, seed=0, device="cpu")
     pol, key = T.get_policy("panda_dispatch"), PRNGKey(0)
-    for kw, item in (("data_policy", "item 7"), ("network", "item 7"), ("replicas", "item 7"),
-                     ("transfers", "item 8"), ("faults", "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            T.simulate(jobs, sites, pol, key, device="cpu", **{kw: object()})
+    with pytest.raises(NotImplementedError, match="item 9"):
+        T.simulate(jobs, sites, pol, key, device="cpu", faults=object())
+    # the data subsystem needs both matrices and the catalog; the transfer
+    # queues need the data subsystem (the JAX package's rules)
+    net = T.uniform_network(3, device="cpu")
+    rep = T.make_replicas(np.full(2, 1e9), np.full(3, 1e12), device="cpu")
+    data = T.get_data_policy("cache_on_read")
+    for kw in (dict(data_policy=data), dict(data_policy=data, network=net),
+               dict(data_policy=data, replicas=rep)):
+        with pytest.raises(ValueError, match="requires both network= and replicas="):
+            T.simulate(jobs, sites, pol, key, device="cpu", **kw)
+    for kw in (dict(), dict(network=net, replicas=rep)):
+        with pytest.raises(ValueError, match="transfers= requires the data subsystem"):
+            T.simulate(jobs, sites, pol, key, device="cpu",
+                       transfers=T.make_transfers(3, 10, device="cpu"), **kw)
+    # the canonical order: availability, workflow, data, transfers, then the
+    # caller's subsystems
+    subs, _ = T.resolve_subsystems(
+        subsystems=((T.make_subsystem("mine"), ()),),
+        transfers=T.make_transfers(3, 10, device="cpu"),
+        data_policy=data, network=net, replicas=rep, workflow=T.make_workflow(jobs, [])[1],
+        availability=T.make_availability(3, device="cpu"), validate=False)
+    assert [s.name for s in subs] == ["availability", "workflow", "data", "transfers", "mine"]
     sub = T.make_subsystem("x")
     with pytest.raises(TypeError, match="pairs"):
         T.simulate(jobs, sites, pol, key, device="cpu", subsystems=(sub,))
