@@ -28,15 +28,16 @@ check does not hold:
    with work to launch the assignment kernel once, and the two runs to agree
    bit for bit; print rounds/s, the assignment's call time between CUDA
    events in the second run, and its kernels' device time per launch in a
-   profile of 100 rounds;
-4. drive the sparse top-k path at the same scale: ``data_locality`` with the
+   profile of PROFILE_ROUNDS rounds;
+4. drive the sparse top-k path at the same scale, cut to SPARSE_FULL_ROUNDS
+   rounds: ``data_locality`` with the
    fused capacity assigner and ``topk=16``, twice, counters set to 0 just
    before the first run; require every round with work to launch the fused
    kernel once and never call its plain version, and the two runs to agree
    bit for bit; print rounds/s (and the same policy's dense rate), the
    candidate build's seconds, the fused call's time between CUDA events in
    the second run, and the fused kernels' device time per launch in a
-   profile of 100 rounds;
+   profile of PROFILE_ROUNDS rounds;
 5. run a 50-site, 5000-job scenario with failures on the card and on the
    CPU, cut to its first DRAIN_ROUNDS rounds (of the 10103 that drain it,
    to keep the smoke's time with phases 9 to 12), and require the same
@@ -64,11 +65,12 @@ check does not hold:
    under the flaky-site outage calendar (availability, ``mtbf`` 4 h), 100000
    jobs in 25000 4-stage ATLAS MC workflow DAGs, ``critical_path_first``
    with capacity dispatch and a 256-row event log with its ``site_avail``
-   column, 2000 rounds twice, counters set to 0 just before the first run;
+   column, SUB_FULL_ROUNDS rounds twice, counters set to 0 just before the
+   first run;
    require the assignment kernel once in every round with work, a preempted
    job, and the two runs bit-identical (subsystem states and log included);
    print rounds/s beside phase 3's, segment sums a round, the device busy
-   share over 100 profiled rounds, and the host seconds of
+   share over PROFILE_ROUNDS profiled rounds, and the host seconds of
    ``transition_rows`` and ``ml_dataset``;
 10. the same pipeline at 50 sites and 1250 workflows, with the flaky-site
    windows and a rolling brown-out's in one calendar, cut to CROSS_ROUNDS
@@ -80,11 +82,12 @@ check does not hold:
    reading a 1024-dataset Zipf catalog (``make_replicas`` of
    ``zipf_dataset_sizes(1024)``, disks of ``memory * 1e9`` bytes) over
    ``atlas_like_network(300)``, ``cache_on_read``; counters set to 0 just
-   before each run: (a) ``panda_dispatch`` with capacity dispatch, 2000
-   rounds twice, bit-identical (jobs, catalog, log), with WAN transfers and
+   before each run: (a) ``panda_dispatch`` with capacity dispatch,
+   DATA_FULL_ROUNDS rounds twice, bit-identical (jobs, catalog, log), with
+   WAN transfers and
    cache hits, the catalog invariants, the assignment kernel once in every
    round with work; print rounds/s beside phase 3's, segment sums and
-   kernels a round, the device busy share over 100 profiled rounds, and the
+   kernels a round, the device busy share over PROFILE_ROUNDS profiled rounds, and the
    calls of ``insert_mask`` under storage pressure; (b) the same with the
    FTS transfer queues (``max_active=4``, ``queue_slots=256``), cut to
    DATA_TR_ROUNDS rounds: the ledger ``n_enq = n_done + n_cancel + in
@@ -100,6 +103,30 @@ check does not hold:
    and export the same transfer rows, transition rows and ML NDJSON byte
    for byte.
 
+13. fault injection at WLCG scale (run after phase 3): ``flaky_grid(300,
+   n_flaky=3)``, the 100000 jobs, ``panda_dispatch`` with capacity dispatch
+   and a 256-row log, resubmission backoff (60 s), walltime kills (at
+   FAULT_WALLTIME), the circuit breaker (0.7), ``max_retries=4``; 2000
+   rounds through ``simulate`` with a recorder and again through
+   ``monitor.watch`` in FAULT_SEGMENTS segments with an NDJSON sink and a
+   recorder, counters set to 0 just before the first: the two must be
+   bit-identical, with kills, breaker trips and backoff, the assignment
+   kernel once in every round with work, the stream rendered by
+   ``follow_stream``; print rounds/s beside phase 3's, segment sums and
+   kernels a round, the device busy share over PROFILE_ROUNDS profiled rounds, the
+   recorder's spans and the packed against the general start order;
+14. transfer failures at WLCG scale: phase 11(b)'s data path with
+   ``lossy_links(300, p=0.05, hot=3)``, ``xfer_backoff=30`` and a
+   replica-loss calendar over the 1024 datasets, DATA_TR_ROUNDS rounds: the
+   ledger ``n_enq = n_done + n_cancel + n_xfer_fail + in flight`` must
+   balance, with failed transfers, lost replicas and the catalog invariants;
+15. card against CPU at S=50, cut to XFAULT_MATRIX_ROUNDS and XFAULT_ROUNDS
+   rounds, every round logged: phase 12's workflow run with the golden
+   matrix's fault state,
+   and the blackhole-site scenario under dense capacity dispatch and the
+   fused kernel at ``topk=8``; states, the log, ``fault_rows``, the
+   transition rows and the ML NDJSON byte for byte.
+
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero without
@@ -108,6 +135,7 @@ either.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -125,9 +153,15 @@ ENGINE_J, ENGINE_S = 100_000, 300
 ENGINE_K = 16                  # bench_wlcg_scale.py's top-k
 MANY_SEGMENTS = ENGINE_S * ENGINE_S + 1   # the link sums' segments at S=300
 FULL_MAX_ROUNDS = 2000
-DRAIN_ROUNDS = 1000            # depth cut of phase 5 (the whole drain takes 10103)
-SPARSE_DRAIN_ROUNDS = 1000     # depth cut of phase 6
-CROSS_ROUNDS = 1000            # depth cut of phase 10
+# rounds in each engine profile: reading the profiler's events back takes
+# ~0.5 ms a kernel on the host, and a round launches 800-2800 kernels
+PROFILE_ROUNDS = 30
+SPARSE_FULL_ROUNDS = 1000      # depth cut of phase 4
+SUB_FULL_ROUNDS = 1000         # depth cut of phase 9
+DATA_FULL_ROUNDS = 1000        # depth cut of phase 11(a)
+DRAIN_ROUNDS = 500             # depth cut of phase 5 (the whole drain takes 10103)
+SPARSE_DRAIN_ROUNDS = 500      # depth cut of phase 6
+CROSS_ROUNDS = 600             # depth cut of phase 10
 ASSIGN_CASES = [  # (N, E, k, block_n)
     (ENGINE_J, ENGINE_S, 1, 256),   # the engine shape
     (64, 8, 1, 32),
@@ -902,9 +936,9 @@ def phase_full_width(device, max_rounds: int) -> dict:
           f"included) = {100 * kernel_s / wall2:.2f}% of the run's wall time "
           f"({1e3 * kernel_s / max(len(timings), 1):.4f} ms a call)")
     print(f"[full] {T.summary_str(T.compute_metrics(res))}")
-    profile_rounds(lambda: T.simulate(jobs, sites, policy, key, max_rounds=100, device=device),
-                   names=ASSIGN_KERNELS)
-    return launches, (res.rounds / wall1, res2.rounds / wall2)
+    prof = profile_rounds(lambda: T.simulate(jobs, sites, policy, key, max_rounds=PROFILE_ROUNDS,
+                                             device=device), names=ASSIGN_KERNELS)
+    return launches, (res.rounds / wall1, res2.rounds / wall2), prof
 
 
 def phase_sparse_full_width(device, max_rounds: int) -> dict:
@@ -1026,15 +1060,17 @@ def phase_sparse_full_width(device, max_rounds: int) -> dict:
     print(f"[sparse] the same policy dense (capacity dispatch): rounds/s={res_d.rounds / wall_d:.2f}"
           f" over {res_d.rounds} rounds; first 100 rounds: sparse {first['sparse']:.2f}, "
           f"dense {first['dense']:.2f} rounds/s")
-    profile_rounds(lambda: T.simulate(jobs, sites, policy, key, max_rounds=100, topk=ENGINE_K,
+    profile_rounds(lambda: T.simulate(jobs, sites, policy, key, max_rounds=PROFILE_ROUNDS,
+                                      topk=ENGINE_K,
                                       device=device), "sparse", names=FUSED_KERNELS)
     return launches
 
 
-def profile_rounds(run, label: str = "profile", names=()) -> dict:
+def profile_rounds(run, label: str = "profile", names=(), rounds: int = None) -> dict:
     """Device busy share and the kernels that take the most device time over
-    the first 100 rounds of a full-width run (``torch.profiler``), and the
-    device time per launch of each kernel named in ``names``."""
+    the first ``rounds`` rounds of a full-width run (``torch.profiler``;
+    ``run`` runs them), and the device time per launch of each kernel named
+    in ``names``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1052,7 +1088,7 @@ def profile_rounds(run, label: str = "profile", names=()) -> dict:
         print(f"[{label}] the profiler saw no device time: busy share not measured")
         return {}
     sorts = sum(e.count for e in kernels if "DeviceRadixSortOnesweepKernel" in e.key)
-    print(f"[{label}] 100 rounds: wall {wall_ms:.1f} ms (profiled), device busy "
+    print(f"[{label}] {rounds or PROFILE_ROUNDS} rounds: wall {wall_ms:.1f} ms (profiled), device busy "
           f"{device_ms:.1f} ms = {100 * device_ms / wall_ms:.1f}%, idle "
           f"{100 - 100 * device_ms / wall_ms:.1f}%, {sum(e.count for e in kernels)} kernels, "
           f"{sorts} of them DeviceRadixSortOnesweepKernel")
@@ -1299,7 +1335,7 @@ def phase_subsystems_full_width(device, max_rounds: int, plain_rates) -> dict:
     print(f"[subsys] transition_rows: {n_rows} rows in {rows_s:.3f}s on the host; ml_dataset: "
           f"{ml['features'].shape[0]} rows x {ml['features'].shape[1]} features in "
           f"{ml_s:.3f}s on the host")
-    profile_rounds(lambda: run(100), "subsys-profile", names=ASSIGN_KERNELS)
+    profile_rounds(lambda: run(PROFILE_ROUNDS), "subsys-profile", names=ASSIGN_KERNELS)
     launches["rounds"] = res.rounds
     return launches
 
@@ -1381,9 +1417,9 @@ DATA_D = 1024                  # bench_data_movement.py:65's largest catalog
 DATA_LOG_ROWS = 256
 DATA_QUEUE_SLOTS = 256         # the [L, Q] rings at S=300: 2 x 90000 x 256 int32 = 184 MB
 DATA_TR_ROUNDS = 600           # depth cut of run (b)
-DATA_SPARSE_ROUNDS = 1000      # depth cut of run (c)
+DATA_SPARSE_ROUNDS = 500       # depth cut of run (c)
 XDATA_S, XDATA_J, XDATA_CHAINS = 50, 5000, 1250   # phase 12: card against CPU
-XDATA_ROUNDS = 400             # depth cut of phase 12
+XDATA_ROUNDS = 300             # depth cut of phase 12
 # disk = memory x this, bytes: the workflow run's disks are ten times tighter
 # than the fused run's, since even in 1000 rounds (~800 s simulated) only the
 # small evgen outputs land and disks of memory x 1e8 fill to 57% at most (a
@@ -1410,17 +1446,19 @@ def total_device_ms(fn, iters: int) -> tuple:
             sum(e.count for e in kernels) / iters)
 
 
-def ledger(ts) -> dict:
-    """The transfer ledger; every enqueue ends done or cancelled, or is
-    queued or active at the cut."""
+def ledger(ts, fs=None) -> dict:
+    """The transfer ledger; every enqueue ends done, cancelled or (with the
+    faults subsystem ``fs``) failed, or is queued or active at the cut."""
     import torch
 
     in_flight = int((ts.stat > 0).sum())
     led = dict(n_enq=int(ts.n_enq), n_done=int(ts.n_done), n_cancel=int(ts.n_cancel),
                in_flight=in_flight, n_overflow=int(ts.n_overflow),
                queued=int((ts.stat == 1).sum()), active=int(ts.active.sum()))
-    check(led["n_enq"] == led["n_done"] + led["n_cancel"] + in_flight,
-          f"the transfer ledger does not balance: {led}")
+    if fs is not None:
+        led["n_xfer_fail"] = int(fs.n_xfer_fail)
+    check(led["n_enq"] == led["n_done"] + led["n_cancel"] + led.get("n_xfer_fail", 0)
+          + in_flight, f"the transfer ledger does not balance: {led}")
     check(bool(torch.isfinite(ts.bytes_done)), "bytes_done not finite")
     return led
 
@@ -1515,9 +1553,10 @@ def phase_data_full_width(device, max_rounds: int, plain_rates) -> dict:
               f"dense path in this call (phase 3): first={plain_rates[0]:.2f} "
               f"second={plain_rates[1]:.2f}")
         print(f"[data] (a) {T.summary_str(T.compute_metrics(res))}")
-        prof = profile_rounds(lambda: run(100), "data-profile", names=ASSIGN_KERNELS)
+        prof = profile_rounds(lambda: run(PROFILE_ROUNDS), "data-profile", names=ASSIGN_KERNELS)
         if prof:
-            print(f"[data] (a) {prof['kernels'] / 100:.1f} kernels a round over the 100 "
+            print(f"[data] (a) {prof['kernels'] / PROFILE_ROUNDS:.1f} kernels a round over the "
+                  f"{PROFILE_ROUNDS} "
                   f"profiled rounds")
         # source selection alone, as each round calls it: every job's
         # nearest replica toward its site
@@ -1581,13 +1620,15 @@ def phase_data_full_width(device, max_rounds: int, plain_rates) -> dict:
     return out
 
 
-def data_cross_scenario(dev, combo: str, max_rounds: int):
+def data_cross_scenario(dev, combo: str, max_rounds: int, faults=None):
     """Phase 12's two runs at S=50 with disks of ``memory * XDATA_DISK``:
     ``"workflows"`` is 1250 ATLAS MC workflows with ``scenario_replicas``,
     the flaky-site calendar, ``cache_on_read`` and the transfer queues
     (``max_active=2``) under dense capacity dispatch; ``"fused"`` is 5000
     synthetic jobs on a 1024-dataset catalog, ``data_locality`` with the
-    fused kernel at ``topk=8`` under ``cache_on_read``."""
+    fused kernel at ``topk=8`` under ``cache_on_read``.  ``faults``, when
+    given, builds a fault state from the jobs, the catalog and the device
+    (phase 15)."""
     from repro_torch import core as T
     from repro_torch.kernels.assign import make_capacity_assign, make_fused_capacity_assign
 
@@ -1599,6 +1640,8 @@ def data_cross_scenario(dev, combo: str, max_rounds: int):
         rep = T.scenario_replicas(scn, sites.memory.cpu().numpy() * XDATA_DISK[combo], seed=1)
         policy = T.with_capacity_assign(T.get_policy("critical_path_first"),
                                         make_capacity_assign(scn.jobs.cores))
+        if faults is not None:
+            kw["faults"] = faults(scn.jobs, rep, dev)
         return T.simulate(scn.jobs, sites, policy, T.PRNGKey(0), availability=av,
                           workflow=scn.workflow, data_policy=data, network=net, replicas=rep,
                           transfers=T.make_transfers(XDATA_S, scn.jobs, max_active=2,
@@ -1678,6 +1721,373 @@ def phase_data_card_vs_cpu(device, max_rounds: int) -> dict:
     return out
 
 
+# phases 13 to 15: fault injection, segmented runs and the flight recorder
+FAULT_SEGMENTS = 8
+# bench_faults.py:91-97 arms walltime = 4 h; 2000 rounds at full width span
+# ~400 simulated seconds, so a 4 h limit kills nothing and no limit above
+# the span can: 300 s kills every job still running 300 s after its start
+FAULT_WALLTIME = 300.0
+# phase 14's replica-loss calendar: every loss event is an event round, and a
+# loss only drops a cached (non-origin) replica, a few hundred of the 307200
+# (dataset, site) cells in 600 rounds; so losses come often (FAULT_LOSS_RATE a
+# site a second, over the first FAULT_LOSS_HORIZON seconds) and are applied at
+# the storage elements' consistency scans, every FAULT_LOSS_SCAN seconds
+FAULT_LOSS_RATE = 2.0
+FAULT_LOSS_HORIZON = 300.0
+FAULT_LOSS_SCAN = 30.0
+XFAULT_ROUNDS = 300            # depth cut of phase 15's blackhole runs
+XFAULT_MATRIX_ROUNDS = 200     # depth cut of phase 15's matrix run
+XFAULT_J = 5000                # phase 15's blackhole-site jobs at S = 50
+# the fused run rebuilds its candidate index every XFAULT_REFRESH rounds: at
+# t = 0 every 8-core site ties under least_loaded's pre-rank, so the index
+# holds sites 0-7 and never the flaky site (44) until the load moves it up
+XFAULT_REFRESH = 25
+XFAULT_PROFILE_ROUNDS = 10     # phase 14's profile: its rounds launch ~2800 kernels each
+
+
+def faults_scenario(device):
+    """Phase 13's configuration: ``flaky_grid(300, n_flaky=3, seed=1)``,
+    100000 jobs, the fault channels that need no transfers armed as in
+    ``bench_faults.py:91-97`` (``job_backoff=60``, ``blacklist_threshold=
+    0.7``, ``max_retries=4``) with a walltime of ``FAULT_WALLTIME``."""
+    from repro_torch import core as T
+
+    sites, flaky = T.flaky_grid(ENGINE_S, n_flaky=3, seed=1, device=device)
+    jobs = T.synthetic_panda_jobs(ENGINE_J, seed=0, duration=6 * 3600.0, device=device)
+    faults = T.make_faults(ENGINE_S, jobs, job_backoff=60.0, walltime=FAULT_WALLTIME,
+                           blacklist_threshold=0.7, device=device)
+    return sites, flaky, jobs, faults
+
+
+def phase_faults_full_width(device, max_rounds: int, plain_rates, plain_prof) -> dict:
+    """Phase 13: the fault channels at WLCG scale, once through ``simulate``
+    with a recorder and once through ``monitor.watch`` in ``FAULT_SEGMENTS``
+    segments with an NDJSON sink and a recorder; the two results must be
+    bit-identical.  Counters set to 0 just before the first run."""
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import engine as E
+    from repro_torch.core import monitor as TM
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import make_capacity_assign
+    from repro_torch.kernels.assign import ops as assign_ops
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    t0 = time.perf_counter()
+    sites, flaky, jobs, faults = faults_scenario(device)
+    print(f"[faults] scenario built in {time.perf_counter() - t0:.2f}s: S={ENGINE_S} J={ENGINE_J}, "
+          f"flaky sites {flaky.tolist()} at fail_rate 0.9, walltime {FAULT_WALLTIME:g} s, "
+          f"job_backoff 60 s, breaker at 0.7, max_retries 4")
+    work_rounds = [0]
+    capacity_assign = make_capacity_assign(jobs.cores)
+
+    def counted_assign(*args):
+        work_rounds[0] += 1          # assign runs once per round with work
+        return capacity_assign(*args)
+
+    policy = T.with_capacity_assign(T.get_policy("panda_dispatch"), counted_assign)
+    kw = dict(faults=faults, max_retries=4, max_rounds=max_rounds, log_rows=SUB_LOG_ROWS,
+              device=device)
+
+    def no_plain_version(*args, **kw):
+        raise SmokeFailure("the faults path called assign_ref on the card")
+
+    plain = assign_ops.assign_ref
+    assign_ops.assign_ref = no_plain_version
+    try:
+        assign_mod.launches = segsum_mod.launches = 0
+        rec1 = T.TraceRecorder()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = T.simulate(jobs, sites, policy, T.PRNGKey(0), recorder=rec1, **kw)
+        wall1 = time.perf_counter() - t0
+        launches = {"assign": assign_mod.launches, "segment_sum": segsum_mod.launches}
+        rounds_with_work = work_rounds[0]
+        # the same run in segments, each ended at a simulated time, with
+        # frames streamed to an NDJSON file between them
+        rec2 = T.TraceRecorder()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = pathlib.Path(tmp) / "faults.ndjson"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with T.NDJSONSink(path) as sink:
+                res2 = TM.watch(jobs, sites, policy, T.PRNGKey(0),
+                                segment=float(res.makespan) / (FAULT_SEGMENTS - 0.5),
+                                sink=sink, render=False, recorder=rec2, **kw)
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+            shown = io.StringIO()
+            n_frames = TM.follow_stream(path, clear=False, out=shown)
+            stream_bytes = path.stat().st_size
+    finally:
+        assign_ops.assign_ref = plain
+    fs = res.ext["faults"]
+    counts = {k: int(getattr(fs, k)) for k in ("n_kills", "n_bl_trips", "n_probes")}
+    counts["backoff_wait_s"] = float(fs.backoff_wait.sum())
+    counts["time_lost_s"] = float(fs.time_lost)
+    counts["tripped_sites_at_cut"] = int((fs.bl_state == T.BL_TRIPPED).sum())
+    print(f"[faults] rounds={res.rounds} rounds_with_work={rounds_with_work} "
+          f"launches={json.dumps(launches)} ({launches['segment_sum'] / res.rounds:.2f} segment "
+          f"sums a round) makespan={float(res.makespan)!r} {json.dumps(counts)}")
+    check(launches["assign"] > 0 and launches["assign"] == rounds_with_work,
+          f"assign launches {launches['assign']} != rounds with work {rounds_with_work}")
+    check(launches["segment_sum"] > 0, "the faults path never launched the segment sum")
+    check(counts["n_kills"] > 0, "no walltime kill")
+    check(counts["n_bl_trips"] > 0, "the circuit breaker never tripped")
+    check(counts["backoff_wait_s"] > 0, "no resubmission backoff")
+    check_invariants(res, "faults")
+    bad = mismatches(full_snapshot(res), full_snapshot(res2))
+    check(not bad, f"watch in segments differs from simulate: {bad}")
+    n_seg = rec2.counters.get("watch_segments")
+    check(n_seg == FAULT_SEGMENTS, f"watch ran {n_seg} segments, not {FAULT_SEGMENTS}")
+    check(n_frames == FAULT_SEGMENTS and "end: rounds=" in shown.getvalue(),
+          f"follow_stream rendered {n_frames} frames")
+    print(f"[faults] watch in {n_seg} segments bit-identical to simulate (jobs, sites, log, "
+          f"fault state); rounds/s simulate={res.rounds / wall1:.2f} watch={res2.rounds / wall2:.2f};"
+          f" the plain dense path in this call (phase 3): first={plain_rates[0]:.2f} "
+          f"second={plain_rates[1]:.2f}")
+    print(f"[faults] recorder spans: simulate {json.dumps(rec1.summary()['spans'])}; watch "
+          f"{json.dumps(rec2.summary()['spans'])}; stream {stream_bytes} B, {n_frames} frames "
+          f"rendered by follow_stream ({len(shown.getvalue())} characters)")
+    print(f"[faults] {T.summary_str(T.compute_metrics(res))}")
+
+    # what job_backoff costs the start order: the packed single-key sort the
+    # engine uses when arrivals are run-constant, against the general one
+    in_queue = res.jobs.state == T.ASSIGNED
+    sort_site = torch.where(in_queue, res.jobs.site, ENGINE_S)
+    srank = E._static_start_rank(res.jobs)      # the rank of the arrivals as they are now
+    zeros = torch.zeros((ENGINE_J,), dtype=torch.float32, device=device)
+    packed = lambda: E._start_order_packed(sort_site.long() * ENGINE_J + srank)  # noqa: E731
+    general = lambda: E._start_order(sort_site, res.jobs.priority, zeros, res.jobs.arrival)  # noqa: E731
+    order = {}
+    for name, fn in (("packed", packed), ("general", general)):
+        dev_ms, kernels = total_device_ms(fn, 20)
+        order[name] = dict(call_ms=round(cuda_ms(fn, 20), 4), device_ms=round(dev_ms, 4),
+                           kernels=kernels)
+    check(bool((packed() == general()).all()), "the two start orders differ")
+    print(f"[faults] start order at J={ENGINE_J}: {json.dumps(order)}")
+    prof = profile_rounds(lambda: T.simulate(jobs, sites, policy, T.PRNGKey(0),
+                                             **{**kw, "max_rounds": PROFILE_ROUNDS}),
+                          "faults-profile", names=ASSIGN_KERNELS)
+    if prof and plain_prof:
+        print(f"[faults] {prof['kernels'] / PROFILE_ROUNDS:.1f} kernels a round over "
+              f"{PROFILE_ROUNDS} profiled rounds, the plain dense path "
+              f"{plain_prof['kernels'] / PROFILE_ROUNDS:.1f} (phase 3, same call)")
+    launches["rounds"] = res.rounds
+    return launches
+
+
+def phase_faults_transfers_full_width(device, max_rounds: int) -> dict:
+    """Phase 14: phase 11(b)'s data path with the transfer queues and the
+    fault channels that need them: lossy links (``lossy_links(300, p=0.05,
+    hot=3)``), ``xfer_backoff=30`` and a replica-loss calendar over the 1024
+    datasets.  Counters set to 0 just before the run."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import make_capacity_assign
+    from repro_torch.kernels.assign import ops as assign_ops
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    t0 = time.perf_counter()
+    sites = T.atlas_like_platform(ENGINE_S, seed=1, device=device)
+    jobs = T.synthetic_panda_jobs(ENGINE_J, seed=0, duration=6 * 3600.0, n_datasets=DATA_D,
+                                  zipf_alpha=1.2, device=device)
+    net = T.atlas_like_network(ENGINE_S, seed=2, device=device)
+    rep = T.make_replicas(T.zipf_dataset_sizes(DATA_D, seed=3), sites.memory * 1e9, seed=4,
+                          device=device)
+    losses = [(math.ceil(t / FAULT_LOSS_SCAN) * FAULT_LOSS_SCAN, d, site)
+              for t, d, site in T.replica_loss_calendar(rep, ENGINE_S, horizon=FAULT_LOSS_HORIZON,
+                                                        rate=FAULT_LOSS_RATE, seed=5)]
+    faults = T.make_faults(ENGINE_S, jobs, link_fail_p=T.lossy_links(ENGINE_S, p=0.05, hot=3,
+                                                                     seed=3),
+                           xfer_backoff=30.0, replica_loss=losses, device=device)
+    print(f"[xfaults] scenario built in {time.perf_counter() - t0:.2f}s: phase 11's data path, "
+          f"lossy links (p 0.05, 3 hot sites at 0.3), {len(losses)} replica-loss events over "
+          f"{FAULT_LOSS_HORIZON:g} s, applied every {FAULT_LOSS_SCAN:g} s")
+    work_rounds = [0]
+    capacity_assign = make_capacity_assign(jobs.cores)
+
+    def counted_assign(*args):
+        work_rounds[0] += 1
+        return capacity_assign(*args)
+
+    policy = T.with_capacity_assign(T.get_policy("panda_dispatch"), counted_assign)
+
+    def run(rounds=max_rounds):
+        return T.simulate(jobs, sites, policy, T.PRNGKey(0),
+                          data_policy=T.get_data_policy("cache_on_read"), network=net,
+                          replicas=rep, transfers=T.make_transfers(
+                              ENGINE_S, jobs, max_active=4, queue_slots=DATA_QUEUE_SLOTS,
+                              device=device),
+                          faults=faults, max_rounds=rounds, log_rows=DATA_LOG_ROWS,
+                          device=device)
+
+    def no_plain_version(*args, **kw):
+        raise SmokeFailure("the transfer-faults path called assign_ref on the card")
+
+    plain = assign_ops.assign_ref
+    assign_ops.assign_ref = no_plain_version
+    try:
+        assign_mod.launches = segsum_mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"assign": assign_mod.launches, "segment_sum": segsum_mod.launches}
+        rounds_with_work = work_rounds[0]
+        prof = profile_rounds(lambda: run(XFAULT_PROFILE_ROUNDS), "xfaults-profile",
+                              names=ASSIGN_KERNELS, rounds=XFAULT_PROFILE_ROUNDS)
+    finally:
+        assign_ops.assign_ref = plain
+    fs = res.ext["faults"]
+    led = ledger(res.ext["transfers"], fs)
+    counts = {k: int(getattr(fs, k)) for k in ("n_xfer_fail", "n_xfer_retry", "n_xfer_exhaust",
+                                               "n_lost_replicas")}
+    inv = T.catalog_invariants(res.replicas)
+    print(f"[xfaults] rounds={res.rounds} makespan={float(res.makespan)!r} rounds/s="
+          f"{res.rounds / wall:.2f} launches={json.dumps(launches)} "
+          f"({launches['segment_sum'] / res.rounds:.2f} segment sums a round); ledger "
+          f"{json.dumps(led)}; {json.dumps(counts)}; loss events applied "
+          f"{int(fs.loss_done.sum())}; invariants {json.dumps(inv)}")
+    if prof:
+        print(f"[xfaults] {prof['kernels'] / XFAULT_PROFILE_ROUNDS:.1f} kernels a round over "
+              f"{XFAULT_PROFILE_ROUNDS} profiled rounds")
+    check(launches["assign"] == rounds_with_work > 0, "assign launches != rounds with work")
+    check(counts["n_xfer_fail"] > 0, "no transfer failed")
+    check(counts["n_lost_replicas"] > 0, "no replica was lost")
+    check(all(inv.values()), f"catalog invariants broken: {inv}")
+    check_invariants(res, "xfaults")
+    launches["rounds"] = res.rounds
+    return launches
+
+
+def faults_blackhole(dev, fused: bool, max_rounds: int):
+    """``bench_faults.py:42-63``'s blackhole-site scenario at S = 50:
+    ``flaky_grid(50, n_flaky=1)`` of 8-core sites, ``XFAULT_J`` one-core
+    jobs arriving over 2000 s, ``least_loaded`` with capacity dispatch (or
+    the fused kernel at ``topk=8``, its index rebuilt every
+    ``XFAULT_REFRESH`` rounds), resubmission backoff and the breaker
+    (``bench_faults.py:119-120``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.kernels.assign import make_capacity_assign, make_fused_capacity_assign
+
+    sites, _ = T.flaky_grid(XDATA_S, n_flaky=1, seed=12, cores_range=(8, 8),
+                            speed_range=(10.0, 10.0), device=dev)
+    rng = np.random.default_rng(7)
+    jobs = T.synthetic_panda_jobs(XFAULT_J, seed=7, capacity=XFAULT_J + 3, device=dev)
+    jobs = jobs._replace(
+        arrival=torch.as_tensor(np.pad(np.sort(rng.uniform(0.0, 2000.0, XFAULT_J)), (0, 3),
+                                       constant_values=np.inf), dtype=torch.float32, device=dev),
+        work=torch.as_tensor(np.pad(rng.lognormal(np.log(800.0), 0.6, XFAULT_J), (0, 3)),
+                             dtype=torch.float32, device=dev),
+        cores=torch.ones((jobs.capacity,), dtype=torch.int32, device=dev),
+        memory=torch.full((jobs.capacity,), 2.0, device=dev),
+    )
+    base = T.get_policy("least_loaded")
+    policy = (T.with_fused_assign(base, make_fused_capacity_assign(jobs.cores)) if fused
+              else T.with_capacity_assign(base, make_capacity_assign(jobs.cores)))
+    faults = T.make_faults(XDATA_S, jobs, job_backoff=120.0, blacklist_threshold=0.6,
+                           blacklist_alpha=0.5, blacklist_cooldown=600.0, device=dev)
+    sparse = dict(topk=8, topk_refresh=XFAULT_REFRESH) if fused else {}
+    return T.simulate(jobs, sites, policy, T.PRNGKey(1), faults=faults, max_retries=6,
+                      max_rounds=max_rounds, log_rows=max_rounds, device=dev, **sparse)
+
+
+def matrix_faults(jobs, rep, dev):
+    """The golden matrix's fault state (``tests/test_golden_trace.py``) at
+    S = 50, its three loss events replaced by a calendar over the catalog."""
+    from repro_torch import core as T
+
+    return T.make_faults(XDATA_S, jobs, link_fail_p=0.3, xfer_backoff=120.0,
+                         max_xfer_attempts=3, job_backoff=60.0, walltime=4000.0,
+                         replica_loss=T.replica_loss_calendar(rep, XDATA_S, horizon=20000.0,
+                                                              rate=1 / 2000.0, seed=5),
+                         blacklist_threshold=0.5, blacklist_alpha=0.5,
+                         blacklist_cooldown=1800.0, device=dev)
+
+
+def phase_faults_card_vs_cpu(device, max_rounds: int) -> dict:
+    """Phase 15: card against CPU at S = 50, cut to ``max_rounds`` rounds,
+    every round logged: phase 12's workflow run (availability, workflows,
+    data, transfers) with the golden matrix's fault state, and the
+    blackhole-site scenario under dense capacity dispatch and the fused
+    kernel at ``topk=8``.  States, the log, ``fault_rows``, the transition
+    rows and the ML NDJSON must be equal byte for byte."""
+    import io
+
+    import torch
+
+    from repro_torch.core import events as TE
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import fused_cuda as fused_mod
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    runs = {
+        "matrix": lambda dev: data_cross_scenario(dev, "workflows", XFAULT_MATRIX_ROUNDS,
+                                                  faults=matrix_faults),
+        "blackhole dense": lambda dev: faults_blackhole(dev, False, max_rounds),
+        "blackhole fused": lambda dev: faults_blackhole(dev, True, max_rounds),
+    }
+    out = {}
+    for name, build in runs.items():
+        got = {}
+        for dev in (device, torch.device("cpu")):
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1 if dev.type == "cpu" else threads)
+            assign_mod.launches = fused_mod.launches = segsum_mod.launches = 0
+            t0 = time.perf_counter()
+            try:
+                res = build(dev)
+            finally:
+                torch.set_num_threads(threads)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                kernel = "fused_assign" if "fused" in name else "assign"
+                launched = fused_mod.launches if "fused" in name else assign_mod.launches
+                out[kernel] = out.get(kernel, 0) + launched
+                out["segment_sum"] = out.get("segment_sum", 0) + segsum_mod.launches
+                check(launched > 0 and segsum_mod.launches > 0,
+                      f"{name}: the run did not launch {kernel} and the segment sum")
+            wall = time.perf_counter() - t0
+            fs = res.ext["faults"]
+            buf = io.StringIO()
+            TE.write_ml_dataset(res, buf)
+            exports = dict(faults=TE.to_csv(TE.fault_rows(res)), ml=buf.getvalue(),
+                           transitions=TE.to_csv(TE.transition_rows(res)))
+            counts = {k: int(getattr(fs, k)) for k in ("n_kills", "n_xfer_fail",
+                                                       "n_lost_replicas", "n_bl_trips",
+                                                       "n_probes")}
+            extra = ""
+            if "transfers" in res.ext:
+                extra = f" ledger {json.dumps(ledger(res.ext['transfers'], fs))}"
+            print(f"[xfault] {name} {dev.type}: rounds={res.rounds} "
+                  f"makespan={float(res.makespan)!r} {json.dumps(counts)} wall={wall:.2f}s "
+                  f"({res.rounds / wall:.1f} rounds/s);{extra}")
+            check_invariants(res, f"xfault {name} {dev.type}")
+            got[dev.type] = full_snapshot(res), exports, counts
+        bad = mismatches(got["cuda"][0], got["cpu"][0])
+        print(f"[xfault] {name} card vs CPU mismatch counts: {json.dumps(bad)}")
+        check(not bad, f"{name}: the card's run differs from the CPU's")
+        for k, text in got["cuda"][1].items():
+            check(text == got["cpu"][1][k], f"{name}: the card's {k} export differs")
+        counts = got["cpu"][2]
+        check(counts["n_bl_trips"] > 0 if "blackhole" in name else counts["n_xfer_fail"] > 0,
+              f"{name}: the fault channels did not fire: {counts}")
+        print(f"[xfault] {name}: fault CSV, ML NDJSON and transition CSV byte-identical "
+              f"({', '.join(str(len(t)) for t in got['cuda'][1].values())} B)")
+    return out
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1711,11 +2121,13 @@ def main() -> int:
     lap("2")
     rows["flash_attention"] = phase_flash_kernel(device)
     lap("7")
-    launches, plain_rates = phase_full_width(device, FULL_MAX_ROUNDS)
+    launches, plain_rates, plain_prof = phase_full_width(device, FULL_MAX_ROUNDS)
     lap("3")
-    sparse_launches = phase_sparse_full_width(device, FULL_MAX_ROUNDS)
+    fault_launches = phase_faults_full_width(device, FULL_MAX_ROUNDS, plain_rates, plain_prof)
+    lap("13")
+    sparse_launches = phase_sparse_full_width(device, SPARSE_FULL_ROUNDS)
     lap("4")
-    sub_launches = phase_subsystems_full_width(device, FULL_MAX_ROUNDS, plain_rates)
+    sub_launches = phase_subsystems_full_width(device, SUB_FULL_ROUNDS, plain_rates)
     lap("9")
     phase_drain(device, DRAIN_ROUNDS)
     lap("5")
@@ -1724,10 +2136,14 @@ def main() -> int:
     cross_launches = phase_subsystems_card_vs_cpu(device, CROSS_ROUNDS)
     lap("10")
     print(f"[power] {gpu_name_and_power()}")
-    data_launches = phase_data_full_width(device, FULL_MAX_ROUNDS, plain_rates)
+    data_launches = phase_data_full_width(device, DATA_FULL_ROUNDS, plain_rates)
     lap("11")
     xdata_launches = phase_data_card_vs_cpu(device, XDATA_ROUNDS)
     lap("12")
+    xfault_launches = phase_faults_transfers_full_width(device, DATA_TR_ROUNDS)
+    lap("14")
+    s50_fault_launches = phase_faults_card_vs_cpu(device, XFAULT_ROUNDS)
+    lap("15")
     print(f"[power] {gpu_name_and_power()}")
     serve_launches = phase_serve(device)
     lap("8")
@@ -1745,6 +2161,11 @@ def main() -> int:
                 row[f"launches_data_{part}"] = counts[name]
         if name in xdata_launches:
             row["launches_data_s50"] = xdata_launches[name]
+        # the fault paths' own counts (phases 13, 14 and 15)
+        for part, counts in (("full", fault_launches), ("transfers", xfault_launches),
+                             ("s50", s50_fault_launches)):
+            if name in counts:
+                row[f"launches_faults_{part}"] = counts[name]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

@@ -1,12 +1,15 @@
-"""CGSim core on PyTorch: the event-round engine (``engine.simulate``) and its
+"""CGSim core on PyTorch: the event-round engine (``engine.simulate``, and
+``init_sim``/``advance_sim``/``finish_sim`` for segmented runs) and its
 sparse top-k candidate index (``sparse``), the subsystem protocol
-(``subsystems``) with site availability (``availability``) and workflow DAGs
+(``subsystems``) with site availability (``availability``), workflow DAGs
 (``workflows``), data movement (``network``, ``replicas``,
-``datapolicies``) with FTS-style transfer queues (``transfers``), the
-plugin policy system (``policies``), PanDA-shaped
-workloads and calendars (``workload``), platform builders (``platform``),
-metrics, the event-level ML dataset (``events``), monitoring (``monitor``),
-and the numpy bridge (``convert``).
+``datapolicies``) with FTS-style transfer queues (``transfers``) and fault
+injection (``faults``), the plugin policy system (``policies``),
+PanDA-shaped workloads, calendars and fault scenarios (``workload``), the
+JSON input layer and platform builders (``platform``), metrics, the
+event-level ML dataset (``events``), the flight recorder (``telemetry``),
+monitoring (``monitor``, with ``watch``), and the numpy bridge
+(``convert``).
 """
 from .types import (  # noqa: F401
     ASSIGNED,
@@ -30,13 +33,34 @@ from .types import (  # noqa: F401
     pad_jobs_capacity,
 )
 from .engine import (  # noqa: F401
+    SimHandle,
+    advance_sim,
     compute_time,
     default_assign,
     default_assign_cand,
+    finish_sim,
+    init_sim,
     queue_times,
     service_time,
+    sim_active,
     simulate,
     walltimes,
+)
+from .telemetry import (  # noqa: F401
+    CallbackSink,
+    MemorySink,
+    NDJSONSink,
+    NullRecorder,
+    NullSink,
+    Sink,
+    TraceRecorder,
+    iter_ndjson,
+    jsonable,
+    manifest_drift,
+    read_manifest,
+    run_manifest,
+    scenario_hash,
+    write_manifest,
 )
 from .subsystems import (  # noqa: F401
     RoundCtx,
@@ -90,6 +114,15 @@ from .transfers import (  # noqa: F401
     make_transfers,
     transfers_subsystem,
 )
+from .faults import (  # noqa: F401
+    BL_CLOSED,
+    BL_HALF_OPEN,
+    BL_TRIPPED,
+    FaultState,
+    FaultsConfig,
+    faults_subsystem,
+    make_faults,
+)
 from .policies import (  # noqa: F401
     REGISTRY,
     AllocationPlugin,
@@ -116,16 +149,28 @@ from .workflows import (  # noqa: F401
 )
 from .sparse import bytes_per_round, build_candidates, static_feasibility  # noqa: F401
 from .workload import (  # noqa: F401
+    flaky_grid,
     flaky_sites,
+    lossy_links,
     maintenance_calendar,
+    replica_loss_calendar,
     rolling_brownout,
     synthetic_panda_jobs,
 )
-from .platform import atlas_like_platform, load_availability  # noqa: F401
+from .platform import (  # noqa: F401
+    ExecutionParams,
+    atlas_like_platform,
+    deactivate_sites,
+    dump_platform,
+    load_availability,
+    load_faults,
+    load_platform,
+)
 from .metrics import Metrics, compute_metrics, summary_str  # noqa: F401
 from .events import read_ml_trace, recorded_trace, stream_rows, write_ml_dataset  # noqa: F401
 from .convert import (  # noqa: F401
     availability_from_numpy,
+    faults_from_numpy,
     jobs_from_numpy,
     network_from_numpy,
     replicas_from_numpy,
@@ -135,3 +180,4 @@ from .convert import (  # noqa: F401
     workflow_from_numpy,
 )
 from .rng import PRNGKey  # noqa: F401
+from .monitor import watch  # noqa: F401

@@ -2,7 +2,7 @@
 
 ``jobs_from_numpy``/``sites_from_numpy``/``availability_from_numpy``/
 ``workflow_from_numpy``/``network_from_numpy``/``replicas_from_numpy``/
-``transfers_from_numpy`` take a mapping of field name to array (what
+``transfers_from_numpy``/``faults_from_numpy`` take a mapping of field name to array (what
 ``{k: np.asarray(v) for k, v in state._asdict().items()}`` gives for the JAX
 package's state of the same name) and build the port's state on a device;
 ``result_to_numpy`` turns a ``SimResult`` back into nested dicts of numpy
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .availability import AvailabilityState
+from .faults import FaultState
 from .network import NetworkState
 from .replicas import ReplicaState
 from .transfers import TransferState
@@ -60,6 +61,10 @@ def transfers_from_numpy(arrays, device="cuda") -> TransferState:
     return _from_numpy(TransferState, arrays, device)
 
 
+def faults_from_numpy(arrays, device="cuda") -> FaultState:
+    return _from_numpy(FaultState, arrays, device)
+
+
 def to_numpy(value):
     """A tensor on any device as a numpy array; NamedTuple states and dicts
     as dicts of them; any other value through ``np.asarray``."""
@@ -74,8 +79,8 @@ def to_numpy(value):
 
 def result_to_numpy(res: SimResult) -> dict:
     """``{"makespan", "rounds", "jobs": {...}, "sites": {...}, "log": {...}}``,
-    plus ``"avail"``, ``"wf"``, ``"replicas"``, ``"data_state"`` and
-    ``"transfers"`` when those subsystems ran."""
+    plus ``"avail"``, ``"wf"``, ``"replicas"``, ``"data_state"``,
+    ``"transfers"`` and ``"faults"`` when those subsystems ran."""
     out = dict(
         makespan=to_numpy(res.makespan),
         rounds=np.int32(res.rounds),
@@ -88,6 +93,7 @@ def result_to_numpy(res: SimResult) -> dict:
             out[name] = to_numpy(getattr(res, name))
     if res.replicas is not None:
         out["data_state"] = to_numpy(res.data_state)
-    if "transfers" in (res.ext or {}):
-        out["transfers"] = to_numpy(res.ext["transfers"])
+    for name in ("transfers", "faults"):
+        if name in (res.ext or {}):
+            out[name] = to_numpy(res.ext[name])
     return out

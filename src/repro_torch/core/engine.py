@@ -22,12 +22,18 @@ fires at that instant as masked dense updates:
 
 Engine extensions are ``Subsystem`` hook bundles (``subsystems.py``) called at
 the JAX engine's points of the round; a run without one runs none of its code.
+``init_sim``/``advance_sim``/``finish_sim`` run the same loop in segments
+(``simulate`` is one segment with its horizon), so a driver such as
+``monitor.watch`` can take frames between them.
 
 The results equal the JAX package's bit for bit: the same key stream
 (``rng``), the same float orders (``scan``), and sorts whose keys are a strict
 total order, so any correct sort yields the one permutation.
 """
 from __future__ import annotations
+
+import time
+from typing import NamedTuple
 
 import torch
 
@@ -274,7 +280,9 @@ def _round_fns(
     filter_hooks, completion_hooks = hooks("completion_filter"), hooks("on_completions")
     assign_hooks, start_hooks, log_hooks = hooks("pre_assign"), hooks("on_start"), hooks("log_columns")
 
-    def cond(st: EngineState, horizon) -> bool:
+    def cond(st: EngineState, horizon: float) -> bool:
+        """Would the loop run another round?  ``horizon`` is compared in
+        float32 (``_f32``), as the JAX package compares it."""
         if st.round >= max_rounds:
             return False
         state = st.jobs.state
@@ -615,6 +623,7 @@ def simulate(
     phase_skip: bool = True,
     topk: int | None = None,
     topk_refresh: int = 0,
+    recorder=None,
     device="cuda",
 ) -> SimResult:
     """Run the grid simulation to completion (or ``max_rounds``/``horizon``).
@@ -658,14 +667,110 @@ def simulate(
       those WAN reads in per-link FIFO rings with an active-transfer cap:
       a staging job waits, RUNNING with ``t_finish = inf``, until its
       transfer lands.
+    - ``faults=`` (a ``FaultState`` from ``make_faults``) adds fault
+      injection and recovery: per-link transfer failures with
+      exponential-backoff re-enqueue, resubmission backoff, walltime kills,
+      a replica-loss calendar and a per-site circuit breaker.  The default
+      state changes no result.
     - ``subsystems=((Subsystem, state0), ...)`` appends custom subsystems
       after the built-ins.
 
-    ``faults=`` raises ``NotImplementedError``: that subsystem is not ported
-    yet (ROADMAP Queue 1 item 9).  ``SimResult.replicas`` and
-    ``SimResult.data_state`` hold the data subsystem's final catalog and
-    policy state.
+    ``SimResult.replicas`` and ``SimResult.data_state`` hold the data
+    subsystem's final catalog and policy state.
+
+    ``recorder`` (a ``telemetry.TraceRecorder``) times the call.  The port
+    traces and compiles nothing per call, so the JAX package's spans mean
+    here: ``dispatch``, the host's round loop (every launch and the
+    device-to-host reads of each round; the first run in a process also
+    builds or loads the CUDA kernels inside it); ``execute``, the device
+    work still queued when the loop returns, up to
+    ``torch.cuda.synchronize(device)`` (nothing to wait for on the CPU);
+    ``trace_compile`` is never recorded and the note ``jit_cache_hit`` is
+    always True.  It also records the rounds executed, the round budget,
+    the early-exit rounds, the job and site counts and the subsystems.
+    ``None`` (the default) adds no host sync; the results are the same
+    either way.
     """
+    handle = init_sim(
+        jobs0, sites0, policy, rng, availability=availability, workflow=workflow,
+        subsystems=subsystems, data_policy=data_policy, network=network, replicas=replicas,
+        transfers=transfers, faults=faults, max_rounds=max_rounds, log_rows=log_rows,
+        max_retries=max_retries, monitor_every=monitor_every, quantum=quantum,
+        phase_skip=phase_skip, topk=topk, topk_refresh=topk_refresh, device=device,
+    )
+    if recorder is None:
+        return finish_sim(advance_sim(handle, horizon))
+    t0 = time.perf_counter()
+    handle = advance_sim(handle, horizon)
+    recorder.record("dispatch", time.perf_counter() - t0)
+    with recorder.span("execute"):
+        res = finish_sim(handle)
+        if res.makespan.is_cuda:
+            torch.cuda.synchronize(res.makespan.device)
+    rounds = int(res.rounds)
+    recorder.gauge("rounds_executed", rounds)
+    recorder.gauge("round_budget", max_rounds)
+    recorder.gauge("early_exit_rounds", max(max_rounds - rounds, 0))
+    recorder.gauge("n_jobs", int(jobs0.valid.sum()))
+    recorder.gauge("n_sites", sites0.capacity)
+    recorder.note("jit_cache_hit", True)
+    recorder.note("subsystems", [s.name for s in handle.subsystems])
+    return res
+
+
+# --------------------------------------------------------------------------
+# segmented execution: pause and resume the round loop between frames
+# --------------------------------------------------------------------------
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32 (inf stays inf)."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+class SimHandle(NamedTuple):
+    """A paused simulation: the round loop's state and what it needs to
+    resume.  ``init_sim`` makes one, ``advance_sim`` runs it on,
+    ``finish_sim`` ends it; ``monitor.watch`` takes frames between
+    segments."""
+
+    state: EngineState
+    policy: object
+    subsystems: tuple
+    statics: tuple  # (max_rounds, log_rows, max_retries, monitor_every, quantum,
+    #                  phase_skip, topk, topk_refresh)
+
+    @property
+    def max_rounds(self) -> int:
+        return self.statics[0]
+
+
+def init_sim(
+    jobs0: JobsState,
+    sites0: SiteState,
+    policy,
+    rng: torch.Tensor,
+    *,
+    availability=None,
+    workflow=None,
+    subsystems=(),
+    data_policy=None,
+    network=None,
+    replicas=None,
+    transfers=None,
+    faults=None,
+    max_rounds: int = 100_000,
+    log_rows: int = 0,
+    max_retries: int = 3,
+    monitor_every: int = 1,
+    quantum: float = 0.0,
+    phase_skip: bool = True,
+    topk: int | None = None,
+    topk_refresh: int = 0,
+    device="cuda",
+) -> SimHandle:
+    """A resumable simulation: ``simulate``'s arguments less ``horizon``,
+    which ``advance_sim`` takes a segment at a time."""
     device = resolve_device(device)
     _check_device(jobs0, device, "jobs0")
     _check_device(sites0, device, "sites0")
@@ -679,9 +784,23 @@ def simulate(
     if topk is not None:
         topk = min(int(topk), sites0.capacity)  # k >= S is exactly dense
     st = _init_state(jobs0, sites0, policy, rng.to(device), ext0, subs, log_rows, topk)
+    statics = (max_rounds, log_rows, max_retries, monitor_every, quantum, phase_skip,
+               topk, topk_refresh)
+    return SimHandle(state=st, policy=policy, subsystems=subs, statics=statics)
+
+
+def advance_sim(handle: SimHandle, horizon: float = float("inf")) -> SimHandle:
+    """Run rounds until the clock passes ``horizon`` (in float32) or the run
+    drains.
+
+    The loop checks the clock before each round, so resuming with a larger
+    horizon continues the round sequence one ``simulate`` call would run:
+    segmenting changes where the loop pauses, never what it computes."""
+    (max_rounds, log_rows, max_retries, monitor_every, quantum, phase_skip,
+     topk, topk_refresh) = handle.statics
     cond, body = _round_fns(
-        policy,
-        subs,
+        handle.policy,
+        tuple(handle.subsystems),
         max_rounds=max_rounds,
         log_rows=log_rows,
         max_retries=max_retries,
@@ -691,9 +810,26 @@ def simulate(
         topk=topk,
         topk_refresh=topk_refresh,
     )
+    horizon = _f32(horizon)
+    st = handle.state
     while cond(st, horizon):
         st = body(st)
-    return _finalize(st, policy, subs)
+    return handle._replace(state=st)
+
+
+def sim_active(handle: SimHandle) -> bool:
+    """On the host: would the round loop still run, given an open horizon?"""
+    st = handle.state
+    if bool(st.halted) or int(st.round) >= handle.max_rounds:
+        return False
+    state = st.jobs.state
+    active = (state == PENDING) | (state == QUEUED) | (state == ASSIGNED) | (state == RUNNING)
+    return bool((active & st.jobs.valid).any())
+
+
+def finish_sim(handle: SimHandle) -> SimResult:
+    """Run the end-of-run hooks on a drained or abandoned handle."""
+    return _finalize(handle.state, handle.policy, tuple(handle.subsystems))
 
 
 def walltimes(result: SimResult) -> torch.Tensor:

@@ -7,11 +7,10 @@ a result to the host once (``state_to_np``) and expands it into
 Table-1-style rows and ML feature matrices in numpy, with the JAX package's
 code, so both packages export the same bytes from the same run.
 
-``transfer_rows`` gives a row per stage-in of the data subsystem, and
-``ml_dataset`` gains the transfer-queue columns when the transfer queues
-ran.  The port has no faults subsystem yet (ROADMAP Queue 1 item 9):
-``fault_rows`` gives what the JAX package gives for runs without one, and
-``ml_dataset`` has no fault columns.
+``transfer_rows`` gives a row per stage-in of the data subsystem and
+``fault_rows`` a row per site of the faults subsystem; ``ml_dataset`` gains
+the transfer-queue columns when the transfer queues ran and the fault
+columns when the faults subsystem ran.
 """
 from __future__ import annotations
 
@@ -242,11 +241,38 @@ def availability_rows(result: SimResult, site_names=None) -> list[dict]:
     return rows
 
 
+_BL_NAMES = {0: "closed", 1: "tripped", 2: "half-open"}
+
+
 def fault_rows(result: SimResult, site_names=None) -> list[dict]:
-    """One row per site from the faults subsystem.  The port has none yet
-    (ROADMAP Queue 1 item 9), so a run produces no rows, as a JAX-package
-    run without ``faults=`` does."""
-    return []
+    """One row per site from the faults subsystem: the final EWMA failure
+    score, the circuit breaker's state and the replica-loss events that hit
+    the site, with the run-level fault counters repeated on each row (like
+    ``availability_rows``' ``n_preempted``).  A run without ``faults=``
+    produces no rows."""
+    fs = (getattr(result, "ext", None) or {}).get("faults")
+    if fs is None:
+        return []
+    score = to_numpy(fs.score)
+    bl = to_numpy(fs.bl_state)
+    loss_s = to_numpy(fs.loss_s)
+    loss_done = to_numpy(fs.loss_done)
+    name = lambda s: (site_names[s] if site_names else f"site{s}")
+    rows = []
+    for s in range(score.shape[-1]):
+        rows.append(
+            dict(
+                site=name(s),
+                fault_score=round(float(score[s]), 4),
+                blacklist=_BL_NAMES.get(int(bl[s]), "?"),
+                loss_events=int(((loss_s == s) & loss_done).sum()),
+                n_kills=int(fs.n_kills),
+                n_xfer_fail=int(fs.n_xfer_fail),
+                n_bl_trips=int(fs.n_bl_trips),
+                time_lost=round(float(fs.time_lost), 3),
+            )
+        )
+    return rows
 
 
 def to_csv(rows: list[dict]) -> str:
@@ -289,6 +315,13 @@ def _ml_context(result: SimResult) -> dict:
         # the exports of other runs keep their bytes
         ctx["net_bw"] = to_numpy(ext["data"].network.bw).astype(np.float64)
         names = names + ["xfer_queue_wait", "xfer_queue_depth", "src_link_log_bw"]
+    ctx["faults_bw"] = None
+    if "faults" in ext:
+        # fault features: the job's cumulative backoff wait and retries, and
+        # its final site's EWMA failure score
+        ctx["faults_bw"] = to_numpy(ext["faults"].backoff_wait).astype(np.float64)
+        ctx["fault_score"] = to_numpy(ext["faults"].score).astype(np.float64)
+        names = names + ["fault_backoff_wait", "fault_retries", "site_fault_score"]
     ctx["names"] = names
     return ctx
 
@@ -347,6 +380,16 @@ def _ml_block(ctx: dict, sl: slice = slice(None)) -> dict[str, np.ndarray]:
                 jobs["xfer_wait"],
                 jobs["xfer_qdepth"].astype(np.float64),
                 np.where(src >= 0, np.log1p(ctx["net_bw"][src_c, sid]), 0.0),
+            ],
+            axis=-1,
+        )[done]
+        feats = np.concatenate([feats, extra], axis=-1)
+    if ctx["faults_bw"] is not None:
+        extra = np.stack(
+            [
+                ctx["faults_bw"][sl],
+                jobs["retries"].astype(np.float64),
+                ctx["fault_score"][sid],
             ],
             axis=-1,
         )[done]

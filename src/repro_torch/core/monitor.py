@@ -2,9 +2,13 @@
 ring rendered as ANSI dashboard frames, JSON frame streams any dashboard can
 consume, and per-site timelines, from a finished ``SimResult``.
 
-The live forms (``watch``, ``state_frame``, ``follow_stream`` and the
-command line) need the segmented engine API and telemetry, which the port
-does not have yet (ROADMAP Queue 1 item 11).
+``watch`` monitors a run while it goes: it splits the run into time
+segments (``engine.init_sim``/``advance_sim``) and takes a host-side frame
+(``state_frame``) between them, so the round loop does no monitoring work
+and the result equals one ``simulate`` call bit for bit.  Frames stream to
+any ``telemetry.Sink``; ``follow_stream`` renders such a stream, and
+``python -m repro_torch.monitor --follow run.ndjson`` tails one live from
+another process.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import numpy as np
 
 from .convert import to_numpy
 from .events import log_frames
-from .types import STATE_NAMES, SimResult
+from .types import ASSIGNED, RUNNING, STATE_NAMES, SimResult
 
 BAR = " ▁▂▃▄▅▆▇█"
 
@@ -66,6 +70,151 @@ def render_frame(
             line += f"  disk|{bar}| {disk[s] / 1e12:>6.2f}TB  net_in={net_in[s] / 1e9:>7.2f}GB"
         lines.append(line)
     return "\n".join(lines)
+
+
+def state_frame(handle) -> dict:
+    """A dashboard frame of a paused ``SimHandle``, taken on the host
+    between segments (never inside the round loop); the shape
+    ``render_frame`` reads."""
+    st = handle.state
+    state = to_numpy(st.jobs.state)
+    valid = to_numpy(st.jobs.valid)
+    site = to_numpy(st.jobs.site)
+    S = st.sites.capacity
+    counts = {name: int(((state == s) & valid).sum()) for s, name in enumerate(STATE_NAMES)}
+
+    def per_site(kind):
+        m = (state == kind) & valid & (site >= 0)
+        return np.bincount(site[m], minlength=S)[:S].tolist()
+
+    return dict(
+        round=int(st.round),
+        time=float(st.clock),
+        counts=counts,
+        site_free=to_numpy(st.sites.free_cores).tolist(),
+        site_queued=per_site(ASSIGNED),
+        site_running=per_site(RUNNING),
+    )
+
+
+def watch(
+    jobs0,
+    sites0,
+    policy,
+    rng,
+    *,
+    frames: int = 24,
+    horizon: float | None = None,
+    segment: float | None = None,
+    sink=None,
+    site_names=None,
+    render: bool = True,
+    out=sys.stdout,
+    recorder=None,
+    max_segments: int = 10_000,
+    **kw,
+) -> SimResult:
+    """Run a simulation while watching it.
+
+    Splits the run into time segments (``segment`` seconds each, or
+    ``horizon / frames``; without a horizon the width comes from the arrival
+    span) and resumes the round loop between them.  The loop checks its
+    horizon before each round, so every segment continues the round
+    sequence of one ``simulate`` call and the result is the same bit for bit.
+
+    After each segment a frame goes to ``sink`` (any ``telemetry.Sink``; an
+    ``NDJSONSink`` makes the run tailable with ``python -m
+    repro_torch.monitor --follow run.ndjson``) and, with ``render``, to
+    ``out``.  The stream starts with a ``run_meta`` record (the sites' cores
+    and names, what a renderer needs) and ends with an ``end`` record.  A
+    ``telemetry.TraceRecorder`` times the segments; the other ``**kw``
+    (``log_rows``, subsystems, ``device``, ...) go to the engine.
+    """
+    from .engine import advance_sim, finish_sim, init_sim, sim_active
+    from .telemetry import maybe
+
+    rec = maybe(recorder)
+    with rec.span("watch_init"):
+        handle = init_sim(jobs0, sites0, policy, rng, **kw)
+    hz = None if horizon is None or not np.isfinite(horizon) else float(horizon)
+    if segment is not None:
+        dt = float(segment)
+    elif hz is not None:
+        dt = hz / max(frames, 1)
+    else:
+        arr = to_numpy(jobs0.arrival).astype(np.float64)
+        fin = arr[np.isfinite(arr) & to_numpy(jobs0.valid)]
+        est = 2.0 * float(fin.max()) if fin.size and fin.max() > 0 else float(frames)
+        dt = est / max(frames, 1)
+    dt = max(dt, 1e-9)
+
+    cores = to_numpy(sites0.cores)
+    if sink is not None:
+        sink.emit(dict(type="run_meta", n_sites=sites0.capacity, sites_cores=cores.tolist(),
+                       site_names=list(site_names) if site_names else None, horizon=hz))
+    n_seg = 0
+    t_edge = 0.0
+    while sim_active(handle) and n_seg < max_segments:
+        t_edge += dt
+        at_end = hz is not None and t_edge >= hz
+        with rec.span("watch_segment"):
+            handle = advance_sim(handle, hz if at_end else t_edge)
+        frame = state_frame(handle)
+        if sink is not None:
+            sink.emit({"type": "frame", **frame})
+        if render:
+            out.write(render_frame(frame, cores, site_names) + "\n\n")
+        n_seg += 1
+        if at_end:
+            break
+    if hz is None and sim_active(handle):
+        # the segment budget ran out on an open-horizon run: drain to the end
+        with rec.span("watch_segment"):
+            handle = advance_sim(handle)
+    with rec.span("watch_finalize"):
+        res = finish_sim(handle)
+    rec.gauge("watch_segments", n_seg)
+    rec.gauge("rounds_executed", int(res.rounds))
+    if sink is not None:
+        sink.emit(dict(type="end", rounds=int(res.rounds), makespan=float(res.makespan),
+                       segments=n_seg))
+    return res
+
+
+def follow_stream(
+    source,
+    *,
+    follow: bool = False,
+    every: int = 1,
+    clear: bool = True,
+    out=sys.stdout,
+    poll_s: float = 0.2,
+    timeout_s: float | None = None,
+) -> int:
+    """Render an NDJSON frame stream (as ``watch`` writes it) to a terminal;
+    ``follow=True`` tails a file another process is still writing.  Returns
+    the number of frames rendered."""
+    from .telemetry import iter_ndjson
+
+    cores = None
+    names = None
+    shown = i = 0
+    for rec in iter_ndjson(source, follow=follow, poll_s=poll_s, timeout_s=timeout_s):
+        t = rec.get("type")
+        if t == "run_meta":
+            cores = np.asarray(rec["sites_cores"])
+            names = rec.get("site_names")
+        elif t == "frame":
+            if i % every == 0 and cores is not None:
+                if clear:
+                    out.write("\x1b[2J\x1b[H")
+                out.write(render_frame(rec, cores, names) + "\n\n")
+                shown += 1
+            i += 1
+        elif t == "end":
+            out.write(f"end: rounds={rec.get('rounds')} makespan={rec.get('makespan')}\n")
+            break
+    return shown
 
 
 def render_run(result: SimResult, site_names=None, every: int = 1, out=sys.stdout) -> None:

@@ -25,9 +25,8 @@ results.  The protocol is the JAX package's, hook for hook:
   capacity padding (host)    | pad_jobs(sub, state0, old_J, new_J) -> state0
 
 Hooks fire in subsystem-tuple order within each phase; the built-ins come
-first in the JAX package's order (availability, workflow, data, transfers),
-then explicit ``subsystems=`` pairs in caller order.  The faults subsystem
-is not ported yet (ROADMAP Queue 1 item 9): asking for it raises.
+first in the JAX package's order (availability, workflow, data, transfers,
+faults), then explicit ``subsystems=`` pairs in caller order.
 """
 from __future__ import annotations
 
@@ -150,19 +149,15 @@ def resolve_subsystems(
 ):
     """Normalize the engine's keyword API into ``(tuple of Subsystem, ext0
     dict)``: ``availability=``, ``workflow=``, ``data_policy=`` (with
-    ``network=`` and ``replicas=``) and ``transfers=`` map onto the built-in
-    subsystems in that order, followed by explicit ``subsystems=((Subsystem,
-    state0), ...)`` pairs in caller order.  The ``validate`` hooks run here.
+    ``network=`` and ``replicas=``), ``transfers=`` and ``faults=`` map onto
+    the built-in subsystems in that order, followed by explicit
+    ``subsystems=((Subsystem, state0), ...)`` pairs in caller order.  The
+    ``validate`` hooks run here, and the faults subsystem's channel flags
+    are read from its state on the host.
 
     ``data_policy=`` needs both ``network=`` and ``replicas=``, and
     ``transfers=`` needs the data subsystem (it owns the WAN matrices and the
-    catalog): both raise ``ValueError`` otherwise, as in the JAX package.
-    ``faults=`` raises ``NotImplementedError``: that subsystem is not ported
-    yet, and a run must not quietly leave it out."""
-    if faults is not None:
-        raise NotImplementedError(
-            "faults= needs a subsystem the port does not have yet: ROADMAP Queue 1 "
-            "item 9 (faults)")
+    catalog): both raise ``ValueError`` otherwise, as in the JAX package."""
     pairs: list[tuple[Subsystem, Any]] = []
     if availability is not None:
         from .availability import availability_subsystem
@@ -186,6 +181,10 @@ def resolve_subsystems(
         from .transfers import transfers_subsystem
 
         pairs.append((transfers_subsystem(), transfers))
+    if faults is not None:
+        from .faults import faults_subsystem
+
+        pairs.append((faults_subsystem(faults), faults))
     for entry in subsystems:
         if isinstance(entry, Subsystem):
             raise TypeError(

@@ -301,11 +301,20 @@ def _tr_on_completions(sub, ctx):
 
     # a staging job that availability moved out of RUNNING in this same hook
     # phase (availability runs first) abandons its transfer; its ring entry
-    # becomes a tombstone.  (The JAX package's fault channel, which may fail
-    # a would-complete flow here, is not ported: faults= raises.)
+    # becomes a tombstone
     staging = jobs.state == RUNNING
     fin = act & (ts.t_done <= ctx.clock) & staging
     cancel = (ts.stat > T_IDLE) & ~staging
+
+    # fault injection (only with the faults subsystem): a would-complete
+    # flow may fail with its link's probability before release; failed rows
+    # clear like cancels but count on the fault ledger
+    # (n_enq == n_done + n_cancel + faults.n_xfer_fail + in flight)
+    xfail = None
+    if "faults" in ctx.ext:
+        from .faults import inject_transfer_failures
+
+        fin, xfail, jobs = inject_transfer_failures(ctx, ts, fin, jobs)
 
     # release: price the post-staging remainder into t_finish.  The engine's
     # partial-failure fraction was consumed by the staging gate's inf, so a
@@ -320,12 +329,15 @@ def _tr_on_completions(sub, ctx):
     # deferred landing: the replica and the WAN counters at the destination
     ctx.ext["data"] = land_deferred(dext, ctx.jobs, fin, ts.cache, ctx.clock, S)
 
+    freed = fin | (cancel & act)
     clear = fin | cancel
+    if xfail is not None:
+        freed, clear = freed | xfail, clear | xfail
     ts = ts._replace(
         stat=torch.where(clear, T_IDLE, ts.stat),
         rem=torch.where(clear, 0.0, rem),
         t_done=torch.where(clear, INF, ts.t_done),
-        active=ts.active - _link_count(fin | (cancel & act), lc, L),
+        active=ts.active - _link_count(freed, lc, L),
         n_done=ts.n_done + fin.sum().int(),
         n_cancel=ts.n_cancel + cancel.sum().int(),
         bytes_done=ts.bytes_done + sum_f32(torch.where(fin, jobs.xfer_bytes, 0.0), 0),

@@ -1,14 +1,16 @@
-"""PanDA-shaped synthetic workloads and availability scenario calendars.
+"""PanDA-shaped synthetic workloads, availability calendars and fault scenarios.
 
 The same generators as the JAX package's ``workload`` module
 (``synthetic_panda_jobs``, ``maintenance_calendar``, ``flaky_sites``,
-``rolling_brownout``): numpy's ``default_rng`` draws every column and
-window on the host, so a seed gives the same jobs and windows bit for bit
-in both packages.
+``rolling_brownout``, ``lossy_links``, ``replica_loss_calendar``,
+``flaky_grid``): numpy's ``default_rng`` draws every column, window and
+event on the host, so a seed gives the same scenario bit for bit in both
+packages.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .types import JobsState, make_jobs
 
@@ -171,3 +173,93 @@ def rolling_brownout(
         for i, s in enumerate(chosen)
     ]
     return make_availability(n_sites, windows, device=device)
+
+
+# --------------------------------------------------------------------------
+# fault-injection scenario builders
+# --------------------------------------------------------------------------
+
+
+def lossy_links(
+    n_sites: int,
+    *,
+    p: float = 0.05,
+    hot=None,
+    hot_p: float = 0.3,
+    seed: int = 0,
+) -> np.ndarray:
+    """Per-link transfer-failure probabilities for ``make_faults(link_fail_p=)``
+    (numpy ``[S, S]``).
+
+    Every WAN link (``src != dst``) fails with probability ``p``; links
+    touching a ``hot`` site (an index list, or an int count of sites sampled
+    with ``seed``) fail with ``hot_p``: a degraded storage endpoint that
+    times out most third-party copies.  Local links never fail.
+    """
+    mat = np.full((n_sites, n_sites), float(p), np.float32)
+    if hot is not None:
+        if np.ndim(hot) == 0:
+            rng = np.random.default_rng(seed)
+            hot = rng.choice(n_sites, size=int(hot), replace=False)
+        for s in np.asarray(hot, np.int64).ravel():
+            mat[s, :] = hot_p
+            mat[:, s] = hot_p
+    np.fill_diagonal(mat, 0.0)
+    return mat
+
+
+def replica_loss_calendar(
+    n_datasets,
+    n_sites: int,
+    *,
+    horizon: float,
+    rate: float = 1.0 / (24 * 3600.0),
+    seed: int = 0,
+    sites=None,
+) -> list[tuple[float, int, int]]:
+    """Sampled ``(t, dataset, site)`` loss events for ``make_faults(replica_loss=)``.
+
+    Each candidate site loses a uniformly chosen dataset replica as a Poisson
+    process of ``rate`` events a second: disk crashes and storage-element
+    corruptions that send readers back to the origin over the WAN.
+    ``n_datasets`` also takes a ``ReplicaState``.  Origin copies are immune
+    when an event applies, so sampling the origin site is harmless.
+    """
+    sz = getattr(n_datasets, "size", None)
+    D = sz.shape[-1] if getattr(sz, "ndim", 0) else int(n_datasets)
+    rng = np.random.default_rng(seed)
+    chosen = range(n_sites) if sites is None else sites
+    events = []
+    for s in chosen:
+        t = float(rng.exponential(1.0 / rate))
+        while t < horizon:
+            events.append((t, int(rng.integers(0, D)), int(s)))
+            t += float(rng.exponential(1.0 / rate))
+    events.sort()
+    return events
+
+
+def flaky_grid(
+    n_sites: int,
+    *,
+    n_flaky: int = 1,
+    flaky_fail_rate: float = 0.9,
+    base_fail_rate: float = 0.02,
+    seed: int = 0,
+    device="cuda",
+    **platform_kw,
+):
+    """Flaky-grid platform: an ``atlas_like_platform`` whose ``n_flaky``
+    sites fail almost every job they run (``flaky_fail_rate``) while the rest
+    stay healthy, the scenario where the circuit breaker
+    (``make_faults(blacklist_threshold=)``) pays off.  Returns ``(sites,
+    flaky_idx)``, ``flaky_idx`` a numpy array."""
+    from .platform import atlas_like_platform
+
+    sites = atlas_like_platform(n_sites, seed=seed, fail_rate=base_fail_rate, device=device,
+                                **platform_kw)
+    rng = np.random.default_rng(seed + 1)
+    flaky_idx = np.sort(rng.choice(n_sites, size=int(n_flaky), replace=False))
+    fr = sites.fail_rate.cpu().numpy().copy()
+    fr[flaky_idx] = flaky_fail_rate
+    return sites._replace(fail_rate=torch.as_tensor(fr, device=sites.fail_rate.device)), flaky_idx

@@ -146,6 +146,10 @@ def test_entry_points_default_to_the_gpu():
         lambda: T.chain_workflows(2, 3),
         lambda: T.atlas_mc_workflows(2),
         lambda: T.map_reduce_workflows(2, 2),
+        lambda: T.make_faults(3, 10),
+        lambda: T.flaky_grid(3),
+        lambda: T.load_faults({}, n_sites=3, job_capacity=4),
+        lambda: T.load_platform({"sites": [{"cores": 8}]}),
     ]
     for build in builders:
         with pytest.raises(RuntimeError, match="cuda"):
@@ -157,6 +161,9 @@ def test_entry_points_default_to_the_gpu():
     with pytest.raises(RuntimeError, match="cuda"):
         T.simulate(jobs, sites, T.get_policy("panda_dispatch"), PRNGKey(0),
                    availability=T.make_availability(3, device="cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.init_sim(jobs, sites, T.get_policy("panda_dispatch"), PRNGKey(0),
+                   faults=T.make_faults(3, 10, device="cpu"))
 
 
 def test_builders_match_the_jax_package():

@@ -37,8 +37,13 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
+print(" ".join(names))
 print(len(names))
 """
+
+# modules the port must have (a sample; every module found is imported)
+REQUIRED = ("repro_torch.monitor", "repro_torch.core.faults", "repro_torch.core.telemetry",
+            "repro_torch.core.monitor", "repro_torch.core.engine", "repro_torch.core.platform")
 
 
 def test_port_modules_import_no_jax_and_no_reference():
@@ -47,6 +52,8 @@ def test_port_modules_import_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.split()[-1]) > 30  # every module of the port was imported
+    imported = set(out.stdout.splitlines()[-2].split())
+    assert set(REQUIRED) <= imported, sorted(set(REQUIRED) - imported)
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():

@@ -334,8 +334,6 @@ def test_resolve_subsystems_rules():
     jobs = T.synthetic_panda_jobs(10, seed=0, device="cpu")
     sites = T.atlas_like_platform(3, seed=0, device="cpu")
     pol, key = T.get_policy("panda_dispatch"), PRNGKey(0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.simulate(jobs, sites, pol, key, device="cpu", faults=object())
     # the data subsystem needs both matrices and the catalog; the transfer
     # queues need the data subsystem (the JAX package's rules)
     net = T.uniform_network(3, device="cpu")
@@ -349,14 +347,21 @@ def test_resolve_subsystems_rules():
         with pytest.raises(ValueError, match="transfers= requires the data subsystem"):
             T.simulate(jobs, sites, pol, key, device="cpu",
                        transfers=T.make_transfers(3, 10, device="cpu"), **kw)
-    # the canonical order: availability, workflow, data, transfers, then the
-    # caller's subsystems
-    subs, _ = T.resolve_subsystems(
+    # the canonical order: availability, workflow, data, transfers, faults,
+    # then the caller's subsystems
+    subs, ext = T.resolve_subsystems(
         subsystems=((T.make_subsystem("mine"), ()),),
+        faults=T.make_faults(3, 10, job_backoff=60.0, device="cpu"),
         transfers=T.make_transfers(3, 10, device="cpu"),
         data_policy=data, network=net, replicas=rep, workflow=T.make_workflow(jobs, [])[1],
         availability=T.make_availability(3, device="cpu"), validate=False)
-    assert [s.name for s in subs] == ["availability", "workflow", "data", "transfers", "mine"]
+    assert [s.name for s in subs] == ["availability", "workflow", "data", "transfers", "faults",
+                                      "mine"]
+    assert subs[4].config.mutates_arrival and sorted(ext) == sorted(s.name for s in subs)
+    subs, _ = T.resolve_subsystems(faults=T.make_faults(3, 10, device="cpu"),
+                                   availability=T.make_availability(3, device="cpu"),
+                                   jobs=jobs, sites=sites)
+    assert [s.name for s in subs] == ["availability", "faults"]
     sub = T.make_subsystem("x")
     with pytest.raises(TypeError, match="pairs"):
         T.simulate(jobs, sites, pol, key, device="cpu", subsystems=(sub,))
