@@ -21,7 +21,10 @@ check does not hold:
    at its engine shape two ways, a call between CUDA events (host launch
    work included) and the kernels' device time from ``torch.profiler``,
    with the launches a call (the segment sum on a uniform id mix, on one
-   where 95% of rows carry the padding id, and at 90001 segments);
+   where 95% of rows carry the padding id, and at 90001 segments); and the
+   assignment kernel with a lane axis (one call for K problems) against its
+   plain version and against K unbatched launches at K = 3 and at the
+   ensemble shape [16, 100000, 300], where it is timed;
 3. drive the dense path at WLCG scale: ``simulate`` on 300 sites and 100000
    jobs with ``panda_dispatch`` plus capacity dispatch, twice, with the
    launch counters set to 0 just before the first run; require every round
@@ -127,6 +130,22 @@ check does not hold:
    fused kernel at ``topk=8``; states, the log, ``fault_rows``, the
    transition rows and the ML NDJSON byte for byte.
 
+16. scenario ensembles (run after phase 15): (a) 16 ragged lanes at WLCG
+   scale (lane i: the 300 sites at speed x (0.7 + 0.04 i), 62500 + 2500 i
+   jobs, padded to 100000), ``panda_dispatch`` with capacity dispatch,
+   ENS_ROUNDS rounds through ``simulate_many`` twice, counters set to 0 just
+   before the first run: bit-identical, one assign launch a round with work
+   for all 16 lanes; print lane-rounds/s beside phase 3's solo rounds/s,
+   segment sums a round, kernels a round and the device busy share over
+   PROFILE_ROUNDS profiled rounds, the batched assign call's time and peak
+   memory; then the same lanes in ENS_BUCKETS buckets (equal to the flat
+   run) and lanes 0 and 15 alone through ``simulate`` (each equal to its
+   lane); (b) four lanes of phase 9's configuration, each its own outage
+   seed, ENS_SUB_ROUNDS rounds, lane-rounds/s beside phase 9's rate; (c)
+   four ragged lanes at S=50 (3000 to 5000 jobs in workflows, flaky-site
+   outages), XENS_ROUNDS rounds on the card and on the CPU: every array
+   equal, one lane's transition CSV and ML NDJSON byte for byte.
+
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero without
@@ -152,15 +171,16 @@ PEAK_BF16_OPS_PER_S = 989e12     # H100 SXM, dense bf16 tensor cores
 ENGINE_J, ENGINE_S = 100_000, 300
 ENGINE_K = 16                  # bench_wlcg_scale.py's top-k
 MANY_SEGMENTS = ENGINE_S * ENGINE_S + 1   # the link sums' segments at S=300
-FULL_MAX_ROUNDS = 2000
+FULL_MAX_ROUNDS = 2000         # phase 13's rounds
+DENSE_FULL_ROUNDS = 1000       # depth cut of phase 3
 # rounds in each engine profile: reading the profiler's events back takes
 # ~0.5 ms a kernel on the host, and a round launches 800-2800 kernels
 PROFILE_ROUNDS = 30
-SPARSE_FULL_ROUNDS = 1000      # depth cut of phase 4
+SPARSE_FULL_ROUNDS = 500       # depth cut of phase 4
 SUB_FULL_ROUNDS = 1000         # depth cut of phase 9
-DATA_FULL_ROUNDS = 1000        # depth cut of phase 11(a)
-DRAIN_ROUNDS = 500             # depth cut of phase 5 (the whole drain takes 10103)
-SPARSE_DRAIN_ROUNDS = 500      # depth cut of phase 6
+DATA_FULL_ROUNDS = 500         # depth cut of phase 11(a)
+DRAIN_ROUNDS = 300             # depth cut of phase 5 (the whole drain takes 10103)
+SPARSE_DRAIN_ROUNDS = 300      # depth cut of phase 6
 CROSS_ROUNDS = 600             # depth cut of phase 10
 ASSIGN_CASES = [  # (N, E, k, block_n)
     (ENGINE_J, ENGINE_S, 1, 256),   # the engine shape
@@ -371,6 +391,7 @@ def phase_kernels(device) -> dict:
         max_abs_err=gate_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="bytes", library_ms=None, cuda_ms=call_ms, device_ms=ms,
         kernels_per_call=sum(per_call.values()),
+        lanes=phase_assign_lanes(device),
     )
 
     # the segment sum: bit for bit the CPU's row-order sums on the engine's
@@ -444,6 +465,71 @@ def phase_kernels(device) -> dict:
         many_segments=many,
     )
     return rows
+
+
+def assign_lane_inputs(K, N, E, seed, device):
+    """``assign_inputs`` for K lanes, drawn on the card (1.92 GB of scores
+    at the ensemble shape)."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(seed)
+    scores = torch.randn((K, N, E), generator=g, device=device)
+    scores.masked_fill_(torch.rand((K, N, E), generator=g, device=device) < 0.1, -1e30)
+    sizes = torch.where(torch.rand((K, N), generator=g, device=device) < 0.5, 1.0, 8.0)
+    caps = (2 + 38 * torch.rand((K, E), generator=g, device=device)) * (N / E)
+    return scores, sizes, caps
+
+
+def phase_assign_lanes(device) -> dict:
+    """The assign kernel with a lane axis: one call for K problems, against
+    its plain version (K unbatched plain calls) and against K unbatched
+    launches, at K = 3 and at the ensemble shape [16, 100000, 300], where it
+    is timed."""
+    import torch
+
+    from repro_torch.kernels.assign.assign_cuda import assign_cuda
+    from repro_torch.kernels.assign.ref import assign_ref
+
+    err = 0.0
+    for K, N, E, k, bn in ((3, 777, 64, 3, 100), (3, 5000, 301, 1, 256),
+                           (ENS_K, ENGINE_J, ENGINE_S, 1, 256)):
+        scores, sizes, caps = assign_lane_inputs(K, N, E, K * N + E, device)
+        got = assign_cuda(scores, sizes, caps, k=k, block_n=bn)
+        want = assign_ref(scores, sizes, caps, k=k, block_n=bn)
+        torch.cuda.synchronize()
+        for name, w, g in zip(("idx", "admit", "pos"), (want[0], want[2], want[3]),
+                              (got[0], got[2], got[3])):
+            bad = int((w != g).sum())
+            check(bad == 0, f"assign lanes K={K} {N}x{E} k={k}: {bad} {name} entries differ")
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+        err = max(err, float((got[1] - want[1]).abs().max()))
+        for i in range(K):
+            one = assign_cuda(scores[i], sizes[i], caps[i], k=k, block_n=bn)
+            check(all(torch.equal(a, b[i]) for a, b in zip(one, got)),
+                  f"assign lanes K={K}: lane {i} differs from its unbatched launch")
+        print(f"[kernels] assign K={K} lanes N={N} E={E} k={k} block_n={bn}: idx/admit/pos "
+              f"exact against the plain version and against {K} unbatched launches, gate "
+              f"max_abs_err={err:.3e}, admitted={int(got[2].sum())}")
+    call_ms = cuda_ms(lambda: assign_cuda(scores, sizes, caps, k=1), iters=50)
+    per_call = {}
+    parts = device_ms(lambda: assign_cuda(scores, sizes, caps, k=1), ASSIGN_KERNELS, iters=20,
+                      counts=per_call)
+    ms = sum(parts.values())
+    plain_ms = cuda_ms(lambda: assign_ref(scores, sizes, caps, k=1), iters=2, warmup=1)
+    unbatched_ms = cuda_ms(lambda: [assign_cuda(scores[i], sizes[i], caps[i], k=1)
+                                    for i in range(ENS_K)], iters=20)
+    N, E = ENGINE_J, ENGINE_S
+    bytes_moved = ENS_K * (N * E * 4 + N * 4 + E * 4 + N * (4 + 4 + 1 + 4))
+    bound_ms = max(bytes_moved / PEAK_HBM_BYTES_PER_S,
+                   ENS_K * N * E * 7 / PEAK_FP32_OPS_PER_S) * 1e3
+    print(f"[kernels] assign at the ensemble shape [{ENS_K}, {N}, {E}] k=1: {ms:.4f} ms of "
+          f"device time ({', '.join(f'{k} {v:.4f}' for k, v in parts.items())}; launches a "
+          f"call {json.dumps(per_call)}), {call_ms:.4f} ms a call between CUDA events; "
+          f"{ENS_K} unbatched calls {unbatched_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms (bytes, {bytes_moved} B)")
+    return dict(shape=[ENS_K, N, E], max_abs_err=err, ms=ms, device_ms=ms, cuda_ms=call_ms,
+                unbatched_ms=unbatched_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, kernels_per_call=sum(per_call.values()))
 
 
 def fused_inputs(N, E, K, seed, device, kind: str = "random"):
@@ -1337,6 +1423,7 @@ def phase_subsystems_full_width(device, max_rounds: int, plain_rates) -> dict:
           f"{ml_s:.3f}s on the host")
     profile_rounds(lambda: run(PROFILE_ROUNDS), "subsys-profile", names=ASSIGN_KERNELS)
     launches["rounds"] = res.rounds
+    launches["rate"] = res2.rounds / wall2
     return launches
 
 
@@ -2088,6 +2175,310 @@ def phase_faults_card_vs_cpu(device, max_rounds: int) -> dict:
     return out
 
 
+# phase 16: scenario ensembles (simulate_many) on the lane axis
+ENS_K = 16
+ENS_ROUNDS = 500
+ENS_BUCKETS = 4
+ENS_SUB_K = 4
+ENS_SUB_ROUNDS = 300
+XENS_S, XENS_CHAINS = 50, (750, 1000, 1125, 1250)   # (c): 3000 to 5000 jobs a lane
+XENS_ROUNDS = 300
+
+
+def lane_capacity_assign(stacks):
+    """Capacity dispatch for ensembles whose lanes carry their own job cores:
+    one ``make_capacity_assign`` a stacked job shape (``[K, J]``), picked by
+    the scores' shape, so a bucketed run sizes each bucket's lanes by their
+    own cores."""
+    from repro_torch.kernels.assign import make_capacity_assign
+
+    fns = {tuple(s.jobs.cores.shape): make_capacity_assign(s.jobs.cores) for s in stacks}
+
+    def assign_fn(scores, queued, feasible, sites):
+        return fns[tuple(scores.shape[:-1])](scores, queued, feasible, sites)
+
+    return assign_fn
+
+
+def lane_of(res, i):
+    """Lane ``i`` of an ensemble's result as a solo ``SimResult``."""
+    from repro_torch.core.engine import _tree_map
+
+    out = _tree_map(lambda x: x[i], res)
+    return out._replace(rounds=int(res.rounds[i]),
+                        log=out.log._replace(cursor=int(res.log.cursor[i])))
+
+
+def ensemble_scenarios(device):
+    """Phase 16(a)'s 16 lanes: the WLCG platform with speeds x (0.7 + 0.04 i)
+    and 62500 + 2500 i synthetic PanDA jobs (seed 10 + i), ragged up to
+    100000."""
+    from repro_torch import core as T
+
+    sites = T.atlas_like_platform(ENGINE_S, seed=1, device=device)
+    return [T.Scenario(
+        T.synthetic_panda_jobs(62_500 + 2_500 * i, seed=10 + i, duration=6 * 3600.0,
+                               device=device),
+        sites._replace(speed=sites.speed * (0.7 + 0.04 * i)))
+        for i in range(ENS_K)]
+
+
+def phase_ensemble_full_width(device, max_rounds: int, plain_rates) -> dict:
+    """16 ragged lanes at WLCG scale through one ``simulate_many`` loop,
+    ``panda_dispatch`` with capacity dispatch, twice (counters set to 0 just
+    before the first run); then the same lanes in 4 buckets, then lanes 0
+    and 15 alone."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core.rng import split
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import ops as assign_ops
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    t0 = time.perf_counter()
+    scens = ensemble_scenarios(device)
+    stacked = T.stack_scenarios(scens)
+    sb = T.stack_scenarios(scens, buckets=ENS_BUCKETS)
+    print(f"[ens] {ENS_K} lanes built in {time.perf_counter() - t0:.2f}s: S={ENGINE_S}, "
+          f"J={[s.jobs.capacity for s in scens][:2]}..{scens[-1].jobs.capacity} padded to "
+          f"{stacked.jobs.capacity}; buckets {[s.jobs.capacity for s in sb.buckets]}")
+    shapes = []
+    capacity_assign = lane_capacity_assign([stacked, *sb.buckets])
+
+    def counted_assign(scores, *args):
+        shapes.append(tuple(scores.shape))    # assign runs once per round with work
+        return capacity_assign(scores, *args)
+
+    policy = T.with_capacity_assign(T.get_policy("panda_dispatch"), counted_assign)
+    key = T.PRNGKey(0)
+
+    def run(scn=stacked, rounds=max_rounds):
+        return T.simulate_many(scn, policy, key, max_rounds=rounds, device=device)
+
+    def no_plain_version(*args, **kw):
+        raise SmokeFailure("the ensemble path called assign_ref on the card")
+
+    plain = assign_ops.assign_ref
+    assign_ops.assign_ref = no_plain_version
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        assign_mod.launches = 0
+        segsum_mod.launches = 0
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        launches = {"assign": assign_mod.launches, "segment_sum": segsum_mod.launches}
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        work = list(shapes)
+    finally:
+        assign_ops.assign_ref = plain
+    rounds = res.rounds.tolist()
+    loops = max(rounds)
+    print(f"[ens] rounds per lane {rounds}; rounds_with_work={len(work)} "
+          f"launches={json.dumps(launches)} ({launches['segment_sum'] / loops:.2f} segment sums "
+          f"a round); peak memory {peak_gb:.2f} GB")
+    check(launches["assign"] > 0, "the ensemble never launched the assign kernel")
+    check(launches["assign"] == len(work),
+          f"assign launches {launches['assign']} != rounds with work {len(work)}")
+    check(all(s[0] == ENS_K for s in work),
+          f"the assign kernel was not called once for all {ENS_K} lanes: {set(work)}")
+    check(launches["segment_sum"] > 0, "the ensemble never launched the segment sum")
+    for i in (0, ENS_K - 1):
+        check_invariants(lane_of(res, i), f"ens lane {i}")
+    snap1 = full_snapshot(res)
+
+    timings = []
+    real_assign = assign_ops.assign_cuda
+
+    def timed_assign(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_assign(*args, **kw)
+        end.record()
+        timings.append((start, end))
+        return out
+
+    assign_ops.assign_cuda = timed_assign
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res2 = run()
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    finally:
+        assign_ops.assign_cuda = real_assign
+    bad = mismatches(snap1, full_snapshot(res2))
+    check(not bad, f"two ensemble runs on the card differ: {bad}")
+    call_s = sum(s.elapsed_time(e) for s, e in timings) / 1e3
+    rates = (sum(rounds) / wall1, sum(res2.rounds.tolist()) / wall2)
+    print(f"[ens] second run bit-identical; lane-rounds/s first={rates[0]:.2f} "
+          f"second={rates[1]:.2f} ({loops / wall1:.2f} and {loops / wall2:.2f} rounds/s of the "
+          f"loop) against phase 3's solo rounds/s first={plain_rates[0]:.2f} "
+          f"second={plain_rates[1]:.2f} in this call; the batched assign {len(timings)} calls, "
+          f"{1e3 * call_s / max(len(timings), 1):.4f} ms a call between CUDA events = "
+          f"{100 * call_s / wall2:.2f}% of the run's wall time")
+    prof = profile_rounds(lambda: run(rounds=PROFILE_ROUNDS), "ens-profile", names=ASSIGN_KERNELS)
+    if prof:
+        print(f"[ens] {prof['kernels'] / PROFILE_ROUNDS:.1f} kernels a round of {ENS_K} lanes")
+
+    t0 = time.perf_counter()
+    res_b = run(sb)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    bad = mismatches(snap1, full_snapshot(res_b))
+    check(not bad, f"the bucketed ensemble differs from the flat one: {bad}")
+    print(f"[ens] {ENS_BUCKETS} buckets equal the flat ensemble bit for bit "
+          f"({sum(res_b.rounds.tolist()) / wall_b:.2f} lane-rounds/s); padding "
+          f"{json.dumps(sb.padding_stats()['summary'])}")
+    occ = T.lane_occupancy(res, sb)["summary"]
+    print(f"[ens] lane occupancy {json.dumps(occ)}")
+
+    keys = split(key.to(device), ENS_K)
+    for i in (0, ENS_K - 1):
+        jobs = T.pad_jobs_capacity(scens[i].jobs, stacked.jobs.capacity)
+        solo_policy = T.with_capacity_assign(T.get_policy("panda_dispatch"),
+                                             lane_capacity_assign([T.Scenario(jobs, None)]))
+        t0 = time.perf_counter()
+        solo = T.simulate(jobs, scens[i].sites, solo_policy, keys[i], max_rounds=max_rounds,
+                          device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bad = mismatches(full_snapshot(solo), full_snapshot(lane_of(res, i)))
+        check(not bad, f"ensemble lane {i} differs from its solo run on the card: {bad}")
+        print(f"[ens] lane {i} equals its solo run on the card ({solo.rounds / wall:.2f} "
+              "rounds/s solo)")
+    launches["rounds"] = loops
+    launches["rates"] = rates
+    return launches
+
+
+def ensemble_subsystem_scenarios(device, n_sites, chains, horizon=86400.0):
+    """Phase 9's pipeline, one lane a workload of ``chains[i]`` 4-stage
+    workflows with its own flaky-site outage seed (2 + i); the calendars
+    share their window count."""
+    import numpy as np
+
+    from repro_torch import core as T
+
+    sites = T.atlas_like_platform(n_sites, seed=1, fail_rate=0.02, device=device)
+
+    def outages(i, w=None):
+        return T.flaky_sites(n_sites, np.arange(n_sites), horizon=horizon, mtbf=SUB_MTBF,
+                             mean_down=1800.0, seed=2 + i, max_windows=w, device=device)
+
+    W = max(outages(i).max_windows for i in range(len(chains)))
+    scens = []
+    for i, n in enumerate(chains):
+        scn = T.atlas_mc_workflows(n, seed=i, arrival_span=3600.0, device=device)
+        scens.append(T.Scenario(scn.jobs, sites,
+                                {"availability": outages(i, W), "workflow": scn.workflow}))
+    return scens
+
+
+def phase_ensemble_subsystems_full_width(device, max_rounds: int, sub_rate) -> dict:
+    """Four lanes of phase 9's configuration (300 sites, 25000 workflows,
+    flaky sites at mtbf 30 min, each lane its own outage seed),
+    ``critical_path_first`` with capacity dispatch, the 256-row log."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    t0 = time.perf_counter()
+    subs = (T.availability_subsystem(), T.workflow_subsystem())
+    scens = ensemble_subsystem_scenarios(device, ENGINE_S, [SUB_CHAINS] * ENS_SUB_K)
+    stacked = T.stack_scenarios(scens, subsystems=subs)
+    print(f"[ens-sub] {ENS_SUB_K} lanes built in {time.perf_counter() - t0:.2f}s: "
+          f"J={stacked.jobs.capacity}, W={stacked.ext['availability'].max_windows}")
+    work = [0]
+    capacity_assign = lane_capacity_assign([stacked])
+
+    def counted(*args):
+        work[0] += 1
+        return capacity_assign(*args)
+
+    policy = T.with_capacity_assign(T.get_policy("critical_path_first"), counted)
+    assign_mod.launches = segsum_mod.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = T.simulate_many(stacked, policy, T.PRNGKey(0), subsystems=subs, max_rounds=max_rounds,
+                          log_rows=SUB_LOG_ROWS, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"assign": assign_mod.launches, "segment_sum": segsum_mod.launches}
+    rounds = res.rounds.tolist()
+    n_pre = res.avail.n_preempted.sum(-1).tolist()
+    check(launches["assign"] == work[0] > 0,
+          f"assign launches {launches['assign']} != rounds with work {work[0]}")
+    down = (res.log.extra["site_avail"] < 1).flatten(1).any(-1).tolist()
+    check(any(down), "no outage took a site down in the logged rounds of any lane")
+    for i in range(ENS_SUB_K):
+        check_invariants(lane_of(res, i), f"ens-sub lane {i}")
+    print(f"[ens-sub] rounds per lane {rounds}, a site down in the log per lane {down}, "
+          f"clock {res.makespan.tolist()}, preempted per lane {n_pre}, cancelled "
+          f"{res.wf.n_cancelled.tolist()}; launches={json.dumps(launches)} "
+          f"({launches['segment_sum'] / max(rounds):.2f} segment sums a round); "
+          f"lane-rounds/s={sum(rounds) / wall:.2f} against phase 9's solo rounds/s "
+          f"{sub_rate:.2f} in this call")
+    launches["rounds"] = max(rounds)
+    return launches
+
+
+def phase_ensemble_card_vs_cpu(device, max_rounds: int) -> dict:
+    """Four ragged lanes at S=50 (3000 to 5000 jobs in workflows, flaky-site
+    outages a lane) on the card and on the CPU: every array equal, and one
+    lane's transition rows and ML dataset byte for byte."""
+    import io
+
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import events as TE
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    subs = (T.availability_subsystem(), T.workflow_subsystem())
+
+    def run(dev):
+        scens = ensemble_subsystem_scenarios(dev, XENS_S, XENS_CHAINS)
+        stacked = T.stack_scenarios(scens, subsystems=subs)
+        policy = T.with_capacity_assign(T.get_policy("critical_path_first"),
+                                        lane_capacity_assign([stacked]))
+        t0 = time.perf_counter()
+        res = T.simulate_many(stacked, policy, T.PRNGKey(5), subsystems=subs,
+                              max_rounds=max_rounds, log_rows=max_rounds, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lane = lane_of(res, len(XENS_CHAINS) - 1)
+        buf = io.StringIO()
+        TE.write_ml_dataset(lane, buf)
+        exports = dict(csv=TE.to_csv(TE.transition_rows(lane)), ml=buf.getvalue())
+        print(f"[xens] {dev.type}: rounds {res.rounds.tolist()}, preempted "
+              f"{res.avail.n_preempted.sum(-1).tolist()}, wall={wall:.2f}s")
+        return res, full_snapshot(res), exports
+
+    assign_mod.launches = segsum_mod.launches = 0
+    card, card_snap, card_exp = run(device)
+    out = {"assign": assign_mod.launches, "segment_sum": segsum_mod.launches}
+    check(out["assign"] > 0 and out["segment_sum"] > 0,
+          "the S=50 ensemble did not launch assign and segment_sum")
+    _, cpu_snap, cpu_exp = run(torch.device("cpu"))
+    bad = mismatches(card_snap, cpu_snap)
+    check(not bad, f"the card's S=50 ensemble differs from the CPU's: {bad}")
+    for k in card_exp:
+        check(card_exp[k] == cpu_exp[k], f"the card's lane {k} export differs from the CPU's")
+    check(int(card.avail.n_preempted.sum()) > 0, "no preemption in the S=50 ensemble")
+    print(f"[xens] card = CPU on every array; lane {len(XENS_CHAINS) - 1}'s transition CSV "
+          f"and ML NDJSON byte-identical ({len(card_exp['csv'])} and {len(card_exp['ml'])} B); "
+          f"launches {json.dumps(out)}")
+    return out
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2121,7 +2512,7 @@ def main() -> int:
     lap("2")
     rows["flash_attention"] = phase_flash_kernel(device)
     lap("7")
-    launches, plain_rates, plain_prof = phase_full_width(device, FULL_MAX_ROUNDS)
+    launches, plain_rates, plain_prof = phase_full_width(device, DENSE_FULL_ROUNDS)
     lap("3")
     fault_launches = phase_faults_full_width(device, FULL_MAX_ROUNDS, plain_rates, plain_prof)
     lap("13")
@@ -2144,6 +2535,13 @@ def main() -> int:
     lap("14")
     s50_fault_launches = phase_faults_card_vs_cpu(device, XFAULT_ROUNDS)
     lap("15")
+    ens_launches = phase_ensemble_full_width(device, ENS_ROUNDS, plain_rates)
+    lap("16a")
+    ens_sub_launches = phase_ensemble_subsystems_full_width(device, ENS_SUB_ROUNDS,
+                                                            sub_launches["rate"])
+    lap("16b")
+    xens_launches = phase_ensemble_card_vs_cpu(device, XENS_ROUNDS)
+    lap("16c")
     print(f"[power] {gpu_name_and_power()}")
     serve_launches = phase_serve(device)
     lap("8")
@@ -2166,6 +2564,11 @@ def main() -> int:
                              ("s50", s50_fault_launches)):
             if name in counts:
                 row[f"launches_faults_{part}"] = counts[name]
+        # the ensemble paths' own counts (phase 16): one launch a round for all lanes
+        for part, counts in (("full", ens_launches), ("subsystems", ens_sub_launches),
+                             ("s50", xens_launches)):
+            if name in counts:
+                row[f"launches_ensemble_{part}"] = counts[name]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

@@ -18,7 +18,8 @@ E=300, k=1), the fused candidate-set assignment at the sparse engine shape
 J=100000, S=300 on a uniform id mix and on one where 95% of rows carry the
 padding id, f32 ``[J]`` and i32 ``[J, 3]``.  With ``--rounds N`` it also
 runs N dense and N sparse rounds of the full-width engine scenario with
-each version and reports rounds/s.  It writes its numbers to
+each version and reports rounds/s, and the kernels a round of each over
+PROFILE_ROUNDS profiled rounds.  It writes its numbers to
 ``chiprun_out/compare_kernels.json`` and needs a CUDA device.
 """
 from __future__ import annotations
@@ -157,8 +158,9 @@ def time_segsum(v: dict, label: str, device, out: dict) -> None:
 
 def engine_rates(v: dict, label: str, rounds: int, device, out: dict) -> None:
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import ENGINE_J, ENGINE_K, ENGINE_S
+    from chip_smoke import ENGINE_J, ENGINE_K, ENGINE_S, PROFILE_ROUNDS
 
     T, A = v["core"], v["kernels_assign"]
     sites = T.atlas_like_platform(ENGINE_S, seed=1, device=device)
@@ -176,9 +178,17 @@ def engine_rates(v: dict, label: str, rounds: int, device, out: dict) -> None:
                          device=device)
         torch.cuda.synchronize()
         rate = res.rounds / (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            T.simulate(jobs, sites, policy, T.PRNGKey(0), max_rounds=PROFILE_ROUNDS, topk=topk,
+                       device=device)
+            torch.cuda.synchronize()
+        per_round = sum(e.count for e in prof.key_averages()
+                        if str(getattr(e, "device_type", "")).endswith("CUDA")) / PROFILE_ROUNDS
         out.setdefault(f"{name} rounds/s", []).append(dict(version=label, rate=rate,
-                                                           rounds=res.rounds))
-        print(f"[compare] {label} {name} engine: {res.rounds} rounds at {rate:.2f} rounds/s")
+                                                           rounds=res.rounds,
+                                                           kernels_per_round=per_round))
+        print(f"[compare] {label} {name} engine: {res.rounds} rounds at {rate:.2f} rounds/s; "
+              f"{per_round:.1f} kernels a round over {PROFILE_ROUNDS} profiled rounds")
 
 
 def main() -> int:

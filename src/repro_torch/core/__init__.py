@@ -1,5 +1,6 @@
-"""CGSim core on PyTorch: the event-round engine (``engine.simulate``, and
-``init_sim``/``advance_sim``/``finish_sim`` for segmented runs) and its
+"""CGSim core on PyTorch: the event-round engine (``engine.simulate``,
+``init_sim``/``advance_sim``/``finish_sim`` for segmented runs, and scenario
+ensembles on a lane axis: ``simulate_many``, ``simulate_ensemble``) and its
 sparse top-k candidate index (``sparse``), the subsystem protocol
 (``subsystems``) with site availability (``availability``), workflow DAGs
 (``workflows``), data movement (``network``, ``replicas``,
@@ -31,8 +32,11 @@ from .types import (  # noqa: F401
     make_log,
     make_sites,
     pad_jobs_capacity,
+    take,
 )
 from .engine import (  # noqa: F401
+    Scenario,
+    ScenarioBuckets,
     SimHandle,
     advance_sim,
     compute_time,
@@ -44,6 +48,9 @@ from .engine import (  # noqa: F401
     service_time,
     sim_active,
     simulate,
+    simulate_ensemble,
+    simulate_many,
+    stack_scenarios,
     walltimes,
 )
 from .telemetry import (  # noqa: F401
@@ -56,6 +63,7 @@ from .telemetry import (  # noqa: F401
     TraceRecorder,
     iter_ndjson,
     jsonable,
+    lane_occupancy,
     manifest_drift,
     read_manifest,
     run_manifest,
@@ -175,6 +183,7 @@ from .convert import (  # noqa: F401
     network_from_numpy,
     replicas_from_numpy,
     result_to_numpy,
+    scenario_from_numpy,
     sites_from_numpy,
     transfers_from_numpy,
     workflow_from_numpy,

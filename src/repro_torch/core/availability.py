@@ -15,7 +15,9 @@ fixed-shape calendar of per-site windows, and so does the port:
 
 Everything here is masked dense algebra over ``[S, W]``.  The subsystem's
 three per-site sums a round (freed cores, freed memory, preemptions) go
-through the engine's ``_site_sum``: the segment-sum kernel on the card.
+through the engine's ``_site_sum``: the segment-sum kernel on the card.  In
+an ensemble the calendar leads with the lane axis (``[K, S, W]``, times
+``[K]``) and every lane reads its own.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .types import ASSIGNED, FAILED, QUEUED, RUNNING, resolve_device
+from .types import ASSIGNED, FAILED, QUEUED, RUNNING, resolve_device, take
 
 INF = float("inf")
 
@@ -104,6 +106,7 @@ def make_availability(
 
 def active_windows(avail: AvailabilityState, t: torch.Tensor) -> torch.Tensor:
     """bool[S, W]: windows covering time ``t`` (half-open ``[start, end)``)."""
+    t = t[..., None, None]
     return (avail.win_start <= t) & (t < avail.win_end)
 
 
@@ -127,14 +130,14 @@ def preempting_sites(avail: AvailabilityState, t0: torch.Tensor, t1: torch.Tenso
     this round's, this is "active at t1" whenever rounds land on every edge
     (``quantum == 0``).
     """
-    hit = (avail.win_start <= t1) & (avail.win_end > t0)
+    hit = (avail.win_start <= t1[..., None, None]) & (avail.win_end > t0[..., None, None])
     return (hit & avail.win_preempt & (avail.win_factor <= 0.0)).any(-1)
 
 
 def next_window_edge(avail: AvailabilityState, t: torch.Tensor) -> torch.Tensor:
     """f32[]: the earliest window start/end strictly after ``t`` (inf if none)."""
-    edges = torch.cat([avail.win_start.reshape(-1), avail.win_end.reshape(-1)])
-    return torch.where(edges > t, edges, INF).amin()
+    edges = torch.cat([avail.win_start.flatten(-2), avail.win_end.flatten(-2)], -1)
+    return torch.where(edges > t[..., None], edges, INF).amin(-1)
 
 
 def downtime_fraction(avail: AvailabilityState, horizon) -> np.ndarray:
@@ -188,10 +191,10 @@ def _av_completion_filter(sub, ctx, comp):
     av = ctx.ext["availability"]
     jobs = ctx.jobs
     ksite = jobs.site.clamp(0, ctx.S - 1).long()
-    ws = av.win_start[ksite]                                   # [J, W]
-    wkill = av.win_preempt[ksite] & (av.win_factor[ksite] <= 0.0)
+    ws = take(av.win_start, ksite, tail=1)                     # [J, W]
+    wkill = take(av.win_preempt, ksite, tail=1) & (take(av.win_factor, ksite, tail=1) <= 0.0)
     killed_first = (
-        wkill & (ws > ctx.clock_prev) & (ws < jobs.t_finish[:, None])
+        wkill & (ws > ctx.clock_prev[..., None, None]) & (ws < jobs.t_finish[..., None])
     ).any(-1)
     return comp & ~killed_first
 
@@ -213,7 +216,7 @@ def _av_on_completions(sub, ctx):
     # jobs whose t_finish <= clock, so a job finishing at the edge still
     # finishes)
     site_c0 = jobs.site.clamp(0, S - 1).long()
-    preempting = preempting_sites(av, ctx.clock_prev, ctx.clock)[site_c0]
+    preempting = take(preempting_sites(av, ctx.clock_prev, ctx.clock), site_c0)
     pre = (jobs.state == RUNNING) & preempting
     pre_resub = pre & (jobs.retries < ctx.max_retries)
     pre_fail = pre & ~pre_resub
@@ -228,7 +231,8 @@ def _av_on_completions(sub, ctx):
         ),
         retries=jobs.retries + pre_resub.int(),
         site=torch.where(pre_resub | bounce, -1, jobs.site),
-        t_finish=torch.where(pre_resub, INF, torch.where(pre_fail, ctx.clock, jobs.t_finish)),
+        t_finish=torch.where(pre_resub, INF,
+                             torch.where(pre_fail, ctx.clock[..., None], jobs.t_finish)),
         preempted=jobs.preempted + pre.int(),
     )
     ctx.sites = sites._replace(
@@ -240,13 +244,13 @@ def _av_on_completions(sub, ctx):
     )
     # a preemption round changed state: give the dispatcher one more round
     # to re-route the requeued jobs before halt detection
-    ctx.progressed = ctx.progressed | pre.any()
+    ctx.progressed = ctx.progressed | pre.any(-1)
 
 
 def _av_pre_assign(sub, ctx):
     sc = ctx.scratch["availability"]
     # the dispatcher routes around sites currently in a full outage
-    ctx.feasible = ctx.feasible & sc["avail_up"][None, :]
+    ctx.feasible = ctx.feasible & sc["avail_up"][..., None, :]
     # starts only claim cores up to the brown-out cap net of busy ones, at
     # speed scaled by the window factor; a full outage admits no starts.
     # jnp.clip(x, 0, hi) is min(max(x, 0), hi), also when hi < 0
@@ -259,7 +263,7 @@ def _av_pre_assign(sub, ctx):
 
 
 def _av_log_spec(sub, av, jobs, sites):
-    return {"site_avail": torch.ones((sites.capacity,), dtype=torch.float32,
+    return {"site_avail": torch.ones(sites.cores.shape, dtype=torch.float32,
                                      device=sites.cores.device)}
 
 

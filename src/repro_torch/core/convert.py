@@ -5,9 +5,10 @@
 ``transfers_from_numpy``/``faults_from_numpy`` take a mapping of field name to array (what
 ``{k: np.asarray(v) for k, v in state._asdict().items()}`` gives for the JAX
 package's state of the same name) and build the port's state on a device;
-``result_to_numpy`` turns a ``SimResult`` back into nested dicts of numpy
-arrays, through ``to_numpy``.  The tests feed both implementations
-identical inputs this way.
+``scenario_from_numpy`` builds an ensemble's ``Scenario`` from such
+mappings (its ``ext`` keyed by subsystem name); ``result_to_numpy`` turns a
+``SimResult`` back into nested dicts of numpy arrays, through ``to_numpy``.
+The tests feed both implementations identical inputs this way.
 """
 from __future__ import annotations
 
@@ -65,6 +66,23 @@ def faults_from_numpy(arrays, device="cuda") -> FaultState:
     return _from_numpy(FaultState, arrays, device)
 
 
+_EXT_STATES = {"availability": AvailabilityState, "workflow": WorkflowState}
+
+
+def scenario_from_numpy(jobs, sites, ext=None, device="cuda"):
+    """An ensemble ``Scenario`` from field-to-array mappings: ``jobs`` and
+    ``sites`` as for ``jobs_from_numpy``/``sites_from_numpy``, ``ext`` a
+    mapping of subsystem name (``"availability"``, ``"workflow"``) to its
+    state's mapping."""
+    from .engine import Scenario
+
+    return Scenario(
+        jobs_from_numpy(jobs, device), sites_from_numpy(sites, device),
+        {name: _from_numpy(_EXT_STATES[name], arrays, device)
+         for name, arrays in (ext or {}).items()},
+    )
+
+
 def to_numpy(value):
     """A tensor on any device as a numpy array; NamedTuple states and dicts
     as dicts of them; any other value through ``np.asarray``."""
@@ -83,7 +101,7 @@ def result_to_numpy(res: SimResult) -> dict:
     ``"transfers"`` and ``"faults"`` when those subsystems ran."""
     out = dict(
         makespan=to_numpy(res.makespan),
-        rounds=np.int32(res.rounds),
+        rounds=np.int32(res.rounds) if isinstance(res.rounds, int) else to_numpy(res.rounds),
         jobs=to_numpy(res.jobs),
         sites=to_numpy(res.sites),
         log=to_numpy(res.log),

@@ -29,12 +29,22 @@ the JAX engine's points of the round; a run without one runs none of its code.
 The results equal the JAX package's bit for bit: the same key stream
 (``rng``), the same float orders (``scan``), and sorts whose keys are a strict
 total order, so any correct sort yields the one permutation.
+
+Scenario ensembles (``simulate_many``) run K scenarios through the same round
+body on states with a leading lane axis (``[K, J]``, ``[K, S]``, a ``[K]``
+clock): reductions run over the last axis, site lookups per lane
+(``types.take``), sorts along the last axis, and every per-site sum of all
+lanes is one segment sum over ``K * S`` segments.  The loop runs while any
+lane goes, as ``vmap`` of the JAX package's ``while_loop`` does: a lane whose
+own condition fails keeps its state (every leaf selected back, its log rows
+left alone), so each lane equals the solo run of its scenario.
 """
 from __future__ import annotations
 
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import rng as _rng
@@ -55,7 +65,9 @@ from .types import (
     SimResult,
     SiteState,
     make_log,
+    pad_jobs_capacity,
     resolve_device,
+    take,
 )
 
 INF = float("inf")
@@ -67,8 +79,8 @@ def compute_time(jobs: JobsState, sites: SiteState, site: torch.Tensor) -> torch
     computes it."""
     site = site.long()
     c = jobs.cores.float()
-    speedup = c / fma_f32(sites.par_gamma[site], (c - 1.0).clamp_min(0.0), 1.0)
-    return jobs.work / (sites.speed[site] * speedup.clamp_min(1e-9))
+    speedup = c / fma_f32(take(sites.par_gamma, site), (c - 1.0).clamp_min(0.0), 1.0)
+    return jobs.work / (take(sites.speed, site) * speedup.clamp_min(1e-9))
 
 
 def stage_in_time(
@@ -80,7 +92,8 @@ def stage_in_time(
     ``bytes / (bw / share)`` is evaluated as ``(bytes * share) / bw``: XLA
     rewrites ``A / (B / C)`` to ``(A * C) / B``, and the bits follow it."""
     site = site.long()
-    return sites.latency[site] + (jobs.bytes_in * share_in.clamp_min(1.0)) / sites.bw_in[site]
+    return take(sites.latency, site) + (jobs.bytes_in * share_in.clamp_min(1.0)) / take(
+        sites.bw_in, site)
 
 
 def service_time(
@@ -89,7 +102,7 @@ def service_time(
 ) -> torch.Tensor:
     """Deterministic-at-start service time: latency + stage_in + compute +
     stage_out, with stage bandwidth shared among the jobs staging at once."""
-    stage_out = (jobs.bytes_out * share_out.clamp_min(1.0)) / sites.bw_out[site.long()]
+    stage_out = (jobs.bytes_out * share_out.clamp_min(1.0)) / take(sites.bw_out, site.long())
     return (
         stage_in_time(jobs, sites, site, share_in)
         + compute_time(jobs, sites, site)
@@ -101,7 +114,8 @@ def _site_sum(values: torch.Tensor, site: torch.Tensor, num_sites: int) -> torch
     """Scatter per-job values (``[J]``, or features stacked as ``[J, F]``) onto
     their site; rows with ``site == num_sites`` (the padding segment for
     non-participating rows) are dropped.  Bool values count in int32; float
-    sums add in job-index order."""
+    sums add in job-index order.  With lanes (``[K, J]``) each lane sums
+    onto its own sites, all in one segment sum."""
     if values.dtype == torch.bool:
         values = values.int()
     return segment_sum(values, site, num_sites)
@@ -112,15 +126,17 @@ _site_sum_stacked = _site_sum  # the JAX package's name for the [J, F] form
 
 def _lexsort(keys) -> torch.Tensor:
     """``jnp.lexsort(keys)`` (last key most significant, ties by index) as
-    chained stable sorts.  Float keys gain ``+ 0.0`` so that -0.0 and 0.0 tie,
-    as they do in JAX's comparator; a radix sort would order them."""
+    chained stable sorts along the last axis; with lanes each lane sorts on
+    its own, as if the lane were the most significant key.  Float keys gain
+    ``+ 0.0`` so that -0.0 and 0.0 tie, as they do in JAX's comparator; a
+    radix sort would order them."""
     perm = None
     for key in keys:
         if key.is_floating_point():
             key = key + 0.0
-        k = key if perm is None else key[perm]
-        step = torch.sort(k, stable=True).indices
-        perm = step if perm is None else perm[step]
+        k = key if perm is None else take(key, perm)
+        step = torch.sort(k, dim=-1, stable=True).indices
+        perm = step if perm is None else take(perm, step)
     return perm
 
 
@@ -134,19 +150,18 @@ def _start_order(sort_site, priority, rank_val, arrival) -> torch.Tensor:
 
 def _start_order_packed(packed: torch.Tensor) -> torch.Tensor:
     """Start-order permutation from a single strict-total-order int64 key
-    ``sort_site * J + srank`` (all keys distinct, so any sort gives the same
-    permutation as ``_start_order``)."""
-    return torch.argsort(packed)
+    ``sort_site * J + srank`` (all keys distinct within a lane, so any sort
+    gives the same permutation as ``_start_order``), lane by lane."""
+    return torch.argsort(packed, dim=-1)
 
 
 def _static_start_rank(jobs: JobsState) -> torch.Tensor:
-    """``i64[J]``: rank of each job under ``(-priority, arrival, index)``, the
-    run-constant suffix of the start-order key."""
+    """``i64[..., J]``: rank of each job under ``(-priority, arrival,
+    index)``, the run-constant suffix of the start-order key."""
     J = jobs.capacity
     perm = _lexsort((jobs.arrival, -jobs.priority))
-    rank = torch.empty((J,), dtype=torch.int64, device=perm.device)
-    rank[perm] = torch.arange(J, device=perm.device)
-    return rank
+    iota = torch.arange(J, device=perm.device).expand_as(perm)
+    return torch.empty_like(perm).scatter_(-1, perm, iota)
 
 
 def _packed_order_ok(policy, J: int, S: int) -> bool:
@@ -161,17 +176,20 @@ def _segment_exclusive_base(values: torch.Tensor, seg_ids: torch.Tensor, num_seg
 
     The last segment's total never enters a base (``seg_base`` drops the last
     prefix sum), so it is not summed: in the engine that segment holds every
-    non-candidate row, and a serial row-order sum over it would cost O(J)."""
+    non-candidate row, and a serial row-order sum over it would cost O(J).
+    With lanes, every lane scans its own last axis."""
     if values.is_floating_point():
-        cumsum = cumsum_f32
+        def cumsum(x):
+            return cumsum_f32(x, -1)
     else:
         def cumsum(x):
-            return torch.cumsum(x, 0, dtype=x.dtype)
+            return torch.cumsum(x, -1, dtype=x.dtype)
     total_cum = cumsum(values)
     seg_totals = segment_sum(values, seg_ids, num_segments - 1)
-    seg_cum = cumsum(torch.cat([seg_totals, seg_totals.new_zeros((1,))]))
-    seg_base = torch.cat([seg_cum.new_zeros((1,)), seg_cum[:-1]])
-    return total_cum - seg_base[seg_ids.long()]
+    zero = seg_totals.new_zeros(seg_totals.shape[:-1] + (1,))
+    seg_cum = cumsum(torch.cat([seg_totals, zero], -1))
+    seg_base = torch.cat([zero, seg_cum[..., :-1]], -1)
+    return total_cum - take(seg_base, seg_ids.long())
 
 
 def default_assign(scores, queued, feasible, sites=None):
@@ -182,7 +200,7 @@ def default_assign(scores, queued, feasible, sites=None):
     masked = torch.where(feasible, scores, -INF)
     best_val = masked.amax(-1)
     iota = torch.arange(S, device=scores.device)
-    best = torch.where(masked == best_val[:, None], iota, S).amin(-1).int()
+    best = torch.where(masked == best_val[..., None], iota, S).amin(-1).int()
     ok = queued & torch.isfinite(best_val)
     return torch.where(ok, best, -1), ok
 
@@ -211,8 +229,10 @@ def _init_state(
     """Build the round-loop carry: run the policy's and the subsystems' init
     hooks, build the sparse candidate index (``topk``), precompute the packed
     start-order key when allowed, allocate the frame ring buffer with the
-    subsystems' log columns."""
+    subsystems' log columns.  A batch of keys ``[K, 2]`` makes an ensemble
+    of K lanes, whose states all lead with K."""
     device = jobs0.arrival.device
+    lanes = tuple(key.shape[:-1])
     pstate0 = policy.init(jobs0, sites0)
     ext0 = dict(ext0)
     for sub in subsystems:
@@ -230,30 +250,59 @@ def _init_state(
     mutates_arrival = any(getattr(sub.config, "mutates_arrival", False) for sub in subsystems)
     if not mutates_arrival and _packed_order_ok(policy, jobs0.capacity, sites0.capacity):
         ext0["~srank"] = _static_start_rank(jobs0)
+    if lanes:
+        ext0["~rounds"] = torch.zeros(lanes, dtype=torch.int32, device=device)
     log_extra0 = {}
     for sub in subsystems:
         if sub.log_spec is not None:
             log_extra0.update(sub.log_spec(sub, ext0[sub.name], jobs0, sites0))
     return EngineState(
-        clock=torch.zeros((), dtype=torch.float32, device=device),
+        clock=torch.zeros(lanes, dtype=torch.float32, device=device),
         round=0,
         jobs=jobs0,
         sites=sites0,
         rng=key,
         policy_state=pstate0,
-        log=make_log(log_rows, sites0.capacity, extra=log_extra0, device=device),
-        halted=torch.zeros((), dtype=torch.bool, device=device),
+        log=make_log(log_rows, sites0.capacity, extra=log_extra0, device=device, lanes=lanes),
+        halted=torch.zeros(lanes, dtype=torch.bool, device=device),
         ext=ext0,
     )
 
 
 def _static_feasible(jobs: JobsState, sites: SiteState) -> torch.Tensor:
-    """``bool[J, S]``: the job can ever fit the site."""
+    """``bool[..., J, S]``: the job can ever fit the site."""
     return (
-        sites.active[None, :]
-        & (jobs.cores[:, None] <= sites.cores[None, :])
-        & (jobs.memory[:, None] <= sites.memory[None, :])
+        sites.active[..., None, :]
+        & (jobs.cores[..., :, None] <= sites.cores[..., None, :])
+        & (jobs.memory[..., :, None] <= sites.memory[..., None, :])
     )
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the matching tensor leaves of states (NamedTuples, dicts,
+    tuples, lists); other leaves (``None``, Python numbers) come from the
+    first tree."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_tree_map(fn, *leaves) for leaves in zip(*trees)))
+    if isinstance(first, (tuple, list)):
+        return type(first)(_tree_map(fn, *leaves) for leaves in zip(*trees))
+    return first
+
+
+def _freeze(go: torch.Tensor, new, old):
+    """``torch.where(go, new, old)`` leaf by leaf over matching states, ``go
+    [K]`` broadcast over each leaf's trailing axes: what ``vmap`` of a
+    ``while_loop`` does to a lane whose condition failed.  Leaves the round
+    did not replace stay as they are."""
+    def pick(n, o):
+        return n if n is o else torch.where(go.view(go.shape + (1,) * (n.dim() - 1)), n, o)
+
+    return _tree_map(pick, new, old)
 
 
 def _round_fns(
@@ -270,7 +319,8 @@ def _round_fns(
     topk_refresh: int = 0,
 ):
     """The round loop's ``(cond, body)`` pair for one configuration.  ``cond``
-    reads one flag back from the device."""
+    reads one flag back from the device (an ensemble's reads whether any lane
+    goes and whether all do, in one read)."""
 
     def hooks(name):
         """``(subsystem, hook)`` pairs of one hook point, in tuple order."""
@@ -280,21 +330,29 @@ def _round_fns(
     filter_hooks, completion_hooks = hooks("completion_filter"), hooks("on_completions")
     assign_hooks, start_hooks, log_hooks = hooks("pre_assign"), hooks("on_start"), hooks("log_columns")
 
-    def cond(st: EngineState, horizon: float) -> bool:
-        """Would the loop run another round?  ``horizon`` is compared in
-        float32 (``_f32``), as the JAX package compares it."""
+    def cond(st: EngineState, horizon: float):
+        """``(go, lanes_going)``: would the loop run another round, and, in an
+        ensemble where only some lanes go, the ``bool[K]`` mask of those (else
+        None).  ``horizon`` is compared in float32 (``_f32``), as the JAX
+        package compares it."""
         if st.round >= max_rounds:
-            return False
+            return False, None
         state = st.jobs.state
         active = (state == PENDING) | (state == QUEUED) | (state == ASSIGNED) | (state == RUNNING)
-        go = ~st.halted & (active & st.jobs.valid).any() & (st.clock <= horizon)
-        return bool(go)
+        go = ~st.halted & (active & st.jobs.valid).any(-1) & (st.clock <= horizon)
+        if go.dim() == 0:
+            return bool(go), None
+        any_go, all_go = torch.stack([go.any(), go.all()]).tolist()
+        return any_go, (None if all_go else go)
 
-    def body(st: EngineState) -> EngineState:
+    def body(st: EngineState, going: torch.Tensor | None = None) -> EngineState:
+        """One round.  ``going`` (an ensemble's ``bool[K]`` from ``cond``, or
+        None when every lane goes) freezes the other lanes."""
         S = st.sites.capacity
         J = st.jobs.capacity
+        lane_dims = st.clock.dim()
         jobs, sites = st.jobs, st.sites
-        key, k_fail, k_frac, k_policy = _rng.split(st.rng, 4)
+        key, k_fail, k_frac, k_policy = _rng.split(st.rng, 4).unbind(-2)
         # subsystem key streams fold off the round's carry key (RoundCtx.subkey)
         ctx = RoundCtx(jobs=jobs, sites=sites, ext=dict(st.ext), clock_prev=st.clock,
                        max_retries=max_retries, rng=st.rng)
@@ -307,7 +365,7 @@ def _round_fns(
             arrivable = arrivable & fn(sub, ctx)
         arr_t = torch.where(arrivable, jobs.arrival, INF)
         fin_t = torch.where(jobs.state == RUNNING, jobs.t_finish, INF)
-        t_next = torch.minimum(arr_t.amin(), fin_t.amin())
+        t_next = torch.minimum(arr_t.amin(-1), fin_t.amin(-1))
         for sub, fn in event_hooks:
             # subsystem event sources (outage window edges) join the
             # min-reduction so rounds land exactly on their boundaries
@@ -316,9 +374,10 @@ def _round_fns(
             t_next = t_next + quantum
         clock = torch.where(torch.isfinite(t_next), torch.maximum(st.clock, t_next), st.clock)
         ctx.clock = clock
+        clock_j = clock[..., None]   # broadcasts over the job axis
 
         # ---- 2. completions -------------------------------------------------
-        comp = (jobs.state == RUNNING) & (jobs.t_finish <= clock)
+        comp = (jobs.state == RUNNING) & (jobs.t_finish <= clock_j)
         for sub, fn in filter_hooks:
             comp = fn(sub, ctx, comp)
         comp_site = torch.where(comp, jobs.site, S)  # padded segment for non-events
@@ -345,10 +404,10 @@ def _round_fns(
             t_finish=torch.where(resubmit, INF, jobs.t_finish),
         )
         sites = sites._replace(
-            free_cores=sites.free_cores + comp_sums[:, 0],
+            free_cores=sites.free_cores + comp_sums[..., 0],
             free_memory=sites.free_memory + freed_mem,
-            n_finished=sites.n_finished + comp_sums[:, 1],
-            n_failed=sites.n_failed + comp_sums[:, 2],
+            n_finished=sites.n_finished + comp_sums[..., 1],
+            n_failed=sites.n_failed + comp_sums[..., 2],
         )
         ctx.jobs, ctx.sites = jobs, sites
         ctx.comp, ctx.done_now, ctx.failed_now = comp, done_now, failed_now
@@ -360,7 +419,7 @@ def _round_fns(
         jobs, sites = ctx.jobs, ctx.sites
 
         # ---- 3. arrivals -----------------------------------------------------
-        arrived = (jobs.state == PENDING) & (jobs.arrival <= clock) & jobs.valid
+        arrived = (jobs.state == PENDING) & (jobs.arrival <= clock_j) & jobs.valid
         for sub, fn in gate_hooks:
             # re-gate against post-completion states so a job un-gated this
             # round arrives (and can start) this round
@@ -434,7 +493,7 @@ def _round_fns(
             jobs = jobs._replace(
                 state=torch.where(assigned_now, ASSIGNED, jobs.state),
                 site=torch.where(assigned_now, site_pick.int(), jobs.site),
-                t_assign=torch.where(assigned_now, clock, jobs.t_assign),
+                t_assign=torch.where(assigned_now, clock_j, jobs.t_assign),
             )
             asg_site = torch.where(assigned_now, site_pick.int(), S)
             sites = sites._replace(n_assigned=sites.n_assigned + _site_sum(assigned_now, asg_site, S))
@@ -447,31 +506,31 @@ def _round_fns(
                 order = _start_order_packed(sort_site.long() * J + st.ext["~srank"])
             else:
                 rank_val = (
-                    torch.zeros((J,), dtype=torch.float32, device=clock.device)
+                    torch.zeros(jobs.arrival.shape, dtype=torch.float32, device=clock.device)
                     if rank_fn is None else rank_fn(jobs, sites, pstate, clock)
                 )
                 order = _start_order(sort_site, jobs.priority, rank_val, jobs.arrival)
-            site_s = sort_site[order]
-            cand_s = in_queue[order]
-            cores_s = torch.where(cand_s, jobs.cores[order], 0)
-            mem_s = torch.where(cand_s, jobs.memory[order], 0.0)
+            site_s = take(sort_site, order)
+            cand_s = take(in_queue, order)
+            cores_s = torch.where(cand_s, take(jobs.cores, order), 0)
+            mem_s = torch.where(cand_s, take(jobs.memory, order), 0.0)
             cum_cores = _segment_exclusive_base(cores_s, site_s, S + 1)
             cum_mem = _segment_exclusive_base(mem_s, site_s, S + 1)
             site_cl = site_s.clamp_max(S - 1).long()
             fits = (
                 cand_s
-                & (cum_cores <= start_cores[site_cl])
-                & (cum_mem <= sites.free_memory[site_cl] + 1e-6)
+                & (cum_cores <= take(start_cores, site_cl))
+                & (cum_mem <= take(sites.free_memory, site_cl) + 1e-6)
                 & (site_s < S)
             )
-            started = torch.empty((J,), dtype=torch.bool, device=fits.device)
-            started[order] = fits
+            started = torch.empty_like(fits).scatter_(-1, order, fits)
             return jobs, sites, started
 
+        # phase-skip guard ("any lane" in an ensemble: lanes without work run
+        # the phases as masked no-ops): completion-only rounds skip the score
+        # matrix, the start-order sort and the segmented prefix sums entirely
         if phase_skip and not bool((queued | (jobs.state == ASSIGNED)).any()):
-            # phase-skip guard: completion-only rounds skip the score matrix,
-            # the start-order sort and the segmented prefix sums entirely
-            started = torch.zeros((J,), dtype=torch.bool, device=clock.device)
+            started = torch.zeros(jobs.state.shape, dtype=torch.bool, device=clock.device)
         else:
             jobs, sites, started = _assign_and_start(jobs, sites)
         ctx.jobs, ctx.sites = jobs, sites
@@ -484,7 +543,7 @@ def _round_fns(
         )
         used_mem = _site_sum(torch.where(started, jobs.memory, 0.0), start_site, S)
         site_c = jobs.site.clamp_max(S - 1).long()
-        share = start_sums[:, 1][site_c].float()
+        share = take(start_sums[..., 1], site_c).float()
 
         # ---- 5b. service times + subsystem adjustments -----------------------
         ctx.started, ctx.site_c = started, site_c
@@ -494,56 +553,80 @@ def _round_fns(
             fn(sub, ctx)
         jobs, t_serv = ctx.jobs, ctx.t_serv
         # both per-job draws hash the same counters: one threefry pass, two keys
-        bits = _rng.random_bits(torch.stack([k_fail, k_frac]), (J,))
-        u_fail = _rng.uniform_from_bits(bits[0])
+        bits = _rng.random_bits(torch.stack([k_fail, k_frac], -2), (J,))
+        u_fail = _rng.uniform_from_bits(bits[..., 0, :])
         # clip (not minimum): unassigned rows carry site == -1
-        will_fail = started & (u_fail < sites.fail_rate[jobs.site.clamp(0, S - 1).long()])
+        will_fail = started & (u_fail < take(sites.fail_rate, jobs.site.clamp(0, S - 1).long()))
         # a failing attempt dies partway through its service time
-        frac = _rng.uniform_from_bits(bits[1], minval=0.05, maxval=1.0)
-        t_fin = clock + torch.where(will_fail, t_serv * frac, t_serv)
+        frac = _rng.uniform_from_bits(bits[..., 1, :], minval=0.05, maxval=1.0)
+        t_fin = clock_j + torch.where(will_fail, t_serv * frac, t_serv)
 
         jobs = jobs._replace(
             state=torch.where(started, RUNNING, jobs.state),
-            t_start=torch.where(started, clock, jobs.t_start),
+            t_start=torch.where(started, clock_j, jobs.t_start),
             t_finish=torch.where(started, t_fin, jobs.t_finish),
             will_fail=torch.where(started, will_fail, jobs.will_fail),
         )
         sites = sites._replace(
-            free_cores=sites.free_cores - start_sums[:, 0],
+            free_cores=sites.free_cores - start_sums[..., 0],
             free_memory=sites.free_memory - used_mem,
         )
         ctx.jobs, ctx.sites = jobs, sites
         pstate = policy.on_step(pstate, jobs, sites, comp, started, clock)
 
         # ---- 6. halt detection & event log -----------------------------------
-        n_started = started.sum()
-        n_completed = comp.sum()
+        n_started = started.sum(-1)
+        n_completed = comp.sum(-1)
         # subsystem transitions (preemption, cascade rounds) count as progress
         # so halt detection gives the dispatcher a round to react to them
-        progressed = (n_started > 0) | (n_completed > 0) | arrived.any() | ctx.progressed
+        progressed = (n_started > 0) | (n_completed > 0) | arrived.any(-1) | ctx.progressed
         halted = ~torch.isfinite(t_next) & ~progressed
 
         log = st.log
         if log_rows > 0 and st.round % monitor_every == 0:
             # the ring is owned by the run's state: rows are written in place
+            # (an ensemble's every lane still going shares the cursor; a
+            # frozen lane's rows are left as they are)
             slot = log.cursor % log_rows
+
+            def put(ring, value):
+                row = ring.select(lane_dims, slot)
+                if going is not None:
+                    value = torch.where(
+                        going.view(going.shape + (1,) * (row.dim() - lane_dims)), value, row)
+                if isinstance(value, torch.Tensor):
+                    row.copy_(value)
+                else:
+                    row.fill_(value)
+
             states = torch.arange(N_STATES, device=clock.device)[:, None]
-            log.time[slot] = clock
-            log.round_idx[slot] = st.round
-            log.counts[slot] = ((jobs.state[None, :] == states) & jobs.valid).sum(-1).int()
-            log.n_started[slot] = n_started.int()
-            log.n_completed[slot] = n_completed.int()
-            log.site_free[slot] = sites.free_cores
-            ones = torch.ones((J,), dtype=torch.int32, device=clock.device)
-            log.site_queued[slot] = _site_sum(
-                ones, torch.where(jobs.state == ASSIGNED, jobs.site, S), S)
-            log.site_running[slot] = _site_sum(
-                ones, torch.where(jobs.state == RUNNING, jobs.site, S), S)
+            put(log.time, clock)
+            put(log.round_idx, st.round)
+            put(log.counts,
+                ((jobs.state[..., None, :] == states) & jobs.valid[..., None, :]).sum(-1).int())
+            put(log.n_started, n_started.int())
+            put(log.n_completed, n_completed.int())
+            put(log.site_free, sites.free_cores)
+            ones = torch.ones(jobs.state.shape, dtype=torch.int32, device=clock.device)
+            put(log.site_queued, _site_sum(
+                ones, torch.where(jobs.state == ASSIGNED, jobs.site, S), S))
+            put(log.site_running, _site_sum(
+                ones, torch.where(jobs.state == RUNNING, jobs.site, S), S))
             for sub, fn in log_hooks:
                 for name, value in fn(sub, ctx, True).items():
-                    log.extra[name][slot] = value
+                    put(log.extra[name], value)
             log = log._replace(cursor=log.cursor + 1)
 
+        ext = ctx.ext
+        if lane_dims:
+            if going is not None:
+                # the lanes whose own condition failed keep their state
+                clock, halted, key = (_freeze(going, *pair) for pair in (
+                    (clock, st.clock), (halted, st.halted), (key, st.rng)))
+                jobs, sites = _freeze(going, jobs, st.jobs), _freeze(going, sites, st.sites)
+                pstate = _freeze(going, pstate, st.policy_state)
+                ext = _freeze(going, ext, st.ext)
+            ext["~rounds"] = st.ext["~rounds"] + (1 if going is None else going.int())
         return EngineState(
             clock=clock,
             round=st.round + 1,
@@ -553,15 +636,18 @@ def _round_fns(
             policy_state=pstate,
             log=log,
             halted=halted,
-            ext=ctx.ext,
+            ext=ext,
         )
 
     return cond, body
 
 
-def _finalize(st: EngineState, policy, subsystems: tuple) -> SimResult:
+def _finalize(st: EngineState, policy, subsystems: tuple, monitor_every: int = 1,
+              log_rows: int = 0) -> SimResult:
     """End-of-run hooks (policy ``on_end``, subsystem ``finalize``) plus
-    SimResult assembly; "~"-prefixed carries are engine-internal and dropped."""
+    SimResult assembly; "~"-prefixed carries are engine-internal and dropped.
+    An ensemble's rounds are each lane's own, and so is its log cursor: one
+    row every ``monitor_every`` of the lane's rounds."""
     pstate = policy.on_end(st.policy_state, st.jobs, st.sites, st.clock)
     ext = {k: v for k, v in st.ext.items() if not k.startswith("~")}
     result_fields = {}
@@ -569,12 +655,17 @@ def _finalize(st: EngineState, policy, subsystems: tuple) -> SimResult:
         if sub.finalize is not None:
             ext[sub.name], fields = sub.finalize(sub, ext[sub.name], st.jobs, st.sites, st.clock)
             result_fields.update(fields)
+    rounds, log = st.round, st.log
+    if st.clock.dim():
+        rounds = st.ext["~rounds"]
+        cursor = (rounds + monitor_every - 1) // monitor_every if log_rows > 0 else rounds * 0
+        log = log._replace(cursor=cursor)
     return SimResult(
         makespan=st.clock,
-        rounds=st.round,
+        rounds=rounds,
         jobs=st.jobs,
         sites=st.sites,
-        log=st.log,
+        log=log,
         policy_state=pstate,
         ext=ext,
         **result_fields,
@@ -770,7 +861,9 @@ def init_sim(
     device="cuda",
 ) -> SimHandle:
     """A resumable simulation: ``simulate``'s arguments less ``horizon``,
-    which ``advance_sim`` takes a segment at a time."""
+    which ``advance_sim`` takes a segment at a time.  States stacked with a
+    leading K and a batch of keys ``rng [K, 2]`` make an ensemble of K lanes
+    (what ``simulate_many`` runs)."""
     device = resolve_device(device)
     _check_device(jobs0, device, "jobs0")
     _check_device(sites0, device, "sites0")
@@ -812,24 +905,264 @@ def advance_sim(handle: SimHandle, horizon: float = float("inf")) -> SimHandle:
     )
     horizon = _f32(horizon)
     st = handle.state
-    while cond(st, horizon):
-        st = body(st)
+    while True:
+        go, going = cond(st, horizon)
+        if not go:
+            break
+        st = body(st, going)
     return handle._replace(state=st)
 
 
 def sim_active(handle: SimHandle) -> bool:
-    """On the host: would the round loop still run, given an open horizon?"""
+    """On the host: would the round loop still run, given an open horizon?
+    (In an ensemble: does any lane still go?)"""
     st = handle.state
-    if bool(st.halted) or int(st.round) >= handle.max_rounds:
+    if int(st.round) >= handle.max_rounds:
         return False
     state = st.jobs.state
     active = (state == PENDING) | (state == QUEUED) | (state == ASSIGNED) | (state == RUNNING)
-    return bool((active & st.jobs.valid).any())
+    return bool((~st.halted & (active & st.jobs.valid).any(-1)).any())
 
 
 def finish_sim(handle: SimHandle) -> SimResult:
     """Run the end-of-run hooks on a drained or abandoned handle."""
-    return _finalize(handle.state, handle.policy, tuple(handle.subsystems))
+    return _finalize(handle.state, handle.policy, tuple(handle.subsystems),
+                     monitor_every=handle.statics[3], log_rows=handle.statics[1])
+
+
+# --------------------------------------------------------------------------
+# scenario ensembles: K scenarios, one batched round loop
+# --------------------------------------------------------------------------
+
+# subsystems and options whose lane form is not ported yet (ROADMAP Queue 1
+# item 12b)
+_NOT_IN_LANES = ("data", "transfers", "faults")
+
+
+class Scenario(NamedTuple):
+    """One point of a scenario ensemble: a workload, a platform and the
+    per-scenario subsystem states (calendars, DAGs) keyed by subsystem
+    name.  Feed a list of these to ``simulate_many``, or stack them first
+    with ``stack_scenarios``."""
+
+    jobs: JobsState
+    sites: SiteState
+    ext: dict | None = None
+
+
+class ScenarioBuckets(NamedTuple):
+    """A ragged ensemble grouped into a few padded shape buckets.
+
+    ``buckets[b]`` is a stacked ``Scenario`` whose jobs are padded only to
+    that bucket's largest capacity; ``index[b]`` holds each lane's position
+    in the original scenario list, so results reassemble in the caller's
+    order and lane ``i`` draws the key it would in one stack."""
+
+    buckets: tuple  # tuple[Scenario], each stacked with leading K_b
+    index: tuple    # tuple[tuple[int, ...]] original scenario positions
+
+    @property
+    def n_scenarios(self) -> int:
+        return sum(len(ix) for ix in self.index)
+
+    def padding_stats(self) -> dict:
+        """The padding this bucketing pays: per bucket the capacity, lanes,
+        used and padded job rows and the waste fraction, and a summary
+        against one bucket (every lane padded to the largest capacity)."""
+        rows = []
+        total_rows = total_used = 0
+        for b, (scn, ix) in enumerate(zip(self.buckets, self.index)):
+            cap = scn.jobs.capacity
+            lanes = len(ix)
+            used = int(scn.jobs.valid.sum())
+            dense = lanes * cap
+            rows.append(dict(
+                bucket=b, capacity=cap, lanes=lanes, used_rows=used,
+                padded_rows=dense - used,
+                waste_frac=float((dense - used) / dense) if dense else 0.0,
+            ))
+            total_rows += dense
+            total_used += used
+        cap_max = max(r["capacity"] for r in rows)
+        flat_rows = self.n_scenarios * cap_max
+        return dict(
+            buckets=rows,
+            summary=dict(
+                n_buckets=len(rows),
+                n_scenarios=self.n_scenarios,
+                total_rows=total_rows,
+                used_rows=total_used,
+                waste_frac=float((total_rows - total_used) / total_rows) if total_rows else 0.0,
+                flat_rows=flat_rows,
+                flat_waste_frac=(
+                    float((flat_rows - total_used) / flat_rows) if flat_rows else 0.0),
+                saved_rows=flat_rows - total_rows,
+            ),
+        )
+
+
+def stack_scenarios(scenarios, *, subsystems: tuple = (), buckets: int = 1):
+    """Stack Scenarios into one with a leading K on every tensor.
+
+    Ragged workloads are padded to the largest job capacity with inert rows
+    (``pad_jobs_capacity``); job-shaped subsystem state (a workflow's parent
+    matrix) pads alongside through each subsystem's ``pad_jobs`` hook when
+    ``subsystems`` is given (``simulate_many`` passes its own).  Sites and
+    the other subsystem state must already share shapes.
+
+    ``buckets > 1`` returns a ``ScenarioBuckets``: the scenarios ordered by
+    job capacity and split into up to ``buckets`` groups of similar size,
+    each padded only to its own largest."""
+    from .subsystems import pad_ext_jobs
+
+    scenarios = list(scenarios)
+    if not scenarios:
+        raise ValueError("need at least one scenario")
+    if buckets > 1:
+        order = sorted(range(len(scenarios)), key=lambda i: scenarios[i].jobs.capacity)
+        groups = [g for g in np.array_split(order, min(buckets, len(scenarios))) if len(g)]
+        return ScenarioBuckets(
+            buckets=tuple(stack_scenarios([scenarios[i] for i in g], subsystems=subsystems)
+                          for g in groups),
+            index=tuple(tuple(int(i) for i in g) for g in groups),
+        )
+    cap = max(s.jobs.capacity for s in scenarios)
+    norm = [
+        Scenario(pad_jobs_capacity(s.jobs, cap), s.sites,
+                 pad_ext_jobs(subsystems, s.ext or {}, s.jobs.capacity, cap))
+        for s in scenarios
+    ]
+    return _tree_map(lambda *xs: torch.stack(xs), *norm)
+
+
+def _check_ensemble(scenarios: Scenario, subsystems: tuple, kw: dict) -> dict:
+    """Check a stacked ensemble against its subsystem tuple (the subsystems'
+    ``validate`` hooks run in ``init_sim``); returns ext."""
+    for sub in subsystems:
+        if sub.name in _NOT_IN_LANES:
+            raise NotImplementedError(
+                f"the {sub.name!r} subsystem has no lane form in the port yet "
+                "(ROADMAP Queue 1 item 12b); run its scenarios through simulate")
+    if kw.get("topk") is not None:
+        raise NotImplementedError(
+            "topk= has no lane form in the port yet (ROADMAP Queue 1 item 12b: "
+            "build_candidates and the fused kernel over lanes)")
+    ext = scenarios.ext or {}
+    known = {sub.name for sub in subsystems}
+    if set(ext) != known:
+        raise ValueError(
+            f"scenario ext keys {sorted(ext)} must match the attached "
+            f"subsystems {sorted(known)} one-to-one")
+    return ext
+
+
+def _simulate_many_stacked(scenarios: Scenario, policy, keys: torch.Tensor, *,
+                           subsystems: tuple = (), horizon: float = float("inf"),
+                           **kw) -> SimResult:
+    """The batched core: one round loop over the lanes of a stacked
+    ensemble, lane ``i`` under ``keys[i]`` (a batch of keys makes
+    ``init_sim`` build lanes; the subsystems' shape checks use negative
+    axes, so the leading K is transparent to them)."""
+    ext = _check_ensemble(scenarios, tuple(subsystems), kw)
+    handle = init_sim(scenarios.jobs, scenarios.sites, policy, keys,
+                      subsystems=tuple((sub, ext[sub.name]) for sub in subsystems), **kw)
+    return finish_sim(advance_sim(handle, horizon))
+
+
+# legacy SimResult fields that alias a subsystem's ext slot; a bucketed merge
+# re-pads ext, so the aliases must point at the padded state
+_EXT_ALIASES = {"workflow": ("wf",), "availability": ("avail",)}
+
+
+def _pad_result_to(res: SimResult, subsystems: tuple, capacity: int) -> SimResult:
+    """Grow one bucket's SimResult to the ensemble-wide job capacity with
+    inert rows (the rows one stack would have carried through the run)."""
+    J_b = res.jobs.capacity
+    repl = {"jobs": pad_jobs_capacity(res.jobs, capacity)}
+    if J_b != capacity and res.ext:
+        ext = dict(res.ext)
+        for sub in subsystems:
+            if sub.pad_jobs is not None and sub.name in ext:
+                padded = sub.pad_jobs(sub, ext[sub.name], J_b, capacity)
+                ext[sub.name] = padded
+                for field in _EXT_ALIASES.get(sub.name, ()):
+                    if getattr(res, field) is not None:
+                        repl[field] = padded
+        repl["ext"] = ext
+    return res._replace(**repl)
+
+
+def _run_buckets(sb: ScenarioBuckets, rng: torch.Tensor, runner, subsystems) -> SimResult:
+    """Run a bucketed ensemble bucket by bucket through ``runner(stacked,
+    keys)`` and reassemble one SimResult in the original scenario order.
+    Lane ``i`` draws ``split(rng, K)[i]`` as it would in one stack."""
+    keys = _rng.split(rng, sb.n_scenarios)
+    cap = max(s.jobs.capacity for s in sb.buckets)
+    results = [
+        _pad_result_to(runner(scen, keys[torch.tensor(ix, device=keys.device)]), subsystems, cap)
+        for scen, ix in zip(sb.buckets, sb.index)
+    ]
+    inv = torch.from_numpy(np.argsort(np.concatenate([np.asarray(ix) for ix in sb.index])))
+    return _tree_map(lambda *xs: torch.cat(xs)[inv.to(xs[0].device)], *results)
+
+
+def simulate_many(scenarios, policy, rng: torch.Tensor, *, subsystems: tuple = (),
+                  device="cuda", **kw) -> SimResult:
+    """Scenario ensembles: K scenarios through one batched round loop.
+
+    ``scenarios`` is a list of ``Scenario``s (stacked here), a stacked
+    ``Scenario`` whose tensors carry a leading K, or a ``ScenarioBuckets``
+    from ``stack_scenarios(..., buckets=n)`` (run bucket by bucket, results
+    in the original order).  ``subsystems`` is the tuple of ``Subsystem``
+    bundles matching the keys of ``Scenario.ext`` (empty for plain runs):
+    ``availability_subsystem()`` and ``workflow_subsystem()`` run in lanes;
+    data, transfers, faults and ``topk=`` raise ``NotImplementedError``
+    (ROADMAP Queue 1 item 12b).  ``kw`` takes ``simulate``'s run options
+    (``max_rounds``, ``horizon``, ``log_rows``, ``max_retries``,
+    ``monitor_every``, ``quantum``, ``phase_skip``).
+
+    Lane ``i`` runs under ``split(rng, K)[i]`` and equals the solo
+    ``simulate`` of its scenario padded to the ensemble's job capacity, bit
+    for bit.  The returned ``SimResult`` has a leading K on every tensor,
+    ``rounds`` and ``log.cursor`` included.  Every per-site sum of a round is
+    one segment sum over all lanes, and a capacity assigner
+    (``with_capacity_assign``) makes one kernel call for all lanes."""
+    device = resolve_device(device)
+    rng = rng.to(device)
+    if isinstance(scenarios, ScenarioBuckets):
+        def runner(scen, keys):
+            return _simulate_many_stacked(scen, policy, keys, subsystems=subsystems,
+                                          device=device, **kw)
+
+        return _run_buckets(scenarios, rng, runner, subsystems)
+    if not isinstance(scenarios, Scenario):
+        scenarios = stack_scenarios(scenarios, subsystems=subsystems)
+    K = scenarios.jobs.arrival.shape[0]
+    return _simulate_many_stacked(scenarios, policy, _rng.split(rng, K),
+                                  subsystems=subsystems, device=device, **kw)
+
+
+def simulate_ensemble(jobs0: JobsState, sites0: SiteState, policy, rng: torch.Tensor, *,
+                      speed_candidates: torch.Tensor, availability=None, workflow=None,
+                      subsystems=(), device="cuda", **kw) -> SimResult:
+    """One workload on K per-site speed vectors ``speed_candidates f32[K, S]``
+    (the calibration inner loop): lane ``i`` is ``simulate`` on
+    ``sites0._replace(speed=speed_candidates[i])`` under ``split(rng,
+    K)[i]``.  ``availability=``, ``workflow=`` and ``subsystems=`` pairs are
+    shared by every lane; ``kw`` as for ``simulate_many``."""
+    subs, ext0 = resolve_subsystems(availability=availability, workflow=workflow,
+                                    subsystems=subsystems, jobs=jobs0, sites=sites0)
+    K = speed_candidates.shape[0]
+
+    def lanes(x):
+        return x.expand(K, *x.shape).clone()
+
+    scn = Scenario(
+        jobs=_tree_map(lanes, jobs0),
+        sites=_tree_map(lanes, sites0)._replace(speed=speed_candidates.float()),
+        ext=_tree_map(lanes, ext0),
+    )
+    return simulate_many(scn, policy, rng, subsystems=subs, device=device, **kw)
 
 
 def walltimes(result: SimResult) -> torch.Tensor:

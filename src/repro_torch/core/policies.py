@@ -33,6 +33,11 @@ candidate-site index ``i32[J, K]``.  Three optional hooks serve it:
 Per-site scores are broadcast to ``[J, S]`` as views (``expand``), so a
 policy that scores sites alone costs no ``J x S`` memory until the
 assignment masks it.
+
+Every built-in is lane-generic: in an ensemble its states carry a leading
+lane axis (``[K, J]``, ``[K, S]``), reductions run over the last axis and
+broadcasts over the last two, so each lane scores as its own run would
+(``[K, J, S]``).
 """
 from __future__ import annotations
 
@@ -107,8 +112,8 @@ def site_backlog(jobs: JobsState, sites: SiteState):
 
 
 def _per_site(jobs, row: torch.Tensor) -> torch.Tensor:
-    """Broadcast a per-site score ``f32[S]`` to every job (a view)."""
-    return row[None, :].expand(jobs.capacity, row.shape[0])
+    """Broadcast a per-site score ``f32[..., S]`` to every job (a view)."""
+    return row[..., None, :].expand(*row.shape[:-1], jobs.capacity, row.shape[-1])
 
 
 # --------------------------------------------------------------------------
@@ -126,11 +131,12 @@ def round_robin() -> Policy:
     """Deterministic round-robin by job id (stateless)."""
 
     def _want(jobs, sites):
-        return torch.remainder(jobs.job_id.clamp_min(0), sites.active.sum().clamp_min(1))[:, None]
+        n_active = sites.active.sum(-1, keepdim=True).clamp_min(1)
+        return torch.remainder(jobs.job_id.clamp_min(0), n_active)[..., :, None]
 
     def score(jobs, sites, state, clock, key):
         S = sites.capacity
-        idx = torch.arange(S, device=jobs.job_id.device)[None, :]
+        idx = torch.arange(S, device=jobs.job_id.device)
         return -torch.remainder(idx - _want(jobs, sites), S).float()
 
     def score_cand(jobs, sites, state, clock, key, cand):
@@ -171,7 +177,8 @@ def data_locality() -> Policy:
     """Minimize stage-in cost (CGSim data-movement policy hook)."""
 
     def score(jobs, sites, state, clock, key):
-        return -(sites.latency[None, :] + jobs.bytes_in[:, None] / sites.bw_in[None, :])
+        return -(sites.latency[..., None, :]
+                 + jobs.bytes_in[..., :, None] / sites.bw_in[..., None, :])
 
     def score_cand(jobs, sites, state, clock, key, cand):
         return -(sites.latency[cand] + jobs.bytes_in[:, None] / sites.bw_in[cand])
@@ -188,11 +195,12 @@ def shortest_wait() -> Policy:
         return out_work / cap_rate.clamp_min(1e-9)
 
     def score(jobs, sites, state, clock, key):
-        mine = jobs.work[:, None] / (
-            sites.speed[None, :] * jobs.cores[:, None].float()
+        mine = jobs.work[..., :, None] / (
+            sites.speed[..., None, :] * jobs.cores[..., :, None].float()
         ).clamp_min(1e-9)
-        stage = sites.latency[None, :] + jobs.bytes_in[:, None] / sites.bw_in[None, :]
-        return -(_drain(jobs, sites)[None, :] + mine + stage)
+        stage = (sites.latency[..., None, :]
+                 + jobs.bytes_in[..., :, None] / sites.bw_in[..., None, :])
+        return -(_drain(jobs, sites)[..., None, :] + mine + stage)
 
     def score_cand(jobs, sites, state, clock, key, cand):
         mine = jobs.work[:, None] / (sites.speed[cand] * jobs.cores[:, None].float()).clamp_min(1e-9)
@@ -209,7 +217,7 @@ def panda_site_score(jobs, sites, w_speed=1.0, w_free=1.0, w_queue=2.0, w_fail=4
     sum carries the JAX package's bits whether or not its compiler fuses the
     multiply-adds."""
     cores_f = sites.cores.float().clamp_min(1.0)
-    norm_speed = sites.speed / sites.speed.max().clamp_min(1e-9)
+    norm_speed = sites.speed / sites.speed.amax(-1, keepdim=True).clamp_min(1e-9)
     free_frac = sites.free_cores.float() / cores_f
     queue_frac = _queued_cores(jobs, sites) / cores_f
     return (

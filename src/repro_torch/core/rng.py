@@ -56,16 +56,19 @@ def _counters(n: int, device):
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``int64[num, 2]``, key ``i`` hashes counter ``i``."""
+    """``jax.random.split``: ``int64[num, 2]``, key ``i`` hashes counter ``i``.
+    A batch of keys ``[K, 2]`` splits to ``[K, num, 2]``, each row its own
+    key's split."""
     hi, lo = _counters(num, key.device)
     return torch.stack(threefry2x32(key, hi, lo), dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: hash the counter ``(0, data)`` under the key."""
+    """``jax.random.fold_in``: hash the counter ``(0, data)`` under the key
+    (``[2]``, or a batch ``[K, 2]`` folded key by key)."""
     x = torch.tensor([0, int(data) & _MASK], dtype=torch.int64, device=key.device)
     o0, o1 = threefry2x32(key, x[:1], x[1:])
-    return torch.cat([o0, o1])
+    return torch.cat([o0, o1], -1)
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:

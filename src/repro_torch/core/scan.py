@@ -44,6 +44,7 @@ def cumsum_f32(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     axis to a multiple of 16, scan each row of 16 sequentially, scan the row
     totals the same way (recursively), and add each row's exclusive offset.
     Every position of the other axes is scanned on its own."""
+    dim %= max(x.dim(), 1)
     if dim != 0:
         return cumsum_f32(x.movedim(dim, 0), 0).movedim(0, dim)
     n, rest = x.shape[0], x.shape[1:]

@@ -16,8 +16,8 @@ The JAX package's observability layer, on PyTorch:
   wall-clock breakdown.  ``manifest_drift`` diffs two manifests'
   environment blocks: a change of environment explains a change of speed.
 
-``lane_occupancy`` (ensemble tracing) comes with the ensembles (ROADMAP
-Queue 1 item 12).
+- ``lane_occupancy``: per-lane occupancy of an ensemble's result (rounds,
+  the lock-step share, padding, the phase-skip guard's hit rate).
 """
 from __future__ import annotations
 
@@ -438,3 +438,77 @@ def manifest_drift(fresh: dict, baseline: dict) -> list[dict]:
         if a != b:
             diffs.append({"key": f"{section}.{key}", "fresh": a, "baseline": b})
     return diffs
+
+
+# --------------------------------------------------------------------------
+# lane occupancy of scenario ensembles
+# --------------------------------------------------------------------------
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def lane_occupancy(result, buckets=None) -> dict:
+    """Per-lane occupancy of an ensemble ``SimResult`` (leading K).
+
+    Per lane: rounds executed, ``active_frac`` (its rounds over the slowest
+    lane's: the lock-step share the batched loop spends on it), valid jobs
+    and padding.  When the run logged frames (``log_rows > 0``), each lane
+    also reports ``work_round_frac``, the share of its logged rounds with
+    QUEUED or ASSIGNED rows (rounds the phase-skip guard could not skip),
+    and ``skip_frac``, its complement.  ``buckets`` (a ``ScenarioBuckets``)
+    adds ``ScenarioBuckets.padding_stats``."""
+    from .types import ASSIGNED, QUEUED
+
+    rounds = np.atleast_1d(_host(result.rounds)).reshape(-1)
+    K = rounds.size
+    valid = _host(result.jobs.valid).reshape(K, -1)
+    cap = valid.shape[-1]
+    n_valid = valid.sum(-1)
+    max_r = max(int(rounds.max()), 1)
+
+    work_frac = [None] * K
+    log = getattr(result, "log", None)
+    if log is not None and _host(log.time).ndim >= 1:
+        counts = _host(log.counts)
+        counts = counts.reshape(K, -1, counts.shape[-1])
+        ridx = _host(log.round_idx).reshape(K, -1)
+        for i in range(K):
+            m = ridx[i] >= 0
+            if m.any():
+                work = (counts[i, m, QUEUED] + counts[i, m, ASSIGNED]) > 0
+                work_frac[i] = float(work.mean())
+
+    lanes = []
+    for i in range(K):
+        lane = dict(
+            lane=i,
+            rounds=int(rounds[i]),
+            active_frac=round(float(rounds[i]) / max_r, 4),
+            n_jobs=int(n_valid[i]),
+            padded_rows=int(cap - n_valid[i]),
+            padding_frac=round(1.0 - float(n_valid[i]) / max(cap, 1), 4),
+        )
+        if work_frac[i] is not None:
+            lane["work_round_frac"] = round(work_frac[i], 4)
+            lane["skip_frac"] = round(1.0 - work_frac[i], 4)
+        lanes.append(lane)
+
+    wf = [w for w in work_frac if w is not None]
+    out = dict(
+        lanes=lanes,
+        summary=dict(
+            n_lanes=K,
+            rounds_max=int(rounds.max()),
+            rounds_total=int(rounds.sum()),
+            active_frac_mean=round(float(rounds.mean()) / max_r, 4),
+            lockstep_waste_frac=round(1.0 - float(rounds.sum()) / (K * max_r), 4),
+            padding_frac_mean=round(1.0 - float(n_valid.mean()) / max(cap, 1), 4),
+            **({"work_round_frac_mean": round(float(np.mean(wf)), 4),
+                "skip_frac_mean": round(1.0 - float(np.mean(wf)), 4)} if wf else {}),
+        ),
+    )
+    if buckets is not None:
+        out["buckets"] = buckets.padding_stats()
+    return out

@@ -8,6 +8,7 @@ GPU.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -37,6 +38,24 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def take(x: torch.Tensor, idx: torch.Tensor, tail: int = 0) -> torch.Tensor:
+    """``x[idx]`` along the axis before ``x``'s last ``tail`` axes, lane by
+    lane: ``x [..., S, *T]`` at int64 ``idx [..., *I]`` gives
+    ``[..., *I, *T]``, each lane of the leading axes looked up in its own
+    ``x``; a negative index counts from the end, as in indexing.  Without
+    lane axes it is plain indexing."""
+    lead = x.dim() - 1 - tail
+    if lead == 0:
+        return x[idx]
+    lanes, n = x.shape[:lead], x.shape[lead]
+    idx = idx.remainder(n)
+    if tail == 0 and idx.dim() == x.dim():
+        return torch.gather(x, -1, idx)
+    off = torch.arange(0, math.prod(lanes) * n, n, device=x.device)
+    off = off.view(*lanes, *([1] * (idx.dim() - lead)))
+    return x.reshape(-1, *x.shape[lead + 1:])[idx + off]
 
 
 class JobsState(NamedTuple):
@@ -113,6 +132,7 @@ class EventLog(NamedTuple):
     site_running: torch.Tensor  # i32[R, S]
     extra: dict                 # {name: [R, ...]} subsystem-declared columns
     cursor: int                 # next write slot (wraps); the host loop owns it
+                                # (an ensemble's result holds each lane's, i32[K])
 
     @property
     def rows(self) -> int:
@@ -121,7 +141,12 @@ class EventLog(NamedTuple):
 
 class EngineState(NamedTuple):
     """The round-loop carry.  ``round`` and the log cursor are host integers:
-    the loop runs in Python and decides on the host which rounds log."""
+    the loop runs in Python and decides on the host which rounds log.
+
+    An ensemble of K lanes carries a leading K on every tensor (``clock``
+    and ``halted`` are ``[K]``) and counts each lane's own rounds in
+    ``ext["~rounds"]``; ``round`` counts the loop's iterations, which every
+    lane still running has taken."""
 
     clock: torch.Tensor        # f32[]
     round: int
@@ -136,6 +161,9 @@ class EngineState(NamedTuple):
 
 
 class SimResult(NamedTuple):
+    """A run's outcome; an ensemble's has a leading K on every tensor, with
+    ``makespan`` f32[K], ``rounds`` i32[K] and ``log.cursor`` i32[K]."""
+
     makespan: torch.Tensor     # f32[] clock at termination
     rounds: int
     jobs: JobsState
@@ -231,7 +259,8 @@ JOB_PAD_FILLS = dict(
 
 
 def pad_jobs_capacity(jobs: JobsState, capacity: int) -> JobsState:
-    """Grow a JobsState to ``capacity`` rows of inert padding."""
+    """Grow a JobsState to ``capacity`` rows of inert padding (along the last
+    axis, so a lane-stacked ``[K, J]`` state pads every lane)."""
     J = jobs.capacity
     if capacity == J:
         return jobs
@@ -239,9 +268,9 @@ def pad_jobs_capacity(jobs: JobsState, capacity: int) -> JobsState:
         raise ValueError(f"capacity {capacity} < current job capacity {J}")
 
     def pad(name, x):
-        fill = torch.full((capacity - J,) + x.shape[1:], JOB_PAD_FILLS.get(name, 0),
+        fill = torch.full(x.shape[:-1] + (capacity - J,), JOB_PAD_FILLS.get(name, 0),
                           dtype=x.dtype, device=x.device)
-        return torch.cat([x, fill])
+        return torch.cat([x, fill], -1)
 
     return JobsState(**{k: pad(k, v) for k, v in jobs._asdict().items()})
 
@@ -290,23 +319,32 @@ def make_sites(
     )
 
 
-def make_log(rows: int, n_sites: int, extra: dict | None = None, device="cuda") -> EventLog:
+def make_log(rows: int, n_sites: int, extra: dict | None = None, device="cuda",
+             lanes: tuple = ()) -> EventLog:
     """Allocate the ring buffer (at least one row, as the JAX engine does).
     ``extra`` maps subsystem column names to their time-zero row values;
-    unwritten rows keep that initial value."""
+    unwritten rows keep that initial value.  ``lanes`` (an ensemble's
+    ``(K,)``) leads every column, and each lane's ``extra`` values lead with
+    it."""
     device = resolve_device(device)
     r = max(rows, 1)
     i32 = torch.int32
+    n = len(lanes)
     extra = {k: torch.as_tensor(v, device=device) for k, v in (extra or {}).items()}
+
+    def full(shape, fill, dtype):
+        return torch.full((*lanes, r, *shape), fill, dtype=dtype, device=device)
+
     return EventLog(
-        time=torch.full((r,), float("nan"), dtype=torch.float32, device=device),
-        round_idx=torch.full((r,), -1, dtype=i32, device=device),
-        counts=torch.zeros((r, N_STATES), dtype=i32, device=device),
-        n_started=torch.zeros((r,), dtype=i32, device=device),
-        n_completed=torch.zeros((r,), dtype=i32, device=device),
-        site_free=torch.zeros((r, n_sites), dtype=i32, device=device),
-        site_queued=torch.zeros((r, n_sites), dtype=i32, device=device),
-        site_running=torch.zeros((r, n_sites), dtype=i32, device=device),
-        extra={k: v[None].expand((r,) + v.shape).clone() for k, v in extra.items()},
+        time=full((), float("nan"), torch.float32),
+        round_idx=full((), -1, i32),
+        counts=full((N_STATES,), 0, i32),
+        n_started=full((), 0, i32),
+        n_completed=full((), 0, i32),
+        site_free=full((n_sites,), 0, i32),
+        site_queued=full((n_sites,), 0, i32),
+        site_running=full((n_sites,), 0, i32),
+        extra={k: v.unsqueeze(n).expand(*v.shape[:n], r, *v.shape[n:]).clone()
+               for k, v in extra.items()},
         cursor=0,
     )

@@ -34,7 +34,7 @@ import torch
 
 from . import policies as _policies
 from .replicas import ReplicaState, make_replicas, materialize_outputs
-from .types import CANCELLED, DONE, FAILED, PENDING, JobsState, make_jobs
+from .types import CANCELLED, DONE, FAILED, PENDING, JobsState, make_jobs, take
 
 
 class WorkflowState(NamedTuple):
@@ -64,10 +64,12 @@ def parent_status(parents: torch.Tensor, job_state: torch.Tensor):
     ``ready[j]``: every parent of ``j`` is DONE (vacuously true for roots).
     ``dead[j]``: some parent is terminally FAILED or already CANCELLED, so
     the job must be cascade-cancelled.  A parent that merely failed an
-    attempt and was resubmitted is neither, so the child stays gated.
+    attempt and was resubmitted is neither, so the child stays gated.  With
+    lanes (``parents [K, J, P]``, ``job_state [K, J]``) each lane reads its
+    own jobs.
     """
     J = job_state.shape[-1]
-    ps = job_state[parents.clamp(0, J - 1).long()]        # [J, P]
+    ps = take(job_state, parents.clamp(0, J - 1).long())  # [J, P]
     has = parents >= 0
     ready = (~has | (ps == DONE)).all(-1)
     dead = (has & ((ps == FAILED) | (ps == CANCELLED))).any(-1)
@@ -105,10 +107,10 @@ def _wf_on_completions(sub, ctx):
     _, dead = parent_status(wf.parents, jobs.state)
     cancel_now = (jobs.state == PENDING) & jobs.valid & dead
     ctx.jobs = jobs._replace(state=torch.where(cancel_now, CANCELLED, jobs.state))
-    ctx.ext["workflow"] = wf._replace(n_cancelled=wf.n_cancelled + cancel_now.sum().int())
+    ctx.ext["workflow"] = wf._replace(n_cancelled=wf.n_cancelled + cancel_now.sum(-1).int())
     # a cancel round changed state: the cascade needs one round per DAG
     # level even when no timed event remains
-    ctx.progressed = ctx.progressed | cancel_now.any()
+    ctx.progressed = ctx.progressed | cancel_now.any(-1)
 
 
 def _wf_on_start(sub, ctx):
@@ -127,16 +129,16 @@ def _wf_on_start(sub, ctx):
                               produced, ctx.clock)
     ctx.ext["data"] = dext._replace(replicas=rep)
     wf = ctx.ext["workflow"]
-    ctx.ext["workflow"] = wf._replace(n_produced=wf.n_produced + produced.sum().int())
+    ctx.ext["workflow"] = wf._replace(n_produced=wf.n_produced + produced.sum(-1).int())
 
 
 def _wf_pad_jobs(sub, wf: WorkflowState, old_capacity: int, new_capacity: int):
     """Grow the parent matrix to a padded job capacity (padding rows are
-    parentless, so they stay inert like the padded jobs themselves)."""
-    pad = new_capacity - wf.parents.shape[-2]
-    fill = torch.full((pad, wf.parents.shape[-1]), -1, dtype=wf.parents.dtype,
-                      device=wf.parents.device)
-    return wf._replace(parents=torch.cat([wf.parents, fill]))
+    parentless, so they stay inert like the padded jobs themselves); a
+    lane-stacked ``[K, J, P]`` matrix grows in every lane."""
+    p = wf.parents
+    fill = p.new_full(p.shape[:-2] + (new_capacity - p.shape[-2], p.shape[-1]), -1)
+    return wf._replace(parents=torch.cat([p, fill], -2))
 
 
 def _wf_finalize(sub, wf, jobs, sites, clock):

@@ -31,6 +31,11 @@
 //      tiles, in place, 32 tiles a step.
 //   3. place (one thread a claim): pos += its tile's base for its bin, and
 //      admit = pos + size <= cap + 1e-6.
+// Lanes: K independent problems (scores [K][N][E], sizes [K][N], caps
+// [K][E]; outputs [K][N][k]) take the same three launches.  Each lane has its
+// own tiles (a tile never straddles lanes) and its own tile totals
+// ([K][E][n_tiles], scanned per lane and bin), so a lane's results are those
+// of a call on it alone; K = 1 is the one-problem kernel.
 // The scans add in another order than the plain version's cumulative sum.
 // For integral sizes (cores; tokens = 1) whose sums stay below 2^24 every
 // partial sum is an integer that f32 holds exactly, so idx, admit and pos
@@ -105,21 +110,27 @@ template <bool VEC, int NR>
 __global__ void __launch_bounds__(kThreads)
     assign_rows_kernel(const float* __restrict__ scores, const float* __restrict__ sizes, int n,
                        int e_count, int k, int block_rows, int tiles_per_block, int n_tiles,
-                       int* __restrict__ idx, float* __restrict__ gate, float* __restrict__ pos,
-                       float* __restrict__ tile_tot) {
+                       int lane_ctas, int* __restrict__ idx, float* __restrict__ gate,
+                       float* __restrict__ pos, float* __restrict__ tile_tot) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_bin = reinterpret_cast<int*>(smem);                     // [k][kTileRows]
   float* s_w = reinterpret_cast<float*>(s_bin + k * kTileRows);  // [kTileRows]
   float* s_run = s_w + kTileRows;                                // [kWarps][E]
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int block = blockIdx.x / tiles_per_block;
-  const int t = blockIdx.x % tiles_per_block;
-  const long long blk0 = static_cast<long long>(block) * block_rows;
+  // this CTA's problem (lane of the batch) and its tile there; rows are
+  // numbered across lanes ([K][N] flattened), so every row access below is
+  // the one-problem kernel's
+  const int problem = blockIdx.x / lane_ctas;
+  const int cta = blockIdx.x - problem * lane_ctas;
+  const int block = cta / tiles_per_block;
+  const int t = cta % tiles_per_block;
+  const long long lane0 = static_cast<long long>(problem) * n;
+  const long long blk0 = lane0 + static_cast<long long>(block) * block_rows;
   const long long r0 = blk0 + static_cast<long long>(t) * kTileRows;
   long long r1 = r0 + kTileRows;
   if (r1 > blk0 + block_rows) r1 = blk0 + block_rows;
-  if (r1 > n) r1 = n;
+  if (r1 > lane0 + n) r1 = lane0 + n;
   const int rows = r1 > r0 ? static_cast<int>(r1 - r0) : 0;
 
   // ---- gates and picks: one warp a row, the row read once; the warp's next
@@ -242,12 +253,14 @@ __global__ void __launch_bounds__(kThreads)
       __syncwarp();
     }
     const long long tile = (static_cast<long long>(block) * k + slot) * tiles_per_block + t;
-    for (int e = lane; e < e_count; e += kWarp) tile_tot[e * static_cast<long long>(n_tiles) + tile] = run[e];
+    const long long bin0 = static_cast<long long>(problem) * e_count;
+    for (int e = lane; e < e_count; e += kWarp) tile_tot[(bin0 + e) * n_tiles + tile] = run[e];
     __syncwarp();
   }
 }
 
-// tile_tot[e][*] becomes its exclusive prefix over tiles, in place.
+// tile_tot[e][*] becomes its exclusive prefix over tiles, in place; with
+// lanes, e runs over the K * E rows of [K][E][n_tiles].
 __global__ void assign_base_kernel(float* __restrict__ tile_tot, int n_tiles, int e_count) {
   const int e = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -271,22 +284,27 @@ __global__ void assign_base_kernel(float* __restrict__ tile_tot, int n_tiles, in
 
 __global__ void assign_place_kernel(const int* __restrict__ idx, const float* __restrict__ sizes,
                                     const float* __restrict__ caps,
-                                    const float* __restrict__ base, long long claims, int k,
-                                    int block_rows, int tiles_per_block, int n_tiles,
-                                    bool* __restrict__ admit, float* __restrict__ pos) {
+                                    const float* __restrict__ base, long long claims, int n,
+                                    int e_count, int k, int block_rows, int tiles_per_block,
+                                    int n_tiles, bool* __restrict__ admit,
+                                    float* __restrict__ pos) {
   const long long o = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (o >= claims) return;
   const int b = idx[o];
   bool a = false;
   if (b >= 0) {
-    const long long r = o / k;
-    const int slot = static_cast<int>(o - r * k);
+    const long long lane_claims = static_cast<long long>(n) * k;
+    const long long problem = o / lane_claims;
+    const long long ol = o - problem * lane_claims;   // claim within its lane
+    const long long r = ol / k;
+    const int slot = static_cast<int>(ol - r * k);
     const long long block = r / block_rows;
     const int t = static_cast<int>((r - block * block_rows) / kTileRows);
     const long long tile = (block * k + slot) * tiles_per_block + t;
-    const float p = base[static_cast<long long>(b) * n_tiles + tile] + pos[o];
+    const long long bin = problem * e_count + b;
+    const float p = base[bin * n_tiles + tile] + pos[o];
     pos[o] = p;
-    a = p + sizes[r] <= caps[b] + 1e-6f;
+    a = p + sizes[problem * n + r] <= caps[bin] + 1e-6f;
   }
   admit[o] = a;
 }
@@ -308,35 +326,38 @@ Plan plan(int n, int k, int block_n) {
 }
 
 template <bool VEC, int NR>
-cudaError_t launch_rows(const Plan& p, size_t smem, cudaStream_t st, const float* scores,
-                        const float* sizes, int n, int e_count, int k, int* idx, float* gate,
-                        float* pos, float* scratch) {
+cudaError_t launch_rows(const Plan& p, int lanes, size_t smem, cudaStream_t st,
+                        const float* scores, const float* sizes, int n, int e_count, int k,
+                        int* idx, float* gate, float* pos, float* scratch) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         assign_rows_kernel<VEC, NR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  assign_rows_kernel<VEC, NR><<<p.ctas, kThreads, smem, st>>>(
-      scores, sizes, n, e_count, k, p.block_rows, p.tiles_per_block, p.n_tiles, idx, gate, pos,
-      scratch);
+  assign_rows_kernel<VEC, NR><<<static_cast<unsigned>(static_cast<long long>(lanes) * p.ctas),
+                                kThreads, smem, st>>>(
+      scores, sizes, n, e_count, k, p.block_rows, p.tiles_per_block, p.n_tiles, p.ctas, idx,
+      gate, pos, scratch);
   return cudaSuccess;
 }
 
 }  // namespace
 
-// Floats of scratch the caller allocates for assign_launch: E * n_tiles.
-extern "C" long long assign_scratch_floats(int n, int e_count, int k, int block_n) {
-  if (n <= 0 || k <= 0) return 0;
-  return static_cast<long long>(e_count) * plan(n, k, block_n).n_tiles;
+// Floats of scratch the caller allocates for assign_launch: K * E * n_tiles.
+extern "C" long long assign_scratch_floats(int lanes, int n, int e_count, int k, int block_n) {
+  if (lanes <= 0 || n <= 0 || k <= 0) return 0;
+  return static_cast<long long>(lanes) * e_count * plan(n, k, block_n).n_tiles;
 }
 
-// Launch the three passes on `stream`; returns cudaGetLastError() after them.
-extern "C" int assign_launch(const float* scores, const float* sizes, const float* caps, int n,
-                             int e_count, int k, int block_n, int* idx, float* gate, bool* admit,
-                             float* pos, float* scratch, void* stream) {
+// Launch the three passes over `lanes` problems of n rows on `stream`;
+// returns cudaGetLastError() after them.
+extern "C" int assign_launch(const float* scores, const float* sizes, const float* caps,
+                             int lanes, int n, int e_count, int k, int block_n, int* idx,
+                             float* gate, bool* admit, float* pos, float* scratch,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || k <= 0) return static_cast<int>(cudaGetLastError());
+  if (lanes <= 0 || n <= 0 || k <= 0) return static_cast<int>(cudaGetLastError());
   const Plan p = plan(n, k, block_n);
   const size_t smem = sizeof(int) * static_cast<size_t>(k) * kTileRows +
                       sizeof(float) * (kTileRows + static_cast<size_t>(kWarps) * e_count);
@@ -345,24 +366,25 @@ extern "C" int assign_launch(const float* scores, const float* sizes, const floa
   const int groups = e_count > kRegBins ? kMaxRegs / 4 : (e_count + 4 * kWarp - 1) / (4 * kWarp);
   cudaError_t err = cudaSuccess;
   switch ((groups < 1 ? 1 : groups) * 2 + (vec ? 1 : 0)) {
-    case 2: err = launch_rows<false, 4>(p, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
-    case 3: err = launch_rows<true, 4>(p, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
-    case 4: err = launch_rows<false, 8>(p, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
-    case 5: err = launch_rows<true, 8>(p, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
-    case 6: err = launch_rows<false, 12>(p, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
-    case 7: err = launch_rows<true, 12>(p, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
-    case 8: err = launch_rows<false, 16>(p, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
-    default: err = launch_rows<true, 16>(p, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
+    case 2: err = launch_rows<false, 4>(p, lanes, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
+    case 3: err = launch_rows<true, 4>(p, lanes, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
+    case 4: err = launch_rows<false, 8>(p, lanes, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
+    case 5: err = launch_rows<true, 8>(p, lanes, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
+    case 6: err = launch_rows<false, 12>(p, lanes, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
+    case 7: err = launch_rows<true, 12>(p, lanes, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
+    case 8: err = launch_rows<false, 16>(p, lanes, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
+    default: err = launch_rows<true, 16>(p, lanes, smem, st, scores, sizes, n, e_count, k, idx, gate, pos, scratch); break;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (e_count > 0) {
-    assign_base_kernel<<<(e_count + kWarps - 1) / kWarps, kThreads, 0, st>>>(scratch, p.n_tiles,
-                                                                            e_count);
+  const int bins = lanes * e_count;   // rows of the tile totals, one warp each
+  if (bins > 0) {
+    assign_base_kernel<<<(bins + kWarps - 1) / kWarps, kThreads, 0, st>>>(scratch, p.n_tiles,
+                                                                         bins);
   }
-  const long long claims = static_cast<long long>(n) * k;
+  const long long claims = static_cast<long long>(lanes) * n * k;
   assign_place_kernel<<<static_cast<unsigned>((claims + kPlaceThreads - 1) / kPlaceThreads),
-                        kPlaceThreads, 0, st>>>(idx, sizes, caps, scratch, claims, k,
-                                                p.block_rows, p.tiles_per_block, p.n_tiles, admit,
-                                                pos);
+                        kPlaceThreads, 0, st>>>(idx, sizes, caps, scratch, claims, n, e_count,
+                                                k, p.block_rows, p.tiles_per_block, p.n_tiles,
+                                                admit, pos);
   return static_cast<int>(cudaGetLastError());
 }

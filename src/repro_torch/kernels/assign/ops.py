@@ -11,8 +11,10 @@ from .ref import assign_ref
 
 
 def assign(scores, sizes, caps, *, k: int = 1, block_n: int = 256):
-    """Capacity-constrained greedy assignment (see ref.py for semantics): the
-    Hopper kernel for CUDA tensors, the plain version for CPU tensors."""
+    """Capacity-constrained greedy assignment (see ref.py for semantics), one
+    problem ``[N, E]`` or K of them ``[K, N, E]``: the Hopper kernel for CUDA
+    tensors (one set of launches for all K), the plain version for CPU
+    tensors."""
     if scores.is_cuda:
         return assign_cuda(scores.contiguous(), sizes.contiguous(), caps.contiguous(),
                            k=k, block_n=block_n)
@@ -33,15 +35,18 @@ def _sizes_and_caps(jobs_cores, queued, sites):
 
 def make_capacity_assign(jobs_cores: torch.Tensor | None = None, *, block_n: int = 256):
     """Build an engine-compatible ``Policy.assign`` fn: jobs -> sites under
-    free-core capacity; jobs beyond capacity stay QUEUED at the main server."""
+    free-core capacity; jobs beyond capacity stay QUEUED at the main server.
+    In an ensemble (``scores [K, J, S]``) every lane is its own problem, all
+    in one call; ``jobs_cores`` is ``[J]`` (the same for every lane) or
+    ``[K, J]``."""
 
     def assign_fn(scores, queued, feasible, sites):
         NEG = -1e30
-        masked = torch.where(feasible & queued[:, None], scores, NEG)
+        masked = torch.where(feasible & queued[..., None], scores, NEG)
         sizes, caps = _sizes_and_caps(jobs_cores, queued, sites)
         idx, gate, admit, pos = assign(masked, sizes, caps, k=1, block_n=block_n)
-        ok = admit[:, 0] & queued
-        return torch.where(ok, idx[:, 0], -1), ok
+        ok = admit[..., 0] & queued
+        return torch.where(ok, idx[..., 0], -1), ok
 
     return assign_fn
 

@@ -16,6 +16,9 @@ Outputs
   gate    f32[N, k]  softmax(scores) value of the chosen bin
   admit   bool[N, k] admitted under capacity
   pos     f32[N, k]  units consumed in the chosen bin *before* this item
+
+A leading lane axis (``scores [K, N, E]``, ``sizes [K, N]``, ``caps [K, E]``)
+solves K independent problems, each as its own call would.
 """
 from __future__ import annotations
 
@@ -25,6 +28,9 @@ NEG_INF = -1e30
 
 
 def assign_ref(scores, sizes, caps, *, k: int = 1, block_n: int = 256):
+    if scores.dim() == 3:
+        outs = [assign_ref(s, z, c, k=k, block_n=block_n) for s, z, c in zip(scores, sizes, caps)]
+        return tuple(torch.stack(col) for col in zip(*outs))
     N, E = scores.shape
     dev = scores.device
     scores = scores.float()

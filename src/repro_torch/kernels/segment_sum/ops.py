@@ -2,6 +2,8 @@
 CPU tensors."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .segment_sum_cuda import segment_sum_cuda
@@ -20,7 +22,25 @@ def segment_sum_ref(values: torch.Tensor, seg: torch.Tensor, num_segments: int) 
 
 def segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Sum ``values`` (``[J]`` or ``[J, F]``, f32 or i32) per segment id, in row
-    order; ids outside ``[0, num_segments)`` are dropped."""
+    order; ids outside ``[0, num_segments)`` are dropped.
+
+    With leading lane dimensions (``seg [..., J]``, ``values [..., J]`` or
+    ``[..., J, F]``) each lane sums on its own, ``[..., num_segments(, F)]``,
+    in one call over ``lanes * num_segments`` segments: lane ``l``'s segment
+    ``s`` is id ``l * num_segments + s``.  A lane's out-of-range ids are
+    dropped before the offset, so none reaches the next lane's segments;
+    every segment still folds its rows in row order, so each lane gets the
+    bits of its own call."""
+    if seg.dim() > 1:
+        lanes, J = seg.shape[:-1], seg.shape[-1]
+        n = math.prod(lanes)
+        off = torch.arange(0, n * num_segments, num_segments, dtype=seg.dtype,
+                           device=seg.device).view(*lanes, 1)
+        inside = (seg >= 0) & (seg < num_segments)
+        ids = torch.where(inside, seg + off, n * num_segments).reshape(-1)
+        tail = values.shape[seg.dim():]
+        out = segment_sum(values.reshape(n * J, *tail), ids, n * num_segments)
+        return out.view(*lanes, num_segments, *tail)
     if values.is_cuda:
         return segment_sum_cuda(values.contiguous(), seg.contiguous(), num_segments)
     return segment_sum_ref(values, seg, num_segments)
