@@ -22,9 +22,10 @@ check does not hold:
    work included) and the kernels' device time from ``torch.profiler``,
    with the launches a call (the segment sum on a uniform id mix, on one
    where 95% of rows carry the padding id, and at 90001 segments); and the
-   assignment kernel with a lane axis (one call for K problems) against its
-   plain version and against K unbatched launches at K = 3 and at the
-   ensemble shape [16, 100000, 300], where it is timed;
+   assignment kernel and the fused kernel with a lane axis (one call for K
+   problems) against their plain versions and against K unbatched launches
+   at K = 3 and at the ensemble shapes [16, 100000, 300] and [16, 100000,
+   16], where they are timed;
 3. drive the dense path at WLCG scale: ``simulate`` on 300 sites and 100000
    jobs with ``panda_dispatch`` plus capacity dispatch, twice, with the
    launch counters set to 0 just before the first run; require every round
@@ -40,7 +41,7 @@ check does not hold:
    bit for bit; print rounds/s (and the same policy's dense rate), the
    candidate build's seconds, the fused call's time between CUDA events in
    the second run, and the fused kernels' device time per launch in a
-   profile of PROFILE_ROUNDS rounds;
+   profile of SHORT_PROFILE_ROUNDS rounds;
 5. run a 50-site, 5000-job scenario with failures on the card and on the
    CPU, cut to its first DRAIN_ROUNDS rounds (of the 10103 that drain it,
    to keep the smoke's time with phases 9 to 12), and require the same
@@ -73,7 +74,7 @@ check does not hold:
    require the assignment kernel once in every round with work, a preempted
    job, and the two runs bit-identical (subsystem states and log included);
    print rounds/s beside phase 3's, segment sums a round, the device busy
-   share over PROFILE_ROUNDS profiled rounds, and the host seconds of
+   share over SHORT_PROFILE_ROUNDS profiled rounds, and the host seconds of
    ``transition_rows`` and ``ml_dataset``;
 10. the same pipeline at 50 sites and 1250 workflows, with the flaky-site
    windows and a rolling brown-out's in one calendar, cut to CROSS_ROUNDS
@@ -90,8 +91,8 @@ check does not hold:
    WAN transfers and
    cache hits, the catalog invariants, the assignment kernel once in every
    round with work; print rounds/s beside phase 3's, segment sums and
-   kernels a round, the device busy share over PROFILE_ROUNDS profiled rounds, and the
-   calls of ``insert_mask`` under storage pressure; (b) the same with the
+   kernels a round, the device busy share over SHORT_PROFILE_ROUNDS profiled rounds,
+   and the calls of ``insert_mask`` under storage pressure; (b) the same with the
    FTS transfer queues (``max_active=4``, ``queue_slots=256``), cut to
    DATA_TR_ROUNDS rounds: the ledger ``n_enq = n_done + n_cancel + in
    flight`` must balance; print ``n_overflow`` and rounds/s; (c)
@@ -109,15 +110,15 @@ check does not hold:
 13. fault injection at WLCG scale (run after phase 3): ``flaky_grid(300,
    n_flaky=3)``, the 100000 jobs, ``panda_dispatch`` with capacity dispatch
    and a 256-row log, resubmission backoff (60 s), walltime kills (at
-   FAULT_WALLTIME), the circuit breaker (0.7), ``max_retries=4``; 2000
-   rounds through ``simulate`` with a recorder and again through
+   FAULT_WALLTIME), the circuit breaker (0.7), ``max_retries=4``;
+   FULL_MAX_ROUNDS rounds through ``simulate`` with a recorder and again through
    ``monitor.watch`` in FAULT_SEGMENTS segments with an NDJSON sink and a
    recorder, counters set to 0 just before the first: the two must be
    bit-identical, with kills, breaker trips and backoff, the assignment
    kernel once in every round with work, the stream rendered by
    ``follow_stream``; print rounds/s beside phase 3's, segment sums and
-   kernels a round, the device busy share over PROFILE_ROUNDS profiled rounds, the
-   recorder's spans and the packed against the general start order;
+   kernels a round, the device busy share over SHORT_PROFILE_ROUNDS profiled rounds,
+   the recorder's spans and the packed against the general start order;
 14. transfer failures at WLCG scale: phase 11(b)'s data path with
    ``lossy_links(300, p=0.05, hot=3)``, ``xfer_backoff=30`` and a
    replica-loss calendar over the 1024 datasets, DATA_TR_ROUNDS rounds: the
@@ -137,14 +138,21 @@ check does not hold:
    before the first run: bit-identical, one assign launch a round with work
    for all 16 lanes; print lane-rounds/s beside phase 3's solo rounds/s,
    segment sums a round, kernels a round and the device busy share over
-   PROFILE_ROUNDS profiled rounds, the batched assign call's time and peak
-   memory; then the same lanes in ENS_BUCKETS buckets (equal to the flat
-   run) and lanes 0 and 15 alone through ``simulate`` (each equal to its
+   SHORT_PROFILE_ROUNDS profiled rounds, the batched assign call's time and
+   peak memory; then the same lanes in ENS_BUCKETS buckets, ENS_BUCKET_ROUNDS
+   rounds (equal to the flat run of as many rounds) and lanes 0 and 15 alone through ``simulate`` (each equal to its
    lane); (b) four lanes of phase 9's configuration, each its own outage
    seed, ENS_SUB_ROUNDS rounds, lane-rounds/s beside phase 9's rate; (c)
    four ragged lanes at S=50 (3000 to 5000 jobs in workflows, flaky-site
    outages), XENS_ROUNDS rounds on the card and on the CPU: every array
-   equal, one lane's transition CSV and ML NDJSON byte for byte.
+   equal, one lane's transition CSV and ML NDJSON byte for byte; then four
+   lanes at S=50 with data, transfer queues and faults at ``topk=8``,
+   draining at different rounds, the same way; (d) the 16 lanes of (a)
+   with ``data_locality`` and the fused capacity assign at ``topk=16``, one
+   fused launch a round for all lanes, lane 15 alone; (e) four lanes of
+   phase 11(b)'s data and transfer-queue configuration, traced, with the
+   catalog column sum timed, then four lanes of phase 13's fault channels
+   (lane 0 alone too), each beside its solo rate.
 
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
@@ -170,18 +178,22 @@ PEAK_BF16_OPS_PER_S = 989e12     # H100 SXM, dense bf16 tensor cores
 
 ENGINE_J, ENGINE_S = 100_000, 300
 ENGINE_K = 16                  # bench_wlcg_scale.py's top-k
+ENS_K = 16                     # phase 16's lanes
 MANY_SEGMENTS = ENGINE_S * ENGINE_S + 1   # the link sums' segments at S=300
-FULL_MAX_ROUNDS = 2000         # phase 13's rounds
-DENSE_FULL_ROUNDS = 1000       # depth cut of phase 3
-# rounds in each engine profile: reading the profiler's events back takes
-# ~0.5 ms a kernel on the host, and a round launches 800-2800 kernels
+FULL_MAX_ROUNDS = 1300         # depth cut of phase 13: its walltime kills start
+                               # ~1150 rounds in (300 simulated seconds)
+DENSE_FULL_ROUNDS = 600        # depth cut of phase 3
+# rounds in phase 3's profile (the solo path's kernels a round) and in every
+# other engine profile: reading the profiler's events back takes ~0.5 ms a
+# kernel on the host, and a round launches 800-2800 kernels
 PROFILE_ROUNDS = 30
+SHORT_PROFILE_ROUNDS = 10
 SPARSE_FULL_ROUNDS = 500       # depth cut of phase 4
-SUB_FULL_ROUNDS = 1000         # depth cut of phase 9
-DATA_FULL_ROUNDS = 500         # depth cut of phase 11(a)
+SUB_FULL_ROUNDS = 600          # depth cut of phase 9
+DATA_FULL_ROUNDS = 300         # depth cut of phase 11(a)
 DRAIN_ROUNDS = 300             # depth cut of phase 5 (the whole drain takes 10103)
 SPARSE_DRAIN_ROUNDS = 300      # depth cut of phase 6
-CROSS_ROUNDS = 600             # depth cut of phase 10
+CROSS_ROUNDS = 300             # depth cut of phase 10
 ASSIGN_CASES = [  # (N, E, k, block_n)
     (ENGINE_J, ENGINE_S, 1, 256),   # the engine shape
     (64, 8, 1, 32),
@@ -224,34 +236,49 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
-def device_ms(fn, kernel_names, iters: int, forbid=(), counts=None) -> dict:
+def device_ms(fn, kernel_names, iters: int, forbid=(), counts=None, per_call=None) -> dict:
     """Device milliseconds per call of ``fn`` for each named kernel, from
     ``torch.profiler`` over ``iters`` calls: the kernels' own time, without
     the host time between launches that CUDA events around a short call
     would include.  Fails if a kernel whose name holds one of ``forbid`` ran.
-    ``counts``, when given, receives each named kernel's launches per call."""
+    ``counts``, when given, receives each named kernel's launches per call
+    as the profiler recorded them.
+
+    ``per_call`` is the number of launches of each named kernel that one
+    call makes.  When given, a kernel's time per call is its mean time per
+    recorded launch times ``per_call``, and the profile is taken again (up
+    to three times) while the profiler recorded fewer launches than were
+    made, since a share of dropped launches would otherwise pass for a
+    faster kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {name: 0.0 for name in kernel_names}
-    seen = {name: 0 for name in kernel_names}
-    for e in prof.key_averages():
-        bad = [f for f in forbid if f in e.key]
-        check(not bad, f"the profiled calls ran {e.key[:120]}")
-        for name in kernel_names:
-            if name in e.key and e.self_device_time_total > 0:
-                out[name] += e.self_device_time_total / 1e3 / iters
-                seen[name] += e.count
-    check(all(v > 0 for v in out.values()), f"the profiler saw no device time for {out}")
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = {name: 0.0 for name in kernel_names}
+        seen = {name: 0 for name in kernel_names}
+        for e in prof.key_averages():
+            bad = [f for f in forbid if f in e.key]
+            check(not bad, f"the profiled calls ran {e.key[:120]}")
+            for name in kernel_names:
+                if name in e.key and e.self_device_time_total > 0:
+                    total[name] += e.self_device_time_total / 1e3
+                    seen[name] += e.count
+        check(all(v > 0 for v in total.values()), f"the profiler saw no device time for {total}")
+        if per_call is None or all(n == per_call * iters for n in seen.values()):
+            break
+        print(f"[profile] profile {attempt + 1} recorded {json.dumps(seen)} launches of "
+              f"{per_call * iters} made")
     if counts is not None:
         counts.update({name: n / iters for name, n in seen.items()})
-    return out
+    if per_call is None:
+        return {name: t / iters for name, t in total.items()}
+    return {name: t / seen[name] * per_call for name, t in total.items()}
 
 
 def kernel_label(mangled: str) -> str:
@@ -374,7 +401,7 @@ def phase_kernels(device) -> dict:
     call_ms = cuda_ms(lambda: assign_cuda(scores, sizes, caps, k=1), iters=200)
     per_call = {}
     parts = device_ms(lambda: assign_cuda(scores, sizes, caps, k=1), ASSIGN_KERNELS, iters=200,
-                      counts=per_call)
+                      counts=per_call, per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: assign_ref(scores, sizes, caps, k=1), iters=5)
     bytes_moved = N * E * 4 + N * 4 + E * 4 + N * (4 + 4 + 1 + 4)
@@ -513,7 +540,7 @@ def phase_assign_lanes(device) -> dict:
     call_ms = cuda_ms(lambda: assign_cuda(scores, sizes, caps, k=1), iters=50)
     per_call = {}
     parts = device_ms(lambda: assign_cuda(scores, sizes, caps, k=1), ASSIGN_KERNELS, iters=20,
-                      counts=per_call)
+                      counts=per_call, per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: assign_ref(scores, sizes, caps, k=1), iters=2, warmup=1)
     unbatched_ms = cuda_ms(lambda: [assign_cuda(scores[i], sizes[i], caps[i], k=1)
@@ -617,7 +644,7 @@ def phase_fused_kernel(device) -> dict:
     call_ms = cuda_ms(lambda: fused_assign_cuda(*args), iters=200)
     per_call = {}
     parts = device_ms(lambda: fused_assign_cuda(*args), FUSED_KERNELS, iters=200,
-                      counts=per_call)
+                      counts=per_call, per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: fused_assign_ref(*args), iters=5)
     bytes_moved = N * K * (4 + 4) + N * 4 + E * 4 + N * (4 + 1)
@@ -634,7 +661,85 @@ def phase_fused_kernel(device) -> dict:
         replaces="src/repro/kernels/assign/fused.py:38", launches=None, max_abs_err=0.0,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None,
         cuda_ms=call_ms, device_ms=ms, kernels_per_call=sum(per_call.values()),
+        lanes=phase_fused_lanes(device),
     )
+
+
+def fused_lane_inputs(K, N, E, Kc, seed, device):
+    """``fused_inputs`` for K lanes, drawn on the card: candidate rows of
+    sorted distinct site ids with a random number of sentinel pads, sizes 1
+    or 8, integral caps scaled to the rows a site sees."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(seed)
+    scores = torch.randn((K, N, Kc), generator=g, device=device)
+    cand = torch.rand((K, N, E), generator=g, device=device).argsort(-1)[..., :Kc]
+    filled = torch.randint(0, Kc + 1, (K, N, 1), generator=g, device=device)
+    cand = torch.where(torch.arange(Kc, device=device) < filled, cand, E).sort(-1).values
+    sizes = torch.where(torch.rand((K, N), generator=g, device=device) < 0.5, 1.0, 8.0)
+    caps = ((2 + 38 * torch.rand((K, E), generator=g, device=device)) * max(N / E, 1)).floor()
+    return scores, cand.int().contiguous(), sizes, caps
+
+
+FUSED_LANE_CASES = [  # (K, N, E, Kc)
+    (3, 777, 50, 8),                          # ragged tiles, two lanes a row
+    (3, 3000, 2000, 8),                       # sites past the shared-memory table
+    (ENS_K, ENGINE_J, ENGINE_S, ENGINE_K),    # phase 16(d)'s shape
+]
+
+
+def phase_fused_lanes(device) -> dict:
+    """The fused kernel with a lane axis: one call for K problems against
+    its plain version (K unbatched plain calls) and against K unbatched
+    launches, at K = 3 and at phase 16(d)'s shape [16, 100000, 16], E = 300,
+    where it is timed against its bound and 16 unbatched launches."""
+    import torch
+
+    from repro_torch.kernels.assign.fused_cuda import fused_assign_cuda
+    from repro_torch.kernels.assign.fused_ref import fused_assign_ref
+
+    for K, N, E, Kc in FUSED_LANE_CASES:
+        args = fused_lane_inputs(K, N, E, Kc, K * N + E, device)
+        want = fused_assign_ref(*args)
+        got = fused_assign_cuda(*args)
+        torch.cuda.synchronize()
+        for name, w, g in zip(("site", "admit"), want, got):
+            bad = int((w != g).sum())
+            check(bad == 0, f"fused lanes K={K} N={N} E={E} Kc={Kc}: {bad} {name} entries "
+                            "differ")
+        for i in range(K):
+            one = fused_assign_cuda(*(a[i] for a in args))
+            check(all(torch.equal(a, b[i]) for a, b in zip(one, got)),
+                  f"fused lanes K={K}: lane {i} differs from its unbatched launch")
+        print(f"[kernels] fused K={K} lanes N={N} E={E} Kc={Kc}: site/admit exact against the "
+              f"plain version and against {K} unbatched launches, picked="
+              f"{int((got[0] >= 0).sum())}, admitted={int(got[1].sum())}")
+    K, N, E, Kc = FUSED_LANE_CASES[-1]
+    call_ms = cuda_ms(lambda: fused_assign_cuda(*args), iters=100)
+    per_call = {}
+    parts = device_ms(lambda: fused_assign_cuda(*args), FUSED_KERNELS, iters=50,
+                      counts=per_call, per_call=1)
+    ms = sum(parts.values())
+    plain_ms = cuda_ms(lambda: fused_assign_ref(*args), iters=2, warmup=1)
+
+    def unbatched():
+        return [fused_assign_cuda(*(a[i] for a in args)) for i in range(K)]
+
+    unbatched_ms = cuda_ms(unbatched, iters=20)
+    unbatched_device_ms = sum(device_ms(unbatched, FUSED_KERNELS, iters=10,
+                                        per_call=K).values())
+    bytes_moved = K * (N * Kc * (4 + 4) + N * 4 + E * 4 + N * (4 + 1))
+    bound_ms = max(bytes_moved / PEAK_HBM_BYTES_PER_S,
+                   K * N * Kc * 3 / PEAK_FP32_OPS_PER_S) * 1e3
+    print(f"[kernels] fused at the ensemble shape [{K}, {N}, {Kc}] E={E}: {ms:.4f} ms of device "
+          f"time ({', '.join(f'{k} {v:.4f}' for k, v in parts.items())}; launches a call "
+          f"{json.dumps(per_call)}), {call_ms:.4f} ms a call between CUDA events; {K} unbatched "
+          f"calls {unbatched_ms:.4f} ms ({unbatched_device_ms:.4f} ms of device time); plain "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes, {bytes_moved} B)")
+    return dict(shape=[K, N, Kc], E=E, max_abs_err=0.0, ms=ms, device_ms=ms, cuda_ms=call_ms,
+                unbatched_ms=unbatched_ms, unbatched_device_ms=unbatched_device_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                kernels_per_call=sum(per_call.values()))
 
 
 FLASH_CASES = [  # (B, Hq, Hkv, S, Skv, D, causal, window, dtype)
@@ -1146,9 +1251,10 @@ def phase_sparse_full_width(device, max_rounds: int) -> dict:
     print(f"[sparse] the same policy dense (capacity dispatch): rounds/s={res_d.rounds / wall_d:.2f}"
           f" over {res_d.rounds} rounds; first 100 rounds: sparse {first['sparse']:.2f}, "
           f"dense {first['dense']:.2f} rounds/s")
-    profile_rounds(lambda: T.simulate(jobs, sites, policy, key, max_rounds=PROFILE_ROUNDS,
-                                      topk=ENGINE_K,
-                                      device=device), "sparse", names=FUSED_KERNELS)
+    profile_rounds(lambda: T.simulate(jobs, sites, policy, key, max_rounds=SHORT_PROFILE_ROUNDS,
+                                      topk=ENGINE_K, device=device),
+                   "sparse", names=FUSED_KERNELS, rounds=SHORT_PROFILE_ROUNDS)
+    launches["rates"] = (res.rounds / wall1, res2.rounds / wall2)
     return launches
 
 
@@ -1192,6 +1298,21 @@ def profile_rounds(run, label: str = "profile", names=(), rounds: int = None) ->
         print(f"[{label}] {' + '.join(names)}: {total_ms / most:.4f} ms of device time a call "
               "(profiler, inside the run)")
     return dict(wall_ms=wall_ms, device_ms=device_ms, kernels=sum(e.count for e in kernels))
+
+
+def kernels_of(fn) -> int:
+    """The kernels one call of ``fn`` launches, as ``torch.profiler`` records
+    them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA"))
 
 
 def phase_drain(device, max_rounds: int) -> None:
@@ -1421,7 +1542,8 @@ def phase_subsystems_full_width(device, max_rounds: int, plain_rates) -> dict:
     print(f"[subsys] transition_rows: {n_rows} rows in {rows_s:.3f}s on the host; ml_dataset: "
           f"{ml['features'].shape[0]} rows x {ml['features'].shape[1]} features in "
           f"{ml_s:.3f}s on the host")
-    profile_rounds(lambda: run(PROFILE_ROUNDS), "subsys-profile", names=ASSIGN_KERNELS)
+    profile_rounds(lambda: run(SHORT_PROFILE_ROUNDS), "subsys-profile", names=ASSIGN_KERNELS,
+                   rounds=SHORT_PROFILE_ROUNDS)
     launches["rounds"] = res.rounds
     launches["rate"] = res2.rounds / wall2
     return launches
@@ -1503,8 +1625,8 @@ def phase_subsystems_card_vs_cpu(device, max_rounds: int) -> dict:
 DATA_D = 1024                  # bench_data_movement.py:65's largest catalog
 DATA_LOG_ROWS = 256
 DATA_QUEUE_SLOTS = 256         # the [L, Q] rings at S=300: 2 x 90000 x 256 int32 = 184 MB
-DATA_TR_ROUNDS = 600           # depth cut of run (b)
-DATA_SPARSE_ROUNDS = 500       # depth cut of run (c)
+DATA_TR_ROUNDS = 400           # depth cut of run (b) and of phase 14
+DATA_SPARSE_ROUNDS = 300       # depth cut of run (c)
 XDATA_S, XDATA_J, XDATA_CHAINS = 50, 5000, 1250   # phase 12: card against CPU
 XDATA_ROUNDS = 300             # depth cut of phase 12
 # disk = memory x this, bytes: the workflow run's disks are ten times tighter
@@ -1640,11 +1762,11 @@ def phase_data_full_width(device, max_rounds: int, plain_rates) -> dict:
               f"dense path in this call (phase 3): first={plain_rates[0]:.2f} "
               f"second={plain_rates[1]:.2f}")
         print(f"[data] (a) {T.summary_str(T.compute_metrics(res))}")
-        prof = profile_rounds(lambda: run(PROFILE_ROUNDS), "data-profile", names=ASSIGN_KERNELS)
+        prof = profile_rounds(lambda: run(SHORT_PROFILE_ROUNDS), "data-profile",
+                              names=ASSIGN_KERNELS, rounds=SHORT_PROFILE_ROUNDS)
         if prof:
-            print(f"[data] (a) {prof['kernels'] / PROFILE_ROUNDS:.1f} kernels a round over the "
-                  f"{PROFILE_ROUNDS} "
-                  f"profiled rounds")
+            print(f"[data] (a) {prof['kernels'] / SHORT_PROFILE_ROUNDS:.1f} kernels a round "
+                  f"over the {SHORT_PROFILE_ROUNDS} profiled rounds")
         # source selection alone, as each round calls it: every job's
         # nearest replica toward its site
         dst = res.jobs.site.clamp(0, ENGINE_S - 1)
@@ -1674,6 +1796,7 @@ def phase_data_full_width(device, max_rounds: int, plain_rates) -> dict:
         check(launches["assign"] == work_rounds[0] > 0, "assign launches != rounds with work")
         check_invariants(res_b, "data+tr")
         out["b"] = launches
+        out["rate_b"] = res_b.rounds / wall_b
 
         # (c) sparse: data_locality, the fused kernel, topk=16, with the catalog
         reset()
@@ -1829,7 +1952,6 @@ XFAULT_J = 5000                # phase 15's blackhole-site jobs at S = 50
 # t = 0 every 8-core site ties under least_loaded's pre-rank, so the index
 # holds sites 0-7 and never the flaky site (44) until the load moves it up
 XFAULT_REFRESH = 25
-XFAULT_PROFILE_ROUNDS = 10     # phase 14's profile: its rounds launch ~2800 kernels each
 
 
 def faults_scenario(device):
@@ -1958,13 +2080,14 @@ def phase_faults_full_width(device, max_rounds: int, plain_rates, plain_prof) ->
     check(bool((packed() == general()).all()), "the two start orders differ")
     print(f"[faults] start order at J={ENGINE_J}: {json.dumps(order)}")
     prof = profile_rounds(lambda: T.simulate(jobs, sites, policy, T.PRNGKey(0),
-                                             **{**kw, "max_rounds": PROFILE_ROUNDS}),
-                          "faults-profile", names=ASSIGN_KERNELS)
+                                             **{**kw, "max_rounds": SHORT_PROFILE_ROUNDS}),
+                          "faults-profile", names=ASSIGN_KERNELS, rounds=SHORT_PROFILE_ROUNDS)
     if prof and plain_prof:
-        print(f"[faults] {prof['kernels'] / PROFILE_ROUNDS:.1f} kernels a round over "
-              f"{PROFILE_ROUNDS} profiled rounds, the plain dense path "
+        print(f"[faults] {prof['kernels'] / SHORT_PROFILE_ROUNDS:.1f} kernels a round over "
+              f"{SHORT_PROFILE_ROUNDS} profiled rounds, the plain dense path "
               f"{plain_prof['kernels'] / PROFILE_ROUNDS:.1f} (phase 3, same call)")
     launches["rounds"] = res.rounds
+    launches["rate"] = res.rounds / wall1
     return launches
 
 
@@ -2029,8 +2152,8 @@ def phase_faults_transfers_full_width(device, max_rounds: int) -> dict:
         wall = time.perf_counter() - t0
         launches = {"assign": assign_mod.launches, "segment_sum": segsum_mod.launches}
         rounds_with_work = work_rounds[0]
-        prof = profile_rounds(lambda: run(XFAULT_PROFILE_ROUNDS), "xfaults-profile",
-                              names=ASSIGN_KERNELS, rounds=XFAULT_PROFILE_ROUNDS)
+        prof = profile_rounds(lambda: run(SHORT_PROFILE_ROUNDS), "xfaults-profile",
+                              names=ASSIGN_KERNELS, rounds=SHORT_PROFILE_ROUNDS)
     finally:
         assign_ops.assign_ref = plain
     fs = res.ext["faults"]
@@ -2044,8 +2167,8 @@ def phase_faults_transfers_full_width(device, max_rounds: int) -> dict:
           f"{json.dumps(led)}; {json.dumps(counts)}; loss events applied "
           f"{int(fs.loss_done.sum())}; invariants {json.dumps(inv)}")
     if prof:
-        print(f"[xfaults] {prof['kernels'] / XFAULT_PROFILE_ROUNDS:.1f} kernels a round over "
-              f"{XFAULT_PROFILE_ROUNDS} profiled rounds")
+        print(f"[xfaults] {prof['kernels'] / SHORT_PROFILE_ROUNDS:.1f} kernels a round over "
+              f"{SHORT_PROFILE_ROUNDS} profiled rounds")
     check(launches["assign"] == rounds_with_work > 0, "assign launches != rounds with work")
     check(counts["n_xfer_fail"] > 0, "no transfer failed")
     check(counts["n_lost_replicas"] > 0, "no replica was lost")
@@ -2176,13 +2299,20 @@ def phase_faults_card_vs_cpu(device, max_rounds: int) -> dict:
 
 
 # phase 16: scenario ensembles (simulate_many) on the lane axis
-ENS_K = 16
-ENS_ROUNDS = 500
+ENS_ROUNDS = 300
 ENS_BUCKETS = 4
+ENS_BUCKET_ROUNDS = 100        # depth cut of (a)'s bucketed rerun
 ENS_SUB_K = 4
 ENS_SUB_ROUNDS = 300
 XENS_S, XENS_CHAINS = 50, (750, 1000, 1125, 1250)   # (c): 3000 to 5000 jobs a lane
 XENS_ROUNDS = 300
+# (c)'s second run: four small lanes with data, transfer queues and faults at
+# topk=8, which drain at different rounds (168 to 277 of a CPU run)
+XENS_DATA_JOBS, XENS_DATA_D, XENS_DATA_ROUNDS = (40, 55, 70, 85), 64, 400
+ENS_SPARSE_ROUNDS = 300        # phase 16(d)
+ENS_DATA_K, ENS_DATA_ROUNDS = 4, 200   # phase 16(e)
+ENS_FAULT_ROUNDS = 1300        # 16(e)'s fault lanes: the walltime kills start at
+                               # 300 simulated seconds, ~1150 rounds in
 
 
 def lane_capacity_assign(stacks):
@@ -2226,8 +2356,8 @@ def ensemble_scenarios(device):
 def phase_ensemble_full_width(device, max_rounds: int, plain_rates) -> dict:
     """16 ragged lanes at WLCG scale through one ``simulate_many`` loop,
     ``panda_dispatch`` with capacity dispatch, twice (counters set to 0 just
-    before the first run); then the same lanes in 4 buckets, then lanes 0
-    and 15 alone."""
+    before the first run); then the same lanes in ENS_BUCKETS buckets, then
+    lanes 0 and 15 alone."""
     import torch
 
     from repro_torch import core as T
@@ -2320,17 +2450,21 @@ def phase_ensemble_full_width(device, max_rounds: int, plain_rates) -> dict:
           f"second={plain_rates[1]:.2f} in this call; the batched assign {len(timings)} calls, "
           f"{1e3 * call_s / max(len(timings), 1):.4f} ms a call between CUDA events = "
           f"{100 * call_s / wall2:.2f}% of the run's wall time")
-    prof = profile_rounds(lambda: run(rounds=PROFILE_ROUNDS), "ens-profile", names=ASSIGN_KERNELS)
+    prof = profile_rounds(lambda: run(rounds=SHORT_PROFILE_ROUNDS), "ens-profile",
+                          names=ASSIGN_KERNELS, rounds=SHORT_PROFILE_ROUNDS)
     if prof:
-        print(f"[ens] {prof['kernels'] / PROFILE_ROUNDS:.1f} kernels a round of {ENS_K} lanes")
+        print(f"[ens] {prof['kernels'] / SHORT_PROFILE_ROUNDS:.1f} kernels a round of {ENS_K} "
+              "lanes")
 
+    flat = full_snapshot(run(rounds=ENS_BUCKET_ROUNDS))
     t0 = time.perf_counter()
-    res_b = run(sb)
+    res_b = run(sb, ENS_BUCKET_ROUNDS)
     torch.cuda.synchronize()
     wall_b = time.perf_counter() - t0
-    bad = mismatches(snap1, full_snapshot(res_b))
+    bad = mismatches(flat, full_snapshot(res_b))
     check(not bad, f"the bucketed ensemble differs from the flat one: {bad}")
-    print(f"[ens] {ENS_BUCKETS} buckets equal the flat ensemble bit for bit "
+    print(f"[ens] {ENS_BUCKETS} buckets equal the flat ensemble bit for bit over "
+          f"{ENS_BUCKET_ROUNDS} rounds "
           f"({sum(res_b.rounds.tolist()) / wall_b:.2f} lane-rounds/s); padding "
           f"{json.dumps(sb.padding_stats()['summary'])}")
     occ = T.lane_occupancy(res, sb)["summary"]
@@ -2479,6 +2613,379 @@ def phase_ensemble_card_vs_cpu(device, max_rounds: int) -> dict:
     return out
 
 
+def phase_ensemble_sparse_full_width(device, max_rounds: int, sparse_rates) -> dict:
+    """Phase 16(d): phase 16(a)'s 16 ragged lanes with ``data_locality`` and
+    the fused capacity assign at ``topk=16``: lane-rounds/s beside phase 4's
+    solo rate, fused launches a round with work (one for all lanes), the
+    device busy share and peak memory; lane 15 against its solo run."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core.rng import split
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import fused_cuda as fused_mod
+    from repro_torch.kernels.assign import make_fused_capacity_assign
+    from repro_torch.kernels.assign import ops as assign_ops
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    scens = ensemble_scenarios(device)
+    stacked = T.stack_scenarios(scens)
+    shapes = []
+    fused = make_fused_capacity_assign(stacked.jobs.cores)
+
+    def counted(scores_k, *args):
+        shapes.append(tuple(scores_k.shape))   # assign_cand runs once per round with work
+        return fused(scores_k, *args)
+
+    policy = T.with_fused_assign(T.get_policy("data_locality"), counted)
+    key = T.PRNGKey(0)
+
+    def run(rounds=max_rounds):
+        return T.simulate_many(stacked, policy, key, topk=ENGINE_K, max_rounds=rounds,
+                               device=device)
+
+    def no_plain_version(*args, **kw):
+        raise SmokeFailure("the sparse ensemble called a plain assignment version on the card")
+
+    plain = assign_ops.fused_assign_ref, assign_ops.assign_ref
+    assign_ops.fused_assign_ref = assign_ops.assign_ref = no_plain_version
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        fused_mod.launches = assign_mod.launches = segsum_mod.launches = 0
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fused_assign": fused_mod.launches, "assign": assign_mod.launches,
+                    "segment_sum": segsum_mod.launches}
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        work = list(shapes)
+    finally:
+        assign_ops.fused_assign_ref, assign_ops.assign_ref = plain
+    rounds = res.rounds.tolist()
+    rate = sum(rounds) / wall
+    check(launches["fused_assign"] > 0 and launches["fused_assign"] == len(work),
+          f"fused launches {launches['fused_assign']} != rounds with work {len(work)}")
+    check(all(sh[0] == ENS_K for sh in work),
+          f"the fused kernel was not called once for all {ENS_K} lanes: {set(work)}")
+    check(launches["assign"] == 0, "the sparse ensemble launched the dense assign kernel")
+    for i in (0, ENS_K - 1):
+        check_invariants(lane_of(res, i), f"ens-sparse lane {i}")
+    print(f"[ens-sparse] {ENS_K} lanes topk={ENGINE_K}: rounds per lane {rounds}; "
+          f"rounds_with_work={len(work)} launches={json.dumps(launches)} "
+          f"({launches['fused_assign'] / max(rounds):.2f} fused launches a round for all lanes, "
+          f"{launches['segment_sum'] / max(rounds):.2f} segment sums a round); "
+          f"lane-rounds/s={rate:.2f} ({max(rounds) / wall:.2f} rounds/s of the loop) against "
+          f"phase 4's solo rounds/s first={sparse_rates[0]:.2f} second={sparse_rates[1]:.2f} "
+          f"in this call; peak memory {peak_gb:.2f} GB")
+    prof = profile_rounds(lambda: run(SHORT_PROFILE_ROUNDS), "ens-sparse-profile",
+                          names=FUSED_KERNELS, rounds=SHORT_PROFILE_ROUNDS)
+    if prof:
+        print(f"[ens-sparse] {prof['kernels'] / SHORT_PROFILE_ROUNDS:.1f} kernels a round of "
+              f"{ENS_K} "
+              "lanes")
+    i = ENS_K - 1
+    jobs = T.pad_jobs_capacity(scens[i].jobs, stacked.jobs.capacity)
+    solo_policy = T.with_fused_assign(T.get_policy("data_locality"),
+                                      make_fused_capacity_assign(jobs.cores))
+    solo = T.simulate(jobs, scens[i].sites, solo_policy, split(key.to(device), ENS_K)[i],
+                      topk=ENGINE_K, max_rounds=max_rounds, device=device)
+    bad = mismatches(full_snapshot(solo), full_snapshot(lane_of(res, i)))
+    check(not bad, f"sparse ensemble lane {i} differs from its solo run on the card: {bad}")
+    print(f"[ens-sparse] lane {i} equals its solo run on the card")
+    launches["rounds"] = max(rounds)
+    launches["rate"] = rate
+    return launches
+
+
+def phase_ensemble_data_full_width(device, max_rounds: int, data_rate: float) -> dict:
+    """Phase 16(e): four lanes of phase 11(b)'s configuration (300 sites,
+    100000 jobs on the 1024-dataset catalog, ``cache_on_read``, the transfer
+    queues at ``queue_slots=256``), each lane its own jobs (seed i) and
+    catalog placement (seed 4 + i), ``panda_dispatch`` with capacity
+    dispatch: lane-rounds/s beside phase 11(b)'s solo rate, the ledgers."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import replicas as TR
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    t0 = time.perf_counter()
+    sites = T.atlas_like_platform(ENGINE_S, seed=1, device=device)
+    net = T.atlas_like_network(ENGINE_S, seed=2, device=device)
+    subs = (T.data_subsystem(T.get_data_policy("cache_on_read")), T.transfers_subsystem())
+    scens = []
+    for i in range(ENS_DATA_K):
+        jobs = T.synthetic_panda_jobs(ENGINE_J, seed=i, duration=6 * 3600.0, n_datasets=DATA_D,
+                                      zipf_alpha=1.2, device=device)
+        rep = T.make_replicas(T.zipf_dataset_sizes(DATA_D, seed=3), sites.memory * 1e9,
+                              seed=4 + i, device=device)
+        ts = T.make_transfers(ENGINE_S, jobs, max_active=4, queue_slots=DATA_QUEUE_SLOTS,
+                              device=device)
+        scens.append(T.Scenario(jobs, sites, {"data": (net, rep), "transfers": ts}))
+    stacked = T.stack_scenarios(scens, subsystems=subs)
+    ring = stacked.ext["transfers"].queue
+    print(f"[ens-data] {ENS_DATA_K} lanes built in {time.perf_counter() - t0:.2f}s: "
+          f"J={stacked.jobs.capacity}, rings {list(ring.shape)} "
+          f"({ring.numel() * 4 / 1e9:.2f} GB each of queue and tickets)")
+    work = [0]
+    capacity_assign = lane_capacity_assign([stacked])
+
+    def counted(*args):
+        work[0] += 1
+        return capacity_assign(*args)
+
+    policy = T.with_capacity_assign(T.get_policy("panda_dispatch"), counted)
+    assign_mod.launches = segsum_mod.launches = 0
+    TR.evicting_calls = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = T.simulate_many(stacked, policy, T.PRNGKey(0), subsystems=subs, max_rounds=max_rounds,
+                          log_rows=DATA_LOG_ROWS, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"assign": assign_mod.launches, "segment_sum": segsum_mod.launches}
+    rounds = res.rounds.tolist()
+    check(launches["assign"] == work[0] > 0,
+          f"assign launches {launches['assign']} != rounds with work {work[0]}")
+    leds = [ledger(lane_of(res, i).ext["transfers"]) for i in range(ENS_DATA_K)]
+    check(all(led["n_done"] > 0 for led in leds), "a lane landed no transfer")
+    for i in range(ENS_DATA_K):
+        lane = lane_of(res, i)
+        check(all(T.catalog_invariants(lane.replicas).values()), f"lane {i}: catalog invariants")
+        check_invariants(lane, f"ens-data lane {i}")
+    print(f"[ens-data] rounds per lane {rounds}; launches={json.dumps(launches)} "
+          f"({launches['segment_sum'] / max(rounds):.2f} segment sums a round); ledgers "
+          f"{json.dumps(leds)}; evicting insert_mask calls {TR.evicting_calls}; "
+          f"lane-rounds/s={sum(rounds) / wall:.2f} against phase 11(b)'s solo rounds/s "
+          f"{data_rate:.2f} in this call; peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+
+    # the trace of the lanes' rounds, and the suspect for their rate: a
+    # catalog column sum (``_col_bytes``) over K * S = 1200 columns of 1024
+    # datasets needs 38400 windows, past ``scan.sum_f32``'s one-launch limit
+    col_calls = [0]
+    col_bytes = TR._col_bytes
+
+    def counted_col_bytes(*args):
+        col_calls[0] += 1
+        return col_bytes(*args)
+
+    TR._col_bytes = counted_col_bytes
+    try:
+        prof = profile_rounds(
+            lambda: T.simulate_many(stacked, policy, T.PRNGKey(0), subsystems=subs,
+                                    max_rounds=SHORT_PROFILE_ROUNDS, log_rows=DATA_LOG_ROWS,
+                                    device=device),
+            "ens-data-profile", names=ASSIGN_KERNELS, rounds=SHORT_PROFILE_ROUNDS)
+    finally:
+        TR._col_bytes = col_bytes
+    mask, size = res.replicas.present, res.replicas.size
+    batched = col_bytes(mask, size)
+    check(torch.equal(batched, torch.stack([col_bytes(mask[i], size[i])
+                                             for i in range(ENS_DATA_K)])),
+          "the lanes' catalog column sums differ from one call a lane")
+    col_ms = cuda_ms(lambda: col_bytes(mask, size), iters=20)
+    lane_col_ms = cuda_ms(lambda: [col_bytes(mask[i], size[i]) for i in range(ENS_DATA_K)],
+                          iters=20)
+    col_kernels = kernels_of(lambda: col_bytes(mask, size))
+    per_round = col_calls[0] / (2 * SHORT_PROFILE_ROUNDS)   # profile_rounds runs twice
+    round_ms = 1e3 * wall / max(rounds)
+    print(f"[ens-data] _col_bytes at {list(mask.shape)}: {col_ms:.4f} ms a call between CUDA "
+          f"events, {col_kernels} kernels; one call a lane: {lane_col_ms:.4f} ms for "
+          f"{ENS_DATA_K}; {per_round:.2f} calls a round = "
+          f"{100 * per_round * col_ms / round_ms:.2f}% of a {round_ms:.2f} ms round")
+    if prof:
+        print(f"[ens-data] {prof['kernels'] / SHORT_PROFILE_ROUNDS:.1f} kernels a round of "
+              f"{ENS_DATA_K} lanes")
+    launches["rounds"] = max(rounds)
+    return launches
+
+
+def ensemble_faults_scenarios(device):
+    """Phase 16(e)'s second run: four lanes of phase 13's configuration
+    (``faults_scenario``), lane i its own full-width jobs (seed i) and the
+    fault state made for them."""
+    from repro_torch import core as T
+
+    sites, _, _, _ = faults_scenario(device)
+    scens = []
+    for i in range(ENS_DATA_K):
+        jobs = T.synthetic_panda_jobs(ENGINE_J, seed=i, duration=6 * 3600.0, device=device)
+        faults = T.make_faults(ENGINE_S, jobs, job_backoff=60.0, walltime=FAULT_WALLTIME,
+                               blacklist_threshold=0.7, device=device)
+        scens.append(T.Scenario(jobs, sites, {"faults": faults}))
+    return scens
+
+
+def phase_ensemble_faults_full_width(device, max_rounds: int, fault_rate: float) -> dict:
+    """Phase 16(e)'s second run: four lanes of phase 13's fault channels at
+    WLCG scale through one ``simulate_many`` loop, ``max_retries=4``,
+    counters set to 0 just before it: lane-rounds/s beside phase 13's solo
+    rate, the fault counters a lane, the device busy share; lane 0 of the
+    profiled rounds against its solo ``simulate`` run."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core.rng import split
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import make_capacity_assign
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    t0 = time.perf_counter()
+    scens = ensemble_faults_scenarios(device)
+    subs = (T.faults_subsystem(job_backoff=True, blacklist=True),)
+    stacked = T.stack_scenarios(scens, subsystems=subs)
+    print(f"[ens-faults] {ENS_DATA_K} lanes built in {time.perf_counter() - t0:.2f}s: "
+          f"J={stacked.jobs.capacity}, S={ENGINE_S}")
+    work = [0]
+    capacity_assign = lane_capacity_assign([stacked])
+
+    def counted(*args):
+        work[0] += 1
+        return capacity_assign(*args)
+
+    policy = T.with_capacity_assign(T.get_policy("panda_dispatch"), counted)
+    key = T.PRNGKey(0)
+    kw = dict(max_retries=4, log_rows=SUB_LOG_ROWS, device=device)
+
+    def run(rounds):
+        return T.simulate_many(stacked, policy, key, subsystems=subs, max_rounds=rounds, **kw)
+
+    assign_mod.launches = segsum_mod.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = run(max_rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"assign": assign_mod.launches, "segment_sum": segsum_mod.launches}
+    rounds = res.rounds.tolist()
+    check(launches["assign"] == work[0] > 0,
+          f"assign launches {launches['assign']} != rounds with work {work[0]}")
+    fs = res.ext["faults"]
+    check(int(fs.n_kills.min()) > 0, f"a lane killed no job: {fs.n_kills.tolist()}")
+    for i in range(ENS_DATA_K):
+        check_invariants(lane_of(res, i), f"ens-faults lane {i}")
+    print(f"[ens-faults] rounds per lane {rounds}; launches={json.dumps(launches)} "
+          f"({launches['segment_sum'] / max(rounds):.2f} segment sums a round); makespan "
+          f"{res.makespan.tolist()}, kills {fs.n_kills.tolist()}, breaker trips "
+          f"{fs.n_bl_trips.tolist()}, backoff {fs.backoff_wait.sum(-1).tolist()} s; "
+          f"lane-rounds/s={sum(rounds) / wall:.2f} against phase 13's solo rounds/s "
+          f"{fault_rate:.2f} in this call; peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    short = []
+    prof = profile_rounds(lambda: short.append(run(SHORT_PROFILE_ROUNDS)), "ens-faults-profile",
+                          names=ASSIGN_KERNELS, rounds=SHORT_PROFILE_ROUNDS)
+    if prof:
+        print(f"[ens-faults] {prof['kernels'] / SHORT_PROFILE_ROUNDS:.1f} kernels a round of "
+              f"{ENS_DATA_K} lanes")
+
+    lane0 = scens[0]
+    solo = T.simulate(lane0.jobs, lane0.sites,
+                      T.with_capacity_assign(T.get_policy("panda_dispatch"),
+                                             make_capacity_assign(lane0.jobs.cores)),
+                      split(key.to(device), ENS_DATA_K)[0], faults=lane0.ext["faults"],
+                      max_rounds=SHORT_PROFILE_ROUNDS, **kw)
+    bad = mismatches(full_snapshot(solo), full_snapshot(lane_of(short[-1], 0)))
+    check(not bad, f"fault lane 0 differs from its solo run on the card: {bad}")
+    print(f"[ens-faults] lane 0 of the {SHORT_PROFILE_ROUNDS} profiled rounds equals its solo "
+          "run on the card")
+    launches["rounds"] = max(rounds)
+    return launches
+
+
+def ensemble_data_scenarios(dev):
+    """Phase 16(c)'s second run: four lanes at S = 50 of 40 to 85 jobs on a
+    64-dataset catalog (disks of memory x 1e8 B, so the LRU path runs), each
+    with its transfer queues (``max_active=2``) and fault state (transfer
+    failures, resubmission backoff, walltime, a loss calendar, the breaker)."""
+    from repro_torch import core as T
+
+    S, D = XENS_S, XENS_DATA_D
+    sites = T.atlas_like_platform(S, seed=1, fail_rate=0.02, device=dev)
+    net = T.atlas_like_network(S, seed=2, device=dev)
+    scens = []
+    for i, n in enumerate(XENS_DATA_JOBS):
+        jobs = T.synthetic_panda_jobs(n, seed=20 + i, duration=600.0, n_datasets=D, device=dev)
+        rep = T.make_replicas(T.zipf_dataset_sizes(D, seed=3 + i), sites.memory * 1e8,
+                              seed=4 + i, device=dev)
+        ts = T.make_transfers(S, jobs, max_active=2, queue_slots=16, device=dev)
+        fl = T.make_faults(S, jobs, link_fail_p=0.1, xfer_backoff=20.0, job_backoff=30.0,
+                           walltime=20000.0,
+                           replica_loss=[(300.0 * (k + 1), k, (i + k) % S) for k in range(4)],
+                           blacklist_threshold=0.7, blacklist_alpha=0.4,
+                           blacklist_cooldown=400.0, device=dev)
+        scens.append(T.Scenario(jobs, sites._replace(speed=sites.speed * (0.8 + 0.1 * i)),
+                                {"data": (net, rep), "transfers": ts, "faults": fl}))
+    return scens
+
+
+def phase_ensemble_data_card_vs_cpu(device, max_rounds: int) -> dict:
+    """Phase 16(c)'s second run on the card and on the CPU: data, transfer
+    queues and faults in four lanes at ``topk=8`` (the fused kernel), lanes
+    freezing at different rounds; every array equal, and the last lane's
+    transfer, fault and transition rows and ML NDJSON byte for byte."""
+    import io
+
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import events as TE
+    from repro_torch.kernels.assign import fused_cuda as fused_mod
+    from repro_torch.kernels.assign import make_fused_capacity_assign
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    subs = (T.data_subsystem(T.get_data_policy("cache_on_read")), T.transfers_subsystem(),
+            T.faults_subsystem(job_backoff=True, blacklist=True))
+
+    def run(dev):
+        stacked = T.stack_scenarios(ensemble_data_scenarios(dev), subsystems=subs)
+        policy = T.with_fused_assign(T.get_policy("data_locality"),
+                                     make_fused_capacity_assign(stacked.jobs.cores))
+        t0 = time.perf_counter()
+        res = T.simulate_many(stacked, policy, T.PRNGKey(5), subsystems=subs, topk=8,
+                              max_rounds=max_rounds, log_rows=max_rounds, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lane = lane_of(res, len(XENS_DATA_JOBS) - 1)
+        buf = io.StringIO()
+        TE.write_ml_dataset(lane, buf)
+        exports = dict(transfers=TE.to_csv(TE.transfer_rows(lane)),
+                       faults=TE.to_csv(TE.fault_rows(lane)),
+                       transitions=TE.to_csv(TE.transition_rows(lane)), ml=buf.getvalue())
+        fs = res.ext["faults"]
+        print(f"[xens] {dev.type} data+transfers+faults topk=8: rounds {res.rounds.tolist()}, "
+              f"transfer failures {fs.n_xfer_fail.tolist()}, kills {fs.n_kills.tolist()}, "
+              f"breaker trips {fs.n_bl_trips.tolist()}, WAN transfers "
+              f"{res.replicas.n_transfers.tolist()}, wall={wall:.2f}s")
+        return res, full_snapshot(res), exports
+
+    fused_mod.launches = segsum_mod.launches = 0
+    card, card_snap, card_exp = run(device)
+    out = {"fused_assign": fused_mod.launches, "segment_sum": segsum_mod.launches}
+    check(out["fused_assign"] > 0 and out["segment_sum"] > 0,
+          "the S=50 data lanes did not launch the fused kernel and the segment sum")
+    rounds = card.rounds.tolist()
+    check(len(set(rounds)) > 1 and max(rounds) < max_rounds,
+          f"the S=50 data lanes did not drain at different rounds: {rounds}")
+    check(int(card.ext["faults"].n_xfer_fail.sum()) > 0, "no transfer failed in the S=50 lanes")
+    _, cpu_snap, cpu_exp = run(torch.device("cpu"))
+    bad = mismatches(card_snap, cpu_snap)
+    check(not bad, f"the card's S=50 data lanes differ from the CPU's: {bad}")
+    for k in card_exp:
+        check(card_exp[k] == cpu_exp[k], f"the card's lane {k} export differs from the CPU's")
+    print(f"[xens] data lanes: card = CPU on every array; lane {len(XENS_DATA_JOBS) - 1}'s "
+          f"transfer, fault and transition CSVs and ML NDJSON byte-identical "
+          f"({', '.join(f'{k} {len(v)} B' for k, v in card_exp.items())}); launches "
+          f"{json.dumps(out)}")
+    return out
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2541,7 +3048,16 @@ def main() -> int:
                                                             sub_launches["rate"])
     lap("16b")
     xens_launches = phase_ensemble_card_vs_cpu(device, XENS_ROUNDS)
+    xens_data_launches = phase_ensemble_data_card_vs_cpu(device, XENS_DATA_ROUNDS)
     lap("16c")
+    ens_sparse_launches = phase_ensemble_sparse_full_width(device, ENS_SPARSE_ROUNDS,
+                                                           sparse_launches["rates"])
+    lap("16d")
+    ens_data_launches = phase_ensemble_data_full_width(device, ENS_DATA_ROUNDS,
+                                                       data_launches["rate_b"])
+    ens_fault_launches = phase_ensemble_faults_full_width(device, ENS_FAULT_ROUNDS,
+                                                          fault_launches["rate"])
+    lap("16e")
     print(f"[power] {gpu_name_and_power()}")
     serve_launches = phase_serve(device)
     lap("8")
@@ -2555,7 +3071,7 @@ def main() -> int:
             row["launches_subsystems_s50"] = cross_launches[name]
         # the data paths' own counts (phases 11 and 12)
         for part, counts in data_launches.items():
-            if name in counts:
+            if isinstance(counts, dict) and name in counts:
                 row[f"launches_data_{part}"] = counts[name]
         if name in xdata_launches:
             row["launches_data_s50"] = xdata_launches[name]
@@ -2566,7 +3082,9 @@ def main() -> int:
                 row[f"launches_faults_{part}"] = counts[name]
         # the ensemble paths' own counts (phase 16): one launch a round for all lanes
         for part, counts in (("full", ens_launches), ("subsystems", ens_sub_launches),
-                             ("s50", xens_launches)):
+                             ("s50", xens_launches), ("s50_data", xens_data_launches),
+                             ("sparse", ens_sparse_launches), ("data", ens_data_launches),
+                             ("faults", ens_fault_launches)):
             if name in counts:
                 row[f"launches_ensemble_{part}"] = counts[name]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

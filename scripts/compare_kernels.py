@@ -11,7 +11,9 @@ For each version and each input, the script checks the kernel against the
 plain version (bit for bit, gate to rtol 1e-5), then reports the time of a
 call between CUDA events (host launch work included), the device time of a
 call and the kernels launched a call (``torch.profiler``: every kernel the
-call runs, sorts included), with each kernel's device time.  Inputs are
+call runs, sorts included), with each kernel's device time, and for the
+fused kernel the host time a call; it prints each version's ptxas
+registers and spills of the fused and assign kernels.  Inputs are
 those of ``chip_smoke.py``: the assignment at the engine shape (N=100000,
 E=300, k=1), the fused candidate-set assignment at the sparse engine shape
 (N=100000, K=16, E=300; site and admit bit for bit) and the segment sum at
@@ -89,6 +91,21 @@ def profile_call(fn, iters: int, parts: dict | None = None) -> tuple[float, floa
     return busy / iters, sum(e.count for e in kernels) / iters
 
 
+def host_ms(fn, iters: int) -> float:
+    """Host milliseconds a call of ``fn``: the wrapper's Python and launch
+    work, timed on the host over ``iters`` calls issued back to back."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
 def time_fused(v: dict, label: str, device, out: dict) -> None:
     import torch
 
@@ -101,15 +118,17 @@ def time_fused(v: dict, label: str, device, out: dict) -> None:
     for w, g in zip(want, got):
         check(torch.equal(w, g), f"{label}: fused differs from the plain version")
     call = cuda_ms(lambda: v["fused"](*args), iters=200)
+    host = host_ms(lambda: v["fused"](*args), iters=500)
     parts = {}
     dev, per_call = profile_call(lambda: v["fused"](*args), iters=100, parts=parts)
     N, K, E = ENGINE_J, ENGINE_K, ENGINE_S
     bound = (N * K * (4 + 4) + N * 4 + E * 4 + N * (4 + 1)) / PEAK_HBM_BYTES_PER_S * 1e3
-    out.setdefault("fused", []).append(dict(version=label, cuda_ms=call, device_ms=dev,
-                                            kernels_per_call=per_call, parts=parts,
-                                            bound_ms=bound))
+    out.setdefault("fused", []).append(dict(version=label, cuda_ms=call, host_ms=host,
+                                            device_ms=dev, kernels_per_call=per_call,
+                                            parts=parts, bound_ms=bound))
     print(f"[compare] {label} fused N={N} K={K} E={E}: {call:.4f} ms a call (CUDA events), "
-          f"{dev:.4f} ms device time ({', '.join(f'{k} {t:.4f}' for k, t in parts.items())}), "
+          f"{host:.4f} ms of host time a call, {dev:.4f} ms device time "
+          f"({', '.join(f'{k} {t:.4f}' for k, t in parts.items())}), "
           f"{per_call:g} kernels a call; bound {bound:.4f} ms (bytes)")
 
 
@@ -214,6 +233,14 @@ def main() -> int:
     for label, v in versions.items():
         print(f"[compare] {label} build seconds "
               f"{v['build'].build(['assign', 'fused', 'segment_sum'])}")
+        for name in ("fused", "assign"):       # ptxas registers and spills, kernel by kernel
+            kernel = ""
+            for line in v["build"].build_log(name).splitlines():
+                if "Compiling entry function" in line:
+                    kernel = line.split("'")[1]
+                elif "registers" in line or "spill" in line:
+                    print(f"[compare] {label} {name} {kernel}: "
+                          f"{line.replace('ptxas info    :', '').strip()}")
     out: dict = {"card": gpu_name_and_power()}
     for label in ("other", "this", "this", "other"):
         for time_kernel in (time_fused, time_assign, time_segsum):

@@ -66,20 +66,29 @@ def faults_from_numpy(arrays, device="cuda") -> FaultState:
     return _from_numpy(FaultState, arrays, device)
 
 
-_EXT_STATES = {"availability": AvailabilityState, "workflow": WorkflowState}
+_EXT_STATES = {"availability": AvailabilityState, "workflow": WorkflowState,
+               "transfers": TransferState, "faults": FaultState}
+
+
+def _ext_from_numpy(name, arrays, device):
+    if name == "data":
+        network, replicas = arrays
+        return (_from_numpy(NetworkState, network, device),
+                _from_numpy(ReplicaState, replicas, device))
+    return _from_numpy(_EXT_STATES[name], arrays, device)
 
 
 def scenario_from_numpy(jobs, sites, ext=None, device="cuda"):
     """An ensemble ``Scenario`` from field-to-array mappings: ``jobs`` and
     ``sites`` as for ``jobs_from_numpy``/``sites_from_numpy``, ``ext`` a
-    mapping of subsystem name (``"availability"``, ``"workflow"``) to its
-    state's mapping."""
+    mapping of subsystem name (``"availability"``, ``"workflow"``,
+    ``"transfers"``, ``"faults"``) to its state's mapping, and ``"data"`` to
+    a ``(network, replicas)`` pair of them."""
     from .engine import Scenario
 
     return Scenario(
         jobs_from_numpy(jobs, device), sites_from_numpy(sites, device),
-        {name: _from_numpy(_EXT_STATES[name], arrays, device)
-         for name, arrays in (ext or {}).items()},
+        {name: _ext_from_numpy(name, arrays, device) for name, arrays in (ext or {}).items()},
     )
 
 

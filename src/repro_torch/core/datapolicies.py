@@ -20,6 +20,10 @@ as a WAN read from the selected replica over the shared link matrix and
 keeps the catalog (LRU touches, cache-on-read insertion, counters); with the
 transfer-queue subsystem attached it hands those reads to the link queues
 instead, and ``land_deferred`` applies the bookkeeping when they land.
+
+Every hook is lane-generic: in an ensemble the network, the catalog and the
+jobs lead with the lane axis, lookups go through ``types.take`` and the
+counters sum over the last axis, so each lane keeps its own books.
 """
 from __future__ import annotations
 
@@ -27,8 +31,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .network import link_value
 from .replicas import ReplicaState, insert_mask, nearest_source
 from .scan import sum_f32
+from .types import take
 
 
 class DataPolicy(NamedTuple):
@@ -49,11 +55,11 @@ def _default_select(jobs, sites, network, replicas, state, dst, clock):
 
 
 def _never_cache(jobs, sites, network, replicas, state, dst, clock):
-    return torch.zeros((jobs.capacity,), dtype=torch.bool, device=jobs.dataset.device)
+    return torch.zeros(jobs.dataset.shape, dtype=torch.bool, device=jobs.dataset.device)
 
 
 def _always_cache(jobs, sites, network, replicas, state, dst, clock):
-    return torch.ones((jobs.capacity,), dtype=torch.bool, device=jobs.dataset.device)
+    return torch.ones(jobs.dataset.shape, dtype=torch.bool, device=jobs.dataset.device)
 
 
 def _keep_state(state, *_):
@@ -92,7 +98,7 @@ def _data_init(sub, state0, jobs, sites):
     network, replicas = state0
     replicas, dstate = sub.config.init(jobs, sites, network, replicas)
     return DataExt(network=network, replicas=replicas, state=dstate,
-                   net_acc=torch.zeros((sites.capacity,), dtype=torch.float32,
+                   net_acc=torch.zeros(replicas.disk_used.shape, dtype=torch.float32,
                                        device=replicas.size.device))
 
 
@@ -116,12 +122,12 @@ def _data_on_start(sub, ctx):
     # only flat-link stage-ins share the site's ingress link; dataset jobs
     # stage over the WAN matrix instead
     n_flat_start = _site_sum(started & ~has_ds, start_site, S)
-    share_in = n_flat_start[site_c].float()
+    share_in = take(n_flat_start, site_c).float()
     t_serv = service_time(jobs, ctx.sites_serv, site_c, share_in, share)
-    D = rep.present.shape[0]
+    D = rep.present.shape[-2]
     d_c = jobs.dataset.clamp(0, D - 1).long()
-    ds_bytes = rep.size[d_c]
-    local = rep.present[d_c, site_c]
+    ds_bytes = take(rep.size, d_c)
+    local = take(rep.present.flatten(-2), d_c * S + site_c)
     read = started & has_ds
     src = policy.select_source(jobs, sites, network, rep, dstate, site_c, clock)
     src_c = src.clamp(0, S - 1)
@@ -140,7 +146,7 @@ def _data_on_start(sub, ctx):
     rep = touch(rep, jobs.dataset, site_c, read & local, clock)
     want_cache = policy.should_cache(jobs, sites, network, rep, dstate, site_c, clock) & xfer
     moved = torch.where(xfer, ds_bytes, 0.0)
-    rep = rep._replace(n_hits=rep.n_hits + (read & local).sum().int())
+    rep = rep._replace(n_hits=rep.n_hits + (read & local).sum(-1).int())
     net_in_now = dext.net_acc
     if defer:
         # hand this round's WAN reads to the transfer queues; the replica
@@ -149,15 +155,16 @@ def _data_on_start(sub, ctx):
             "xfer": xfer,
             "link": src_c.int() * S + site_c.int(),
             "bytes": moved,
-            "resid": (t_serv - in_flat).clamp_min(0.0) + network.latency[src_c.long(), site_c],
+            "resid": (t_serv - in_flat).clamp_min(0.0) + link_value(network.latency, src_c,
+                                                                     site_c),
             "cache": want_cache,
         }
-        t_net_col = torch.zeros((jobs.capacity,), dtype=torch.float32, device=moved.device)
+        t_net_col = torch.zeros_like(moved)
     else:
         rep = insert_replicas(rep, jobs.dataset, site_c, want_cache, clock)
         rep = rep._replace(
-            n_transfers=rep.n_transfers + xfer.sum().int(),
-            bytes_moved=rep.bytes_moved + sum_f32(moved, 0),
+            n_transfers=rep.n_transfers + xfer.sum(-1).int(),
+            bytes_moved=rep.bytes_moved + sum_f32(moved, -1),
         )
         net_in_now = net_in_now + _site_sum(moved, torch.where(xfer, jobs.site, S), S)
         t_net_col = t_net
@@ -182,8 +189,8 @@ def land_deferred(dext: DataExt, jobs, done, cache, clock, S) -> DataExt:
                           clock)
     moved = torch.where(done, jobs.xfer_bytes, 0.0)
     rep = rep._replace(
-        n_transfers=rep.n_transfers + done.sum().int(),
-        bytes_moved=rep.bytes_moved + sum_f32(moved, 0),
+        n_transfers=rep.n_transfers + done.sum(-1).int(),
+        bytes_moved=rep.bytes_moved + sum_f32(moved, -1),
     )
     net_in = _site_sum(moved, torch.where(done, jobs.site, S), S)
     return dext._replace(replicas=rep, net_acc=dext.net_acc + net_in)
@@ -197,9 +204,13 @@ def _data_log_columns(sub, ctx, write):
     dext = ctx.ext["data"]
     cols = {"site_disk": dext.replicas.disk_used, "site_net_in": dext.net_acc}
     # WAN ingress accumulates between log writes, so monitor_every > 1 still
-    # conserves bytes in the exported timeline; it resets on a write
-    ctx.ext["data"] = dext._replace(
-        net_acc=torch.zeros_like(dext.net_acc) if write else dext.net_acc)
+    # conserves bytes in the exported timeline; it resets on a write (in an
+    # ensemble, in the lanes that write: ``write`` is then ``bool[K]``)
+    if isinstance(write, torch.Tensor):
+        net_acc = torch.where(write[..., None], 0.0, dext.net_acc)
+    else:
+        net_acc = torch.zeros_like(dext.net_acc) if write else dext.net_acc
+    ctx.ext["data"] = dext._replace(net_acc=net_acc)
     return cols
 
 
@@ -246,25 +257,26 @@ def cache_on_read() -> DataPolicy:
 def pre_place_hot(hot_frac: float = 0.1, n_copies: int = 3, cache: bool = False) -> DataPolicy:
     """Replicate the hottest ``hot_frac`` of datasets (by job count in the
     submitted workload) to the ``n_copies`` largest storage elements before
-    the run."""
+    the run (in an ensemble, each lane's own hottest datasets and largest
+    storage elements)."""
 
     def init(jobs, sites, network, replicas: ReplicaState):
         from ..kernels.segment_sum import segment_sum
 
-        D, S = replicas.present.shape
-        device = replicas.present.device
+        D = replicas.present.shape[-2]
         d = jobs.dataset.clamp(0, D - 1)
         has = jobs.valid & (jobs.dataset >= 0)
         counts = segment_sum(has.int(), torch.where(has, d, D), D)
         k = max(int(round(hot_frac * D)), 1)
-        rank = torch.sort(-counts, stable=True).indices
-        hot = torch.zeros((D,), dtype=torch.bool, device=device)
-        hot[rank[:k]] = True
+        rank = torch.sort(-counts, dim=-1, stable=True).indices
+        hot = torch.zeros(counts.shape, dtype=torch.bool, device=counts.device)
+        hot.scatter_(-1, rank[..., :k], True)
         # + 0.0: a zero capacity sorts as one zero, as JAX ties -0.0 and 0.0
-        targets = torch.sort(-replicas.disk_cap + 0.0, stable=True).indices[:n_copies]
-        target_mask = torch.zeros((S,), dtype=torch.bool, device=device)
-        target_mask[targets] = True
-        want = hot[:, None] & target_mask[None, :]
+        cap = replicas.disk_cap
+        targets = torch.sort(-cap + 0.0, dim=-1, stable=True).indices[..., :n_copies]
+        target_mask = torch.zeros(cap.shape, dtype=torch.bool, device=cap.device)
+        target_mask.scatter_(-1, targets, True)
+        want = hot[..., :, None] & target_mask[..., None, :]
         return insert_mask(replicas, want, 0.0), ()
 
     return make_data_policy(
@@ -314,7 +326,7 @@ class DataPlugin:
         return nearest_source(replicas, network, jobs.dataset, dst)
 
     def should_cache(self, jobs, sites, network, replicas, state, dst, clock):
-        return torch.zeros((jobs.capacity,), dtype=torch.bool, device=jobs.dataset.device)
+        return torch.zeros(jobs.dataset.shape, dtype=torch.bool, device=jobs.dataset.device)
 
     def on_transfer(self, state, jobs, replicas, started, xfer, clock):
         return state

@@ -208,16 +208,17 @@ def default_assign(scores, queued, feasible, sites=None):
 def default_assign_cand(scores_k, queued, feas_k, cand, sites=None):
     """Candidate-set analogue of ``default_assign``.
 
-    ``scores_k``/``feas_k`` are ``[J, K]`` over the candidate index ``cand``
-    (clamped site ids, ascending per row).  Because candidates are sorted
-    ascending, the first-max slot is the lowest site id among score ties, the
-    dense tie-break, so ``topk=S`` matches the dense path bit for bit."""
+    ``scores_k``/``feas_k`` are ``[J, K]`` (an ensemble's ``[L, J, K]``) over
+    the candidate index ``cand`` (clamped site ids, ascending per row).
+    Because candidates are sorted ascending, the first-max slot is the lowest
+    site id among score ties, the dense tie-break, so ``topk=S`` matches the
+    dense path bit for bit."""
     K = scores_k.shape[-1]
     masked = torch.where(feas_k, scores_k, -INF)
     best_val = masked.amax(-1)
     iota = torch.arange(K, device=scores_k.device)
-    best_c = torch.where(masked == best_val[:, None], iota, K).amin(-1)
-    site = cand.gather(1, best_c[:, None])[:, 0].int()
+    best_c = torch.where(masked == best_val[..., None], iota, K).amin(-1)
+    site = cand.gather(-1, best_c[..., None])[..., 0].int()
     ok = queued & torch.isfinite(best_val)
     return torch.where(ok, site, -1), ok
 
@@ -250,20 +251,21 @@ def _init_state(
     mutates_arrival = any(getattr(sub.config, "mutates_arrival", False) for sub in subsystems)
     if not mutates_arrival and _packed_order_ok(policy, jobs0.capacity, sites0.capacity):
         ext0["~srank"] = _static_start_rank(jobs0)
-    if lanes:
-        ext0["~rounds"] = torch.zeros(lanes, dtype=torch.int32, device=device)
     log_extra0 = {}
     for sub in subsystems:
         if sub.log_spec is not None:
             log_extra0.update(sub.log_spec(sub, ext0[sub.name], jobs0, sites0))
+    log = make_log(log_rows, sites0.capacity, extra=log_extra0, device=device, lanes=lanes)
+    # an ensemble counts each lane's own rounds and log rows on the device
+    round0 = torch.zeros(lanes, dtype=torch.int32, device=device) if lanes else 0
     return EngineState(
         clock=torch.zeros(lanes, dtype=torch.float32, device=device),
-        round=0,
+        round=round0,
         jobs=jobs0,
         sites=sites0,
         rng=key,
         policy_state=pstate0,
-        log=make_log(log_rows, sites0.capacity, extra=log_extra0, device=device, lanes=lanes),
+        log=log._replace(cursor=round0.clone()) if lanes else log,
         halted=torch.zeros(lanes, dtype=torch.bool, device=device),
         ext=ext0,
     )
@@ -329,25 +331,44 @@ def _round_fns(
     gate_hooks, event_hooks = hooks("arrival_gate"), hooks("event_times")
     filter_hooks, completion_hooks = hooks("completion_filter"), hooks("on_completions")
     assign_hooks, start_hooks, log_hooks = hooks("pre_assign"), hooks("on_start"), hooks("log_columns")
+    refresh = topk is not None and topk_refresh > 0
 
     def cond(st: EngineState, horizon: float):
-        """``(go, lanes_going)``: would the loop run another round, and, in an
-        ensemble where only some lanes go, the ``bool[K]`` mask of those (else
-        None).  ``horizon`` is compared in float32 (``_f32``), as the JAX
-        package compares it."""
-        if st.round >= max_rounds:
-            return False, None
+        """``(go, lanes_going, gates)``: would the loop run another round; in
+        an ensemble where only some lanes go, the ``bool[K]`` mask of those
+        (else None); and the round's two host gates ``(log, refresh)``: does
+        some lane write the event log, and is the candidate index rebuilt.
+        ``horizon`` is compared in float32 (``_f32``), as the JAX package
+        compares it.  An ensemble reads all of it back in one read; each lane
+        counts its own rounds, so ``max_rounds`` and ``monitor_every`` hold
+        per lane, and a refresh round is one where *any* lane's own round
+        (a frozen lane's last one included) is a multiple of
+        ``topk_refresh``, the JAX package's rule under ``vmap``."""
+        rnd = st.round
+        solo = isinstance(rnd, int)
+        if solo and rnd >= max_rounds:
+            return False, None, None
         state = st.jobs.state
         active = (state == PENDING) | (state == QUEUED) | (state == ASSIGNED) | (state == RUNNING)
         go = ~st.halted & (active & st.jobs.valid).any(-1) & (st.clock <= horizon)
-        if go.dim() == 0:
-            return bool(go), None
-        any_go, all_go = torch.stack([go.any(), go.all()]).tolist()
-        return any_go, (None if all_go else go)
+        if solo:
+            gates = (log_rows > 0 and rnd % monitor_every == 0,
+                     refresh and rnd % topk_refresh == 0)
+            return bool(go), None, gates
+        go = go & (rnd < max_rounds)
+        off = go.new_zeros(())
+        any_go, all_go, log_gate, rebuild = torch.stack([
+            go.any(), go.all(),
+            (go & (rnd % monitor_every == 0)).any() if log_rows > 0 else off,
+            (rnd % topk_refresh == 0).any() if refresh else off,
+        ]).tolist()
+        return any_go, (None if all_go else go), (log_gate, rebuild)
 
-    def body(st: EngineState, going: torch.Tensor | None = None) -> EngineState:
+    def body(st: EngineState, going: torch.Tensor | None, gates: tuple) -> EngineState:
         """One round.  ``going`` (an ensemble's ``bool[K]`` from ``cond``, or
-        None when every lane goes) freezes the other lanes."""
+        None when every lane goes) freezes the other lanes; ``gates`` are
+        ``cond``'s ``(log, refresh)``."""
+        log_gate, rebuild = gates
         S = st.sites.capacity
         J = st.jobs.capacity
         lane_dims = st.clock.dim()
@@ -429,7 +450,7 @@ def _round_fns(
 
         # ---- 4+5. assignment & starts ----------------------------------------
         queued = jobs.state == QUEUED
-        if topk is not None and topk_refresh > 0 and st.round % topk_refresh == 0:
+        if rebuild:
             # periodic candidate rebuild: O(J*S), only on refresh rounds
             ctx.ext["~cand"] = build_candidates(
                 jobs, sites, policy, st.policy_state, clock,
@@ -441,7 +462,7 @@ def _round_fns(
             # the static fit is built here only when a hook composes with it;
             # otherwise inside _assign_and_start, which phase-skip rounds skip
             ctx.feasible = (
-                _static_feasible(jobs, sites) if topk is None else sites.active[None, :]
+                _static_feasible(jobs, sites) if topk is None else sites.active[..., None, :]
             )
             for sub, fn in assign_hooks:
                 fn(sub, ctx)
@@ -465,28 +486,29 @@ def _round_fns(
                 # per-round feasibility is a per-site [1, S] mask, or a
                 # [J, S] one that a hook wrote
                 if feasible is None:
-                    feasible = sites.active[None, :]
+                    feasible = sites.active[..., None, :]
                 cand = ctx.ext["~cand"]                     # i32[J, K]
                 cand_c = cand.clamp_max(S - 1).long()
                 # re-check everything the dense mask carries, gathered at the
                 # candidates: validity, per-round feasibility and the static
                 # core/memory fit
                 f_at = (
-                    feasible[0][cand_c] if feasible.shape[0] == 1
-                    else feasible.gather(1, cand_c)
+                    take(feasible[..., 0, :], cand_c) if feasible.shape[-2] == 1
+                    else feasible.gather(-1, cand_c)
                 )
                 feas_k = (
                     (cand < S)
                     & f_at
-                    & (jobs.cores[:, None] <= sites.cores[cand_c])
-                    & (jobs.memory[:, None] <= sites.memory[cand_c])
+                    & (jobs.cores[..., None] <= take(sites.cores, cand_c))
+                    & (jobs.memory[..., None] <= take(sites.memory, cand_c))
                 )
                 score_c = getattr(policy, "score_cand", None)
                 if score_c is not None:
                     scores_k = score_c(jobs, sites, pstate, clock, k_policy, cand_c)
                 else:
                     # exact fallback: dense score + gather (no memory win)
-                    scores_k = policy.score(jobs, sites, pstate, clock, k_policy).gather(1, cand_c)
+                    scores_k = policy.score(jobs, sites, pstate, clock, k_policy)
+                    scores_k = scores_k.gather(-1, cand_c)
                 assign_c = getattr(policy, "assign_cand", None) or default_assign_cand
                 site_pick, assigned_now = assign_c(scores_k, queued, feas_k, cand_c, sites)
             assigned_now = assigned_now & queued
@@ -583,21 +605,28 @@ def _round_fns(
         halted = ~torch.isfinite(t_next) & ~progressed
 
         log = st.log
-        if log_rows > 0 and st.round % monitor_every == 0:
-            # the ring is owned by the run's state: rows are written in place
-            # (an ensemble's every lane still going shares the cursor; a
-            # frozen lane's rows are left as they are)
-            slot = log.cursor % log_rows
+        if log_gate:
+            # the ring is owned by the run's state: rows are written in place,
+            # an ensemble's each at its lane's own slot, and only in the lanes
+            # that go and whose own round is a sampling round
+            if lane_dims:
+                write = st.round % monitor_every == 0
+                if going is not None:
+                    write = write & going
+                lane = torch.arange(write.shape[0], device=clock.device)
+                slot = (log.cursor % log_rows).long()
+            else:
+                write, slot = True, log.cursor % log_rows
 
             def put(ring, value):
-                row = ring.select(lane_dims, slot)
-                if going is not None:
-                    value = torch.where(
-                        going.view(going.shape + (1,) * (row.dim() - lane_dims)), value, row)
-                if isinstance(value, torch.Tensor):
-                    row.copy_(value)
+                if lane_dims:
+                    row = ring[lane, slot]
+                    ring[lane, slot] = torch.where(
+                        write.view(write.shape + (1,) * (row.dim() - 1)), value, row)
+                elif isinstance(value, torch.Tensor):
+                    ring[slot].copy_(value)
                 else:
-                    row.fill_(value)
+                    ring[slot].fill_(value)
 
             states = torch.arange(N_STATES, device=clock.device)[:, None]
             put(log.time, clock)
@@ -613,9 +642,9 @@ def _round_fns(
             put(log.site_running, _site_sum(
                 ones, torch.where(jobs.state == RUNNING, jobs.site, S), S))
             for sub, fn in log_hooks:
-                for name, value in fn(sub, ctx, True).items():
+                for name, value in fn(sub, ctx, write).items():
                     put(log.extra[name], value)
-            log = log._replace(cursor=log.cursor + 1)
+            log = log._replace(cursor=log.cursor + (write.int() if lane_dims else 1))
 
         ext = ctx.ext
         if lane_dims:
@@ -626,10 +655,9 @@ def _round_fns(
                 jobs, sites = _freeze(going, jobs, st.jobs), _freeze(going, sites, st.sites)
                 pstate = _freeze(going, pstate, st.policy_state)
                 ext = _freeze(going, ext, st.ext)
-            ext["~rounds"] = st.ext["~rounds"] + (1 if going is None else going.int())
         return EngineState(
             clock=clock,
-            round=st.round + 1,
+            round=st.round + (1 if going is None else going.int()),
             jobs=jobs,
             sites=sites,
             rng=key,
@@ -642,12 +670,10 @@ def _round_fns(
     return cond, body
 
 
-def _finalize(st: EngineState, policy, subsystems: tuple, monitor_every: int = 1,
-              log_rows: int = 0) -> SimResult:
+def _finalize(st: EngineState, policy, subsystems: tuple) -> SimResult:
     """End-of-run hooks (policy ``on_end``, subsystem ``finalize``) plus
     SimResult assembly; "~"-prefixed carries are engine-internal and dropped.
-    An ensemble's rounds are each lane's own, and so is its log cursor: one
-    row every ``monitor_every`` of the lane's rounds."""
+    An ensemble's rounds and log cursors are each lane's own."""
     pstate = policy.on_end(st.policy_state, st.jobs, st.sites, st.clock)
     ext = {k: v for k, v in st.ext.items() if not k.startswith("~")}
     result_fields = {}
@@ -656,10 +682,6 @@ def _finalize(st: EngineState, policy, subsystems: tuple, monitor_every: int = 1
             ext[sub.name], fields = sub.finalize(sub, ext[sub.name], st.jobs, st.sites, st.clock)
             result_fields.update(fields)
     rounds, log = st.round, st.log
-    if st.clock.dim():
-        rounds = st.ext["~rounds"]
-        cursor = (rounds + monitor_every - 1) // monitor_every if log_rows > 0 else rounds * 0
-        log = log._replace(cursor=cursor)
     return SimResult(
         makespan=st.clock,
         rounds=rounds,
@@ -906,10 +928,10 @@ def advance_sim(handle: SimHandle, horizon: float = float("inf")) -> SimHandle:
     horizon = _f32(horizon)
     st = handle.state
     while True:
-        go, going = cond(st, horizon)
+        go, going, gates = cond(st, horizon)
         if not go:
             break
-        st = body(st, going)
+        st = body(st, going, gates)
     return handle._replace(state=st)
 
 
@@ -917,27 +939,22 @@ def sim_active(handle: SimHandle) -> bool:
     """On the host: would the round loop still run, given an open horizon?
     (In an ensemble: does any lane still go?)"""
     st = handle.state
-    if int(st.round) >= handle.max_rounds:
+    if isinstance(st.round, int) and st.round >= handle.max_rounds:
         return False
     state = st.jobs.state
     active = (state == PENDING) | (state == QUEUED) | (state == ASSIGNED) | (state == RUNNING)
-    return bool((~st.halted & (active & st.jobs.valid).any(-1)).any())
+    go = ~st.halted & (active & st.jobs.valid).any(-1) & (st.round < handle.max_rounds)
+    return bool(go.any())
 
 
 def finish_sim(handle: SimHandle) -> SimResult:
     """Run the end-of-run hooks on a drained or abandoned handle."""
-    return _finalize(handle.state, handle.policy, tuple(handle.subsystems),
-                     monitor_every=handle.statics[3], log_rows=handle.statics[1])
+    return _finalize(handle.state, handle.policy, tuple(handle.subsystems))
 
 
 # --------------------------------------------------------------------------
 # scenario ensembles: K scenarios, one batched round loop
 # --------------------------------------------------------------------------
-
-# subsystems and options whose lane form is not ported yet (ROADMAP Queue 1
-# item 12b)
-_NOT_IN_LANES = ("data", "transfers", "faults")
-
 
 class Scenario(NamedTuple):
     """One point of a scenario ensemble: a workload, a platform and the
@@ -1035,18 +1052,9 @@ def stack_scenarios(scenarios, *, subsystems: tuple = (), buckets: int = 1):
     return _tree_map(lambda *xs: torch.stack(xs), *norm)
 
 
-def _check_ensemble(scenarios: Scenario, subsystems: tuple, kw: dict) -> dict:
+def _check_ensemble(scenarios: Scenario, subsystems: tuple) -> dict:
     """Check a stacked ensemble against its subsystem tuple (the subsystems'
     ``validate`` hooks run in ``init_sim``); returns ext."""
-    for sub in subsystems:
-        if sub.name in _NOT_IN_LANES:
-            raise NotImplementedError(
-                f"the {sub.name!r} subsystem has no lane form in the port yet "
-                "(ROADMAP Queue 1 item 12b); run its scenarios through simulate")
-    if kw.get("topk") is not None:
-        raise NotImplementedError(
-            "topk= has no lane form in the port yet (ROADMAP Queue 1 item 12b: "
-            "build_candidates and the fused kernel over lanes)")
     ext = scenarios.ext or {}
     known = {sub.name for sub in subsystems}
     if set(ext) != known:
@@ -1063,7 +1071,7 @@ def _simulate_many_stacked(scenarios: Scenario, policy, keys: torch.Tensor, *,
     ensemble, lane ``i`` under ``keys[i]`` (a batch of keys makes
     ``init_sim`` build lanes; the subsystems' shape checks use negative
     axes, so the leading K is transparent to them)."""
-    ext = _check_ensemble(scenarios, tuple(subsystems), kw)
+    ext = _check_ensemble(scenarios, tuple(subsystems))
     handle = init_sim(scenarios.jobs, scenarios.sites, policy, keys,
                       subsystems=tuple((sub, ext[sub.name]) for sub in subsystems), **kw)
     return finish_sim(advance_sim(handle, horizon))
@@ -1115,18 +1123,30 @@ def simulate_many(scenarios, policy, rng: torch.Tensor, *, subsystems: tuple = (
     from ``stack_scenarios(..., buckets=n)`` (run bucket by bucket, results
     in the original order).  ``subsystems`` is the tuple of ``Subsystem``
     bundles matching the keys of ``Scenario.ext`` (empty for plain runs):
-    ``availability_subsystem()`` and ``workflow_subsystem()`` run in lanes;
-    data, transfers, faults and ``topk=`` raise ``NotImplementedError``
-    (ROADMAP Queue 1 item 12b).  ``kw`` takes ``simulate``'s run options
-    (``max_rounds``, ``horizon``, ``log_rows``, ``max_retries``,
-    ``monitor_every``, ``quantum``, ``phase_skip``).
+    every built-in (availability, workflow, data with its ``(network,
+    replicas)`` pair, transfers, faults) and custom ones.  ``simulate``'s
+    subsystem keywords raise ``TypeError``, as in the JAX package.  ``kw``
+    takes ``simulate``'s run options (``max_rounds``, ``horizon``,
+    ``log_rows``, ``max_retries``, ``monitor_every``, ``quantum``,
+    ``phase_skip``, ``topk``, ``topk_refresh``).
 
     Lane ``i`` runs under ``split(rng, K)[i]`` and equals the solo
     ``simulate`` of its scenario padded to the ensemble's job capacity, bit
-    for bit.  The returned ``SimResult`` has a leading K on every tensor,
-    ``rounds`` and ``log.cursor`` included.  Every per-site sum of a round is
-    one segment sum over all lanes, and a capacity assigner
-    (``with_capacity_assign``) makes one kernel call for all lanes."""
+    for bit; with ``topk < S`` and ``topk_refresh > 0`` it equals the JAX
+    package's lane instead, since every lane rebuilds its candidates when
+    any lane's own round is a refresh round.  The returned ``SimResult`` has
+    a leading K on every tensor, ``rounds`` and ``log.cursor`` included.
+    Every per-site sum of a round is one segment sum over all lanes, and a
+    capacity assigner (``with_capacity_assign``, ``with_fused_assign``)
+    makes one kernel call for all lanes."""
+    # an ensemble takes its subsystem states through Scenario.ext, and
+    # refuses simulate's subsystem keywords as the JAX package's does
+    for name in ("availability", "workflow", "data_policy", "network", "replicas",
+                 "transfers", "faults"):
+        if name in kw:
+            raise TypeError(
+                f"simulate_many() got an unexpected keyword argument {name!r}: pass each "
+                "lane's subsystem state in Scenario.ext with the matching subsystems= tuple")
     device = resolve_device(device)
     rng = rng.to(device)
     if isinstance(scenarios, ScenarioBuckets):
@@ -1144,14 +1164,17 @@ def simulate_many(scenarios, policy, rng: torch.Tensor, *, subsystems: tuple = (
 
 def simulate_ensemble(jobs0: JobsState, sites0: SiteState, policy, rng: torch.Tensor, *,
                       speed_candidates: torch.Tensor, availability=None, workflow=None,
-                      subsystems=(), device="cuda", **kw) -> SimResult:
+                      data_policy=None, network=None, replicas=None, transfers=None,
+                      faults=None, subsystems=(), device="cuda", **kw) -> SimResult:
     """One workload on K per-site speed vectors ``speed_candidates f32[K, S]``
     (the calibration inner loop): lane ``i`` is ``simulate`` on
     ``sites0._replace(speed=speed_candidates[i])`` under ``split(rng,
-    K)[i]``.  ``availability=``, ``workflow=`` and ``subsystems=`` pairs are
-    shared by every lane; ``kw`` as for ``simulate_many``."""
-    subs, ext0 = resolve_subsystems(availability=availability, workflow=workflow,
-                                    subsystems=subsystems, jobs=jobs0, sites=sites0)
+    K)[i]``.  The subsystem keywords are ``simulate``'s; each state is
+    shared by every lane (copied to each); ``kw`` as for ``simulate_many``."""
+    subs, ext0 = resolve_subsystems(
+        availability=availability, workflow=workflow, data_policy=data_policy, network=network,
+        replicas=replicas, transfers=transfers, faults=faults, subsystems=subsystems,
+        jobs=jobs0, sites=sites0)
     K = speed_candidates.shape[0]
 
     def lanes(x):

@@ -40,6 +40,12 @@ The bits follow XLA on the CPU:
   cannot matter: the half-open probe keeps the highest job row, as XLA's
   scatter does, through ``scatter_reduce("amax")``; the loss hits fill one
   value.
+
+In an ensemble every field leads with the lane axis (the run-constant
+scalars become ``[K]``): the counters sum over the last axis, progress flags
+are per lane (``.any(-1)``), lookups go lane by lane (``types.take``), and
+the channel flags are one host read of the stacked state ("any lane"), the
+JAX package's own rule.
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ import torch
 
 from . import rng as _rng
 from .scan import fma_f32, sum_f32
-from .types import ASSIGNED, FAILED, PENDING, QUEUED, RUNNING, resolve_device
+from .types import ASSIGNED, FAILED, PENDING, QUEUED, RUNNING, per_lane, resolve_device, take
 
 INF = float("inf")
 
@@ -88,6 +94,7 @@ _EXP2_BITS = (
 
 
 _exp2_tables: dict = {}
+
 
 
 def exp2_xla(k: torch.Tensor) -> torch.Tensor:
@@ -302,29 +309,30 @@ def inject_transfer_failures(ctx, ts, fin, jobs):
     attempts routed onto the engine's retry path."""
     fs: FaultState = ctx.ext["faults"]
     J, L = ctx.J, ctx.S * ctx.S
+    clock_j = per_lane(ctx.clock)
     u = _rng.uniform(ctx.subkey("faults"), (J,))
-    xfail = fin & (u < fs.link_fail_p[ts.link.clamp(0, L - 1).long()])
+    xfail = fin & (u < take(fs.link_fail_p, ts.link.clamp(0, L - 1).long()))
     nxt = fs.attempt + 1
-    exhaust = xfail & (nxt >= fs.max_xfer_attempts)
+    exhaust = xfail & (nxt >= per_lane(fs.max_xfer_attempts))
     retry = xfail & ~exhaust
     e = exp2_xla(fs.attempt)
-    delay = fs.xfer_backoff * e
+    delay = per_lane(fs.xfer_backoff) * e
     ctx.ext["faults"] = fs._replace(
         attempt=torch.where(exhaust, 0, torch.where(retry, nxt, fs.attempt)),
         # clock + base * 2^attempt: one fused multiply-add in XLA
-        retry_at=torch.where(retry, fma_f32(e, fs.xfer_backoff, ctx.clock),
+        retry_at=torch.where(retry, fma_f32(e, per_lane(fs.xfer_backoff), clock_j),
                              torch.where(exhaust, INF, fs.retry_at)),
         backoff_wait=fs.backoff_wait + torch.where(retry, delay, 0.0),
-        n_xfer_fail=fs.n_xfer_fail + xfail.sum().int(),
-        n_xfer_exhaust=fs.n_xfer_exhaust + exhaust.sum().int(),
+        n_xfer_fail=fs.n_xfer_fail + xfail.sum(-1).int(),
+        n_xfer_exhaust=fs.n_xfer_exhaust + exhaust.sum(-1).int(),
     )
     # out of attempts: the job leaves the staging gate as a failing attempt,
     # which the next round's completion step retires through the resubmit path
     jobs = jobs._replace(
         will_fail=jobs.will_fail | exhaust,
-        t_finish=torch.where(exhaust, ctx.clock, jobs.t_finish),
+        t_finish=torch.where(exhaust, clock_j, jobs.t_finish),
     )
-    ctx.progressed = ctx.progressed | xfail.any()
+    ctx.progressed = ctx.progressed | xfail.any(-1)
     return fin & ~xfail, xfail, jobs
 
 
@@ -361,10 +369,10 @@ def _fl_event_times(sub, ctx):
     """Backoff wake-ups, loss events, cooldown expiries and walltime
     deadlines join the round clock: fault dynamics are exact events."""
     fs: FaultState = ctx.ext["faults"]
-    t = torch.minimum(fs.retry_at.amin(), fs.bl_until.amin())
-    t = torch.minimum(t, torch.where(fs.loss_done, INF, fs.loss_t).amin())
+    t = torch.minimum(fs.retry_at.amin(-1), fs.bl_until.amin(-1))
+    t = torch.minimum(t, torch.where(fs.loss_done, INF, fs.loss_t).amin(-1))
     kill = torch.where(ctx.jobs.state == RUNNING, ctx.jobs.t_start + fs.walltime, INF)
-    return torch.minimum(t, kill.amin())
+    return torch.minimum(t, kill.amin(-1))
 
 
 def _fl_on_completions(sub, ctx):
@@ -377,9 +385,10 @@ def _fl_on_completions(sub, ctx):
     cfg: FaultsConfig = sub.config or FaultsConfig()
     jobs, sites, S, J = ctx.jobs, ctx.sites, ctx.S, ctx.J
     clock = ctx.clock
+    clock_j = per_lane(clock)   # over the job (or site) rows
 
     # ---- time lost to this round's failed attempts -----------------------
-    lost = sum_f32(torch.where(ctx.failed_now, (clock - jobs.t_start).clamp_min(0.0), 0.0), 0)
+    lost = sum_f32(torch.where(ctx.failed_now, (clock_j - jobs.t_start).clamp_min(0.0), 0.0), -1)
 
     # ---- channel 2: resubmission backoff ----------------------------------
     # rows the engine just requeued (failed_now & QUEUED; availability
@@ -390,15 +399,15 @@ def _fl_on_completions(sub, ctx):
         e = exp2_xla((jobs.retries - 1).clamp_min(0))
         jobs = jobs._replace(
             state=torch.where(resub, PENDING, jobs.state),
-            arrival=torch.where(resub, fma_f32(e, fs.job_backoff, clock), jobs.arrival),
+            arrival=torch.where(resub, fma_f32(e, per_lane(fs.job_backoff), clock_j), jobs.arrival),
         )
         fs = fs._replace(
-            backoff_wait=fs.backoff_wait + torch.where(resub, fs.job_backoff * e, 0.0))
+            backoff_wait=fs.backoff_wait + torch.where(resub, per_lane(fs.job_backoff) * e, 0.0))
 
     # ---- walltime kills ---------------------------------------------------
     # completions already retired t_finish <= clock, so a job finishing at
     # its deadline finishes; staging jobs (t_finish = inf) are killable too
-    killed = (jobs.state == RUNNING) & (jobs.t_start + fs.walltime <= clock)
+    killed = (jobs.state == RUNNING) & (jobs.t_start + fs.walltime <= clock_j)
     kill_resub = killed & (jobs.retries < ctx.max_retries)
     kill_fail = killed & ~kill_resub
     kill_site = torch.where(killed, jobs.site, S)
@@ -406,9 +415,11 @@ def _fl_on_completions(sub, ctx):
         ke = exp2_xla(jobs.retries)
         new_state = torch.where(kill_resub, PENDING,
                                 torch.where(kill_fail, FAILED, jobs.state))
-        new_arrival = torch.where(kill_resub, fma_f32(ke, fs.job_backoff, clock), jobs.arrival)
+        new_arrival = torch.where(kill_resub, fma_f32(ke, per_lane(fs.job_backoff), clock_j),
+                                  jobs.arrival)
         fs = fs._replace(
-            backoff_wait=fs.backoff_wait + torch.where(kill_resub, fs.job_backoff * ke, 0.0))
+            backoff_wait=fs.backoff_wait + torch.where(kill_resub, per_lane(fs.job_backoff) * ke,
+                                                       0.0))
     else:
         new_state = torch.where(kill_resub, QUEUED, torch.where(kill_fail, FAILED, jobs.state))
         new_arrival = jobs.arrival
@@ -417,7 +428,7 @@ def _fl_on_completions(sub, ctx):
         arrival=new_arrival,
         retries=jobs.retries + kill_resub.int(),
         site=torch.where(kill_resub, -1, jobs.site),
-        t_finish=torch.where(kill_resub, INF, torch.where(kill_fail, clock, jobs.t_finish)),
+        t_finish=torch.where(kill_resub, INF, torch.where(kill_fail, clock_j, jobs.t_finish)),
         preempted=jobs.preempted + killed.int(),
     )
     kill_sums = _site_sum(torch.where(killed, jobs.cores, 0), kill_site, S)
@@ -426,12 +437,12 @@ def _fl_on_completions(sub, ctx):
         free_memory=sites.free_memory
         + _site_sum(torch.where(killed, jobs.memory, 0.0), kill_site, S),
     )
-    lost = lost + sum_f32(torch.where(killed, (clock - jobs.t_start).clamp_min(0.0), 0.0), 0)
+    lost = lost + sum_f32(torch.where(killed, (clock_j - jobs.t_start).clamp_min(0.0), 0.0), -1)
     fs = fs._replace(
-        n_kills=fs.n_kills + killed.sum().int(),
+        n_kills=fs.n_kills + killed.sum(-1).int(),
         time_lost=fs.time_lost + lost,
     )
-    ctx.progressed = ctx.progressed | killed.any()
+    ctx.progressed = ctx.progressed | killed.any(-1)
 
     # ---- channel 1: transfer retries and the killed jobs' cancels ---------
     if "transfers" in ctx.ext:
@@ -448,26 +459,26 @@ def _fl_on_completions(sub, ctx):
             rem=torch.where(tr, 0.0, ts.rem),
             t_done=torch.where(tr, INF, ts.t_done),
             active=ts.active - _link_count(tr & (ts.stat == T_ACTIVE), ts.link.clamp(0, L - 1), L),
-            n_cancel=ts.n_cancel + tr.sum().int(),
-            bytes_cancel=ts.bytes_cancel + sum_f32(torch.where(tr, jobs.xfer_bytes, 0.0), 0),
+            n_cancel=ts.n_cancel + tr.sum(-1).int(),
+            bytes_cancel=ts.bytes_cancel + sum_f32(torch.where(tr, jobs.xfer_bytes, 0.0), -1),
         )
         # a pending retry whose job left the staging gate (killed, preempted,
         # cancelled or exhausted) is dropped: its failure is on the ledger
         orphan = torch.isfinite(fs.retry_at) & (jobs.state != RUNNING)
-        due = (fs.retry_at <= clock) & (jobs.state == RUNNING)
+        due = (fs.retry_at <= clock_j) & (jobs.state == RUNNING)
         # backoff over: the whole transfer restarts as a new ledger entry on
         # the same link (resid, cache and link survive in the transfer rows)
         ts, _ = _enqueue(ts, due, ts.link, jobs.xfer_bytes, ts.resid, ts.cache, clock)
         fs = fs._replace(
             retry_at=torch.where(due | orphan, INF, fs.retry_at),
             attempt=torch.where(orphan, 0, fs.attempt),
-            n_xfer_retry=fs.n_xfer_retry + due.sum().int(),
+            n_xfer_retry=fs.n_xfer_retry + due.sum(-1).int(),
         )
         if dext is not None:
             ts = _admit(ts, clock)
-            ts = _reprice(ts, dext.network.bw.reshape(L), clock)
+            ts = _reprice(ts, dext.network.bw.flatten(-2), clock)
         ctx.ext["transfers"] = ts
-        ctx.progressed = ctx.progressed | due.any() | tr.any()
+        ctx.progressed = ctx.progressed | due.any(-1) | tr.any(-1)
 
     # ---- channel 4: breaker scoring and transitions -----------------------
     if cfg.blacklist:
@@ -477,45 +488,46 @@ def _fl_on_completions(sub, ctx):
         n_ev = d_fail + d_done
         frac = d_fail.float() / n_ev.clamp_min(1).float()
         # score + alpha * (frac - score): one fused multiply-add in XLA
-        score = torch.where(n_ev > 0, fma_f32(frac - fs.score, fs.bl_alpha, fs.score), fs.score)
+        score = torch.where(n_ev > 0, fma_f32(frac - fs.score, per_lane(fs.bl_alpha), fs.score),
+                            fs.score)
         closed = fs.bl_state == BL_CLOSED
         tripped = fs.bl_state == BL_TRIPPED
         half = fs.bl_state == BL_HALF_OPEN
-        trip = closed & (score >= fs.bl_threshold)
-        expire = tripped & (fs.bl_until <= clock)
+        trip = closed & (score >= per_lane(fs.bl_threshold))
+        expire = tripped & (fs.bl_until <= clock_j)
         # half-open probe resolution (the states are disjoint, so the masks are)
         pj = fs.probe_job.clamp(0, J - 1).long()
         has = half & (fs.probe_job >= 0)
-        p_succ = has & ctx.done_now[pj]
-        p_fail = has & (ctx.failed_now[pj] | killed[pj])
+        p_succ = has & take(ctx.done_now, pj)
+        p_fail = has & (take(ctx.failed_now, pj) | take(killed, pj))
         p_gone = has & ~p_succ & ~p_fail & (
-            jobs.site[pj] != torch.arange(S, device=pj.device))
+            take(jobs.site, pj) != torch.arange(S, device=pj.device))
         retrip = trip | p_fail
         fs = fs._replace(
             score=torch.where(p_succ, 0.0, score),
             bl_state=torch.where(
                 retrip, BL_TRIPPED,
                 torch.where(expire, BL_HALF_OPEN, torch.where(p_succ, BL_CLOSED, fs.bl_state))),
-            bl_until=torch.where(retrip, clock + fs.bl_cooldown,
+            bl_until=torch.where(retrip, clock_j + per_lane(fs.bl_cooldown),
                                  torch.where(expire | p_succ, INF, fs.bl_until)),
             probe_job=torch.where(expire | p_succ | p_fail | p_gone, -1, fs.probe_job),
             seen_failed=sites.n_failed,
             seen_done=sites.n_finished,
-            n_bl_trips=fs.n_bl_trips + retrip.sum().int(),
+            n_bl_trips=fs.n_bl_trips + retrip.sum(-1).int(),
         )
         # jobs queued at a newly tripped site bounce back to the server (no
         # attempt lost, no retry), so the half-open window admits the probe
         # and not a backlog
-        bounce = (jobs.state == ASSIGNED) & trip[jobs.site.clamp(0, S - 1).long()]
+        bounce = (jobs.state == ASSIGNED) & take(trip, jobs.site.clamp(0, S - 1).long())
         jobs = jobs._replace(
             state=torch.where(bounce, QUEUED, jobs.state),
             site=torch.where(bounce, -1, jobs.site),
         )
-        ctx.progressed = (ctx.progressed | retrip.any() | expire.any() | p_succ.any()
-                          | bounce.any())
+        ctx.progressed = (ctx.progressed | retrip.any(-1) | expire.any(-1) | p_succ.any(-1)
+                          | bounce.any(-1))
 
     # ---- channel 3: replica-loss calendar ---------------------------------
-    due_loss = ~fs.loss_done & (fs.loss_t <= clock)
+    due_loss = ~fs.loss_done & (fs.loss_t <= clock_j)
     dext = ctx.ext.get("data")
     if dext is not None:
         from .replicas import _col_bytes, _drop_fill
@@ -523,11 +535,10 @@ def _fl_on_completions(sub, ctx):
         rep = dext.replicas
         D = rep.size.shape[-1]
         cell = fs.loss_d.clamp(0, D - 1) * S + fs.loss_s.clamp(0, S - 1)
-        hit = _drop_fill(D * S, cell, due_loss, True,
-                         torch.zeros((D, S), dtype=torch.bool, device=cell.device)).view(D, S)
+        hit = _drop_fill(D * S, cell, due_loss, True, torch.zeros_like(rep.present))
         org = rep.origin.clamp(0, S - 1)
-        is_origin = ((torch.arange(S, device=org.device)[None, :] == org[:, None])
-                     & (rep.origin >= 0)[:, None])
+        is_origin = ((torch.arange(S, device=org.device) == org[..., None])
+                     & (rep.origin >= 0)[..., None])
         dropped = hit & rep.present & ~is_origin  # pinned origins never drop
         ctx.ext["data"] = dext._replace(
             replicas=rep._replace(
@@ -536,8 +547,8 @@ def _fl_on_completions(sub, ctx):
                 last_access=torch.where(dropped, -INF, rep.last_access),
             )
         )
-        fs = fs._replace(n_lost_replicas=fs.n_lost_replicas + dropped.sum().int())
-        ctx.progressed = ctx.progressed | due_loss.any()
+        fs = fs._replace(n_lost_replicas=fs.n_lost_replicas + dropped.sum((-2, -1)).int())
+        ctx.progressed = ctx.progressed | due_loss.any(-1)
     fs = fs._replace(loss_done=fs.loss_done | due_loss)
 
     ctx.jobs = jobs
@@ -558,10 +569,11 @@ def _fl_pre_assign(sub, ctx):
     # the probe candidate is the lowest queued job row, the engine's
     # start-order tie-break, so the probe is deterministic
     idx = torch.arange(J, dtype=torch.int32, device=tripped.device)
-    cand = torch.where(ctx.jobs.state == QUEUED, idx, J).amin()
+    cand = torch.where(ctx.jobs.state == QUEUED, idx, J).amin(-1)
     # the [J, S] gate widens the sparse path's [1, S] site mask to a mask a
     # job; the engine's candidate gather takes either shape
-    gate = (fs.bl_state == BL_CLOSED)[None, :] | (probe_ok[None, :] & (idx[:, None] == cand))
+    gate = (fs.bl_state == BL_CLOSED)[..., None, :] | (
+        probe_ok[..., None, :] & (idx[:, None] == cand[..., None, None]))
     ctx.feasible = ctx.feasible & gate
     ctx.start_cores = torch.where(tripped, 0, ctx.start_cores)
 
@@ -574,16 +586,17 @@ def _fl_on_start(sub, ctx):
     if cfg.blacklist:
         S, J = ctx.S, ctx.J
         half_free = (fs.bl_state == BL_HALF_OPEN) & (fs.probe_job < 0)
-        ps = ctx.started & half_free[ctx.site_c]
+        ps = ctx.started & take(half_free, ctx.site_c)
         tgt = torch.where(ps, ctx.site_c, S)
         # probe_job.at[tgt].set(arange(J), mode="drop"): XLA keeps the
         # highest row where two probes start at one site in one round
         rows = torch.arange(J, device=tgt.device)
-        last = torch.full((S + 1,), -1, dtype=torch.int64, device=tgt.device).scatter_reduce(
-            0, tgt, torch.where(ps, rows, -1), reduce="amax")[:S]
+        last = torch.full((*tgt.shape[:-1], S + 1), -1, dtype=torch.int64,
+                          device=tgt.device).scatter_reduce(
+            -1, tgt, torch.where(ps, rows, -1), reduce="amax")[..., :S]
         fs = fs._replace(
             probe_job=torch.where(last >= 0, last.int(), fs.probe_job),
-            n_probes=fs.n_probes + ps.sum().int(),
+            n_probes=fs.n_probes + ps.sum(-1).int(),
         )
     sc = ctx.scratch.get("transfers")
     if sc is not None:
@@ -596,11 +609,10 @@ def _fl_on_start(sub, ctx):
 
 
 def _fl_log_spec(sub, fs: FaultState, jobs, sites):
-    S = fs.score.shape[-1]
     dev = fs.score.device
     return {
-        "site_fault_score": torch.zeros((S,), dtype=torch.float32, device=dev),
-        "site_blacklist": torch.zeros((S,), dtype=torch.int32, device=dev),
+        "site_fault_score": torch.zeros(fs.score.shape, dtype=torch.float32, device=dev),
+        "site_blacklist": torch.zeros(fs.score.shape, dtype=torch.int32, device=dev),
     }
 
 

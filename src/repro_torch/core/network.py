@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..kernels.segment_sum import segment_sum
-from .types import resolve_device
+from .types import resolve_device, take
 
 LOCAL_BW = 1e15  # bytes/s stand-in for "no WAN hop" (same-site read)
 
@@ -175,15 +175,25 @@ def link_caps(n_sites: int, default: int, overrides=None, device="cuda") -> torc
 # --------------------------------------------------------------------------
 
 
+def link_value(mat: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``mat[src, dst]`` of a link matrix ``[S, S]``; an ensemble's ``[K, S,
+    S]`` is read lane by lane at ``src, dst [K, J]``."""
+    if mat.dim() == 2:
+        return mat[src.long(), dst.long()]
+    return take(mat.flatten(-2), src.long() * mat.shape[-1] + dst.long())
+
+
 def link_shares(net: NetworkState, src: torch.Tensor, dst: torch.Tensor,
                 active: torch.Tensor) -> torch.Tensor:
     """Number of concurrent ``active`` transfers on each transfer's directed
     link (>= 1 for active rows): the equal-share divisor.  One integer sum
-    over the ``S * S`` links (the padding segment dropped)."""
+    over the ``S * S`` links (the padding segment dropped); an ensemble's
+    lanes count theirs in the same sum, lane ``l``'s link ``i`` as segment
+    ``l * S * S + i``."""
     S = net.n_sites
     link = torch.where(active, src.int() * S + dst.int(), S * S)
     counts = segment_sum(active.int(), link, S * S)
-    return counts[link.clamp(0, S * S - 1).long()].clamp_min(1).float()
+    return take(counts, link.clamp(0, S * S - 1).long()).clamp_min(1).float()
 
 
 def shared_transfer_times(net: NetworkState, src: torch.Tensor, dst: torch.Tensor,
@@ -194,7 +204,6 @@ def shared_transfer_times(net: NetworkState, src: torch.Tensor, dst: torch.Tenso
     effective bandwidth; the ``bw_eff`` of the flows on one directed link sum
     to that link's capacity."""
     share = link_shares(net, src, dst, active)
-    src, dst = src.long(), dst.long()
-    bw_eff = net.bw[src, dst] / share
-    t = net.latency[src, dst] + nbytes / bw_eff.clamp_min(1e-9)
+    bw_eff = link_value(net.bw, src, dst) / share
+    t = link_value(net.latency, src, dst) + nbytes / bw_eff.clamp_min(1e-9)
     return torch.where(active, t, 0.0), torch.where(active, bw_eff, 0.0)

@@ -48,7 +48,7 @@ import torch
 from . import rng as _rng
 from .engine import _site_sum, default_assign
 from .scan import segment_sum_f32
-from .types import ASSIGNED, RUNNING, JobsState, SiteState
+from .types import ASSIGNED, RUNNING, JobsState, SiteState, take
 
 NEG = -1e30
 
@@ -151,7 +151,7 @@ def fastest_site() -> Policy:
         return _per_site(jobs, sites.speed)
 
     def score_cand(jobs, sites, state, clock, key, cand):
-        return sites.speed[cand]
+        return take(sites.speed, cand)
 
     return make_policy("fastest_site", score, score_cand=score_cand)
 
@@ -168,7 +168,7 @@ def least_loaded() -> Policy:
         return _per_site(jobs, _head(jobs, sites))
 
     def score_cand(jobs, sites, state, clock, key, cand):
-        return _head(jobs, sites)[cand]
+        return take(_head(jobs, sites), cand)
 
     return make_policy("least_loaded", score, score_cand=score_cand)
 
@@ -181,7 +181,7 @@ def data_locality() -> Policy:
                  + jobs.bytes_in[..., :, None] / sites.bw_in[..., None, :])
 
     def score_cand(jobs, sites, state, clock, key, cand):
-        return -(sites.latency[cand] + jobs.bytes_in[:, None] / sites.bw_in[cand])
+        return -(take(sites.latency, cand) + jobs.bytes_in[..., None] / take(sites.bw_in, cand))
 
     return make_policy("data_locality", score, score_cand=score_cand)
 
@@ -203,9 +203,10 @@ def shortest_wait() -> Policy:
         return -(_drain(jobs, sites)[..., None, :] + mine + stage)
 
     def score_cand(jobs, sites, state, clock, key, cand):
-        mine = jobs.work[:, None] / (sites.speed[cand] * jobs.cores[:, None].float()).clamp_min(1e-9)
-        stage = sites.latency[cand] + jobs.bytes_in[:, None] / sites.bw_in[cand]
-        return -(_drain(jobs, sites)[cand] + mine + stage)
+        mine = jobs.work[..., None] / (
+            take(sites.speed, cand) * jobs.cores[..., None].float()).clamp_min(1e-9)
+        stage = take(sites.latency, cand) + jobs.bytes_in[..., None] / take(sites.bw_in, cand)
+        return -(take(_drain(jobs, sites), cand) + mine + stage)
 
     return make_policy("shortest_wait", score, score_cand=score_cand)
 
@@ -236,7 +237,7 @@ def panda_dispatch(w_speed=1.0, w_free=1.0, w_queue=2.0, w_fail=4.0) -> Policy:
         return _per_site(jobs, panda_site_score(jobs, sites, w_speed, w_free, w_queue, w_fail))
 
     def score_cand(jobs, sites, state, clock, key, cand):
-        return panda_site_score(jobs, sites, w_speed, w_free, w_queue, w_fail)[cand]
+        return take(panda_site_score(jobs, sites, w_speed, w_free, w_queue, w_fail), cand)
 
     return make_policy("panda_dispatch", score, score_cand=score_cand)
 

@@ -16,6 +16,11 @@ order: the column sums over datasets are ``scan.sum_f32`` and the LRU
 prefix is ``scan.cumsum_f32``, because ``disk_used`` decides which replicas
 are evicted.  Scatters that may meet one cell twice are written so the
 result does not depend on the order the card applies them in.
+
+In an ensemble every field leads with the lane axis (``present [K, D, S]``,
+counters ``[K]``) and each operation works lane by lane; the eviction
+path's host read becomes "does any lane evict", which is exact because a
+lane without pressure gets the same values from either path.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from .scan import cumsum_f32, sum_f32
-from .types import resolve_device
+from .types import per_lane, resolve_device, take
 
 INF = float("inf")
 
@@ -61,18 +66,23 @@ def _host(x):
 
 def _col_bytes(mask: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
     """``(mask * size[:, None]).sum(0)``: bytes per site, summed over the
-    datasets in XLA's order."""
-    return sum_f32(torch.where(mask, size[:, None], 0.0), 0)
+    datasets (the axis before the sites) in XLA's order."""
+    return sum_f32(torch.where(mask, size[..., :, None], 0.0), -2)
 
 
 def _drop_fill(n: int, idx: torch.Tensor, keep: torch.Tensor, value, like: torch.Tensor):
-    """A flat ``[n]`` copy of ``like`` with ``value`` written at ``idx`` where
-    ``keep``; the other rows go to a spare slot that is cut off (the JAX
-    package's ``mode="drop"``).  Every written cell gets the same value, so
-    repeated indices give one result on every device."""
+    """A copy of ``like`` (``n`` cells a lane) with ``value`` written at the
+    flat cell ``idx`` where ``keep``; the other rows go to a spare slot that
+    is cut off (the JAX package's ``mode="drop"``).  Every written cell gets
+    the same value, so repeated indices give one result on every device.
+    With lanes (``idx [K, J]``) each lane writes its own cells."""
+    total = like.numel()
+    if idx.dim() > 1:
+        lanes = idx.shape[:-1]
+        idx = idx + torch.arange(0, total, n, device=idx.device).view(*lanes, 1)
     flat = torch.cat([like.reshape(-1), like.new_empty((1,))])
-    flat.index_fill_(0, torch.where(keep, idx, n).long(), value)
-    return flat[:n]
+    flat.index_fill_(0, torch.where(keep, idx, total).long().reshape(-1), value)
+    return flat[:total].view(like.shape)
 
 
 def make_replicas(sizes, disk_capacity, *, origin=None, placement=None, materialized=None,
@@ -126,22 +136,22 @@ def materialize_outputs(rep: ReplicaState, dataset: torch.Tensor, site: torch.Te
     Like ``make_replicas``' origin copies, the authoritative copy bypasses
     the capacity check; only policy-managed caches are capacity-bound.
     """
-    D, S = rep.present.shape
+    D, S = rep.present.shape[-2:]
     d = dataset.clamp(0, D - 1).long()
     s = site.clamp(0, S - 1).long()
     dd = torch.where(mask, d, D)
-    rows = torch.arange(d.shape[0], device=d.device)
-    last = torch.full((D + 1,), -1, dtype=torch.int64, device=d.device).scatter_reduce(
-        0, dd, torch.where(mask, rows, -1), reduce="amax")[:D]
-    origin = torch.where(last >= 0, s[last.clamp_min(0)].int(), rep.origin)
-    add = _drop_fill(D * S, d * S + s, mask, True,
-                     torch.zeros((D, S), dtype=torch.bool, device=d.device)).view(D, S)
+    rows = torch.arange(d.shape[-1], device=d.device)
+    last = torch.full((*d.shape[:-1], D + 1), -1, dtype=torch.int64,
+                      device=d.device).scatter_reduce(
+        -1, dd, torch.where(mask, rows, -1), reduce="amax")[..., :D]
+    origin = torch.where(last >= 0, take(s, last.clamp_min(0)).int(), rep.origin)
+    add = _drop_fill(D * S, d * S + s, mask, True, torch.zeros_like(rep.present))
     new = add & ~rep.present
     return rep._replace(
         present=rep.present | add,
         origin=origin,
         disk_used=rep.disk_used + _col_bytes(new, rep.size),
-        last_access=torch.where(add, clock, rep.last_access),
+        last_access=torch.where(add, per_lane(clock, 2), rep.last_access),
     )
 
 
@@ -168,17 +178,17 @@ def nearest_source(rep: ReplicaState, net, dataset: torch.Tensor,
     sources (zero or NaN bandwidth, non-finite latency) are masked out of the
     cost's operands and of the argmin, so no sentinel enters the division.
     """
-    D, S = rep.present.shape
+    D = rep.present.shape[-2]
     d = dataset.clamp(0, D - 1).long()
     dst = dst.long()
-    lat = net.latency.t()[dst]                   # [J, S] latency[src, dst_j]
-    bw = net.bw.t()[dst]                         # [J, S]
-    reach = rep.present[d] & (bw > 0) & torch.isfinite(lat)
+    lat = take(net.latency.transpose(-2, -1), dst, tail=1)   # [J, S] latency[src, dst_j]
+    bw = take(net.bw.transpose(-2, -1), dst, tail=1)         # [J, S]
+    reach = take(rep.present, d, tail=1) & (bw > 0) & torch.isfinite(lat)
     lat_s = torch.where(reach, lat, 0.0)
     bw_s = torch.where(reach, bw.clamp_min(1e-9), 1.0)
-    cost = torch.where(reach, lat_s + rep.size[d][:, None] / bw_s, INF)
+    cost = torch.where(reach, lat_s + take(rep.size, d)[..., None] / bw_s, INF)
     src = cost.argmin(-1).int()
-    return torch.where(reach.any(-1), src, rep.origin[d])
+    return torch.where(reach.any(-1), src, take(rep.origin, d))
 
 
 # --------------------------------------------------------------------------
@@ -208,38 +218,38 @@ def insert_mask(rep: ReplicaState, want: torch.Tensor, clock) -> ReplicaState:
     return rep._replace(
         present=rep.present | new,
         disk_used=rep.disk_used + incoming,
-        last_access=torch.where(new, clock, rep.last_access),
+        last_access=torch.where(new, per_lane(clock, 2), rep.last_access),
     )
 
 
 def _insert_mask_evicting(rep: ReplicaState, want, new, incoming, need, clock) -> ReplicaState:
     """The LRU-eviction path of ``insert_mask`` (see its docstring)."""
-    D, S = rep.present.shape
-    is_origin = (torch.arange(S, device=want.device)[None, :]
-                 == rep.origin.clamp(0, S - 1)[:, None])
+    S = rep.present.shape[-1]
+    is_origin = (torch.arange(S, device=want.device)
+                 == rep.origin.clamp(0, S - 1)[..., None])
     # candidates: resident, not the pinned origin, not read or inserted now
     evictable = rep.present & ~is_origin & ~want
     # a stable sort: ties (the inf of non-candidates) keep dataset order
     key = torch.where(evictable, rep.last_access, INF) + 0.0
-    order = torch.sort(key, dim=0, stable=True).indices                  # [D, S]
-    ev_sorted = evictable.gather(0, order)
-    sz_sorted = torch.where(ev_sorted, rep.size[order], 0.0)
-    cum_excl = cumsum_f32(sz_sorted, 0) - sz_sorted
-    evict_sorted = ev_sorted & (cum_excl < need[None, :])
-    evict = torch.zeros_like(evict_sorted).scatter_(0, order, evict_sorted)
+    order = torch.sort(key, dim=-2, stable=True).indices                 # [D, S]
+    ev_sorted = evictable.gather(-2, order)
+    sz_sorted = torch.where(ev_sorted, take(rep.size, order), 0.0)
+    cum_excl = cumsum_f32(sz_sorted, -2) - sz_sorted
+    evict_sorted = ev_sorted & (cum_excl < need[..., None, :])
+    evict = torch.zeros_like(evict_sorted).scatter_(-2, order, evict_sorted)
     freed = _col_bytes(evict, rep.size)
 
     # drop insertions at sites that still do not fit after all eviction
     fits = rep.disk_used - freed + incoming <= rep.disk_cap + 1e-3
-    do_insert = new & fits[None, :]
+    do_insert = new & fits[..., None, :]
     kept_in = _col_bytes(do_insert, rep.size)
     # a site only evicts if its insertions land
-    evict = evict & fits[None, :]
+    evict = evict & fits[..., None, :]
     freed = torch.where(fits, freed, 0.0)
     return rep._replace(
         present=(rep.present & ~evict) | do_insert,
         disk_used=rep.disk_used - freed + kept_in,
-        last_access=torch.where(do_insert, clock,
+        last_access=torch.where(do_insert, per_lane(clock, 2),
                                 torch.where(evict, -INF, rep.last_access)),
     )
 
@@ -248,10 +258,10 @@ def insert_replicas(rep: ReplicaState, dataset: torch.Tensor, site: torch.Tensor
                     mask: torch.Tensor, clock) -> ReplicaState:
     """Row-wise insertion: cache ``dataset[j]`` at ``site[j]`` where
     ``mask[j]`` (an OR over rows that name one cell)."""
-    D, S = rep.present.shape
+    D, S = rep.present.shape[-2:]
     d = dataset.clamp(0, D - 1).long()
     s = site.clamp(0, S - 1).long()
-    want = _drop_fill(D * S, d * S + s, mask, True, torch.zeros_like(rep.present)).view(D, S)
+    want = _drop_fill(D * S, d * S + s, mask, True, torch.zeros_like(rep.present))
     return insert_mask(rep, want, clock)
 
 
@@ -259,12 +269,12 @@ def touch(rep: ReplicaState, dataset: torch.Tensor, site: torch.Tensor, mask: to
           clock) -> ReplicaState:
     """Refresh the LRU clock of the replicas read this round (where
     present): every touched cell receives the same clock."""
-    D, S = rep.present.shape
+    D, S = rep.present.shape[-2:]
     d = dataset.clamp(0, D - 1).long()
     s = site.clamp(0, S - 1).long()
-    on = mask & rep.present[d, s]
-    hit = _drop_fill(D * S, d * S + s, on, True, torch.zeros_like(rep.present)).view(D, S)
-    return rep._replace(last_access=torch.where(hit, clock, rep.last_access))
+    on = mask & take(rep.present.flatten(-2), d * S + s)
+    hit = _drop_fill(D * S, d * S + s, on, True, torch.zeros_like(rep.present))
+    return rep._replace(last_access=torch.where(hit, per_lane(clock, 2), rep.last_access))
 
 
 def catalog_invariants(rep: ReplicaState) -> dict:

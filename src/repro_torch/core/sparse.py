@@ -29,13 +29,14 @@ CAND_SALT = 0x7093
 
 
 def static_feasibility(jobs, sites) -> torch.Tensor:
-    """``bool[J, S]``: can this job *ever* fit this site (active, total cores,
-    total memory).  Constant over a run, so it is baked into the candidate
-    index; per-round masks are applied again when the engine gathers."""
+    """``bool[..., J, S]``: can this job *ever* fit this site (active, total
+    cores, total memory).  Constant over a run, so it is baked into the
+    candidate index; per-round masks are applied again when the engine
+    gathers."""
     return (
-        sites.active[None, :]
-        & (jobs.cores[:, None] <= sites.cores[None, :])
-        & (jobs.memory[:, None] <= sites.memory[None, :])
+        sites.active[..., None, :]
+        & (jobs.cores[..., :, None] <= sites.cores[..., None, :])
+        & (jobs.memory[..., :, None] <= sites.memory[..., None, :])
     )
 
 
@@ -61,7 +62,11 @@ def build_candidates(jobs, sites, policy, pstate, clock, key, ext, k: int) -> to
     come out sorted ascending by site id with the dense pre-rank argmax
     force-included, so ``k >= S`` is "all feasible sites in dense scan
     order" and the set holds the dense argmax whenever any site is feasible.
+    An ensemble's states (``[K, J]``, ``[K, S]``, keys ``[K, 2]``) give
+    ``i32[K, J, k]``, each lane its own run's index.
     """
+    from .types import take
+
     S = sites.capacity
     k = min(int(k), S)
     feas = static_feasibility(jobs, sites)
@@ -69,7 +74,7 @@ def build_candidates(jobs, sites, policy, pstate, clock, key, ext, k: int) -> to
     masked = torch.where(feas, pre_fn(jobs, sites, pstate, clock, key), float("-inf"))
     best_val = masked.amax(-1)
     iota = torch.arange(S, device=masked.device)
-    best = torch.where(masked == best_val[:, None], iota, S).amin(-1)  # first max
+    best = torch.where(masked == best_val[..., None], iota, S).amin(-1)  # first max
 
     sel = masked
     if "data" in ext:
@@ -83,22 +88,22 @@ def build_candidates(jobs, sites, policy, pstate, clock, key, ext, k: int) -> to
         rep, net = dext.replicas, dext.network
         D = rep.present.shape[-2]
         has_ds = jobs.dataset >= 0
-        holders = rep.present[jobs.dataset.clamp(0, D - 1).long()]      # [J, S]
-        src = nearest_source(rep, net, jobs.dataset, best)               # [J]
-        local = holders | (iota[None, :] == src[:, None])
+        holders = take(rep.present, jobs.dataset.clamp(0, D - 1).long(), tail=1)  # [J, S]
+        src = nearest_source(rep, net, jobs.dataset, best)                         # [J]
+        local = holders | (iota == src[..., None])
         row_min = torch.where(feas, masked, float("inf")).amin(-1)
         span = torch.where(torch.isfinite(best_val) & torch.isfinite(row_min),
                            best_val - row_min, 0.0)
-        bonus = (span + 1.0)[:, None]
-        sel = torch.where(feas & local & has_ds[:, None], masked + bonus, masked)
+        bonus = (span + 1.0)[..., None]
+        sel = torch.where(feas & local & has_ds[..., None], masked + bonus, masked)
 
     idx = _top_k_indices(sel, k)
     # force-include the dense pre-rank argmax in the last slot
-    missing = torch.isfinite(best_val) & ~(idx == best[:, None]).any(-1)
-    idx[:, -1] = torch.where(missing, best, idx[:, -1])
+    missing = torch.isfinite(best_val) & ~(idx == best[..., None]).any(-1)
+    idx[..., -1] = torch.where(missing, best, idx[..., -1])
     # sentinel-out infeasible slots, then sort ascending by site id
     # (sentinels last): the dense argmax tie-break order
-    vals = masked.gather(1, idx)
+    vals = masked.gather(-1, idx)
     cand = torch.where(torch.isfinite(vals), idx, S).int()
     return torch.sort(cand, dim=-1).values
 

@@ -19,6 +19,7 @@ results.  The protocol is the JAX package's, hook for hook:
   4. assignment              | pre_assign(sub, ctx)   feasibility/speed mods
   5b. starts                 | on_start(sub, ctx)     service-time adjustments
   6. event log               | log_columns(sub, ctx, write) -> {name: [S] col}
+                             |   (write: True, or an ensemble's bool[K])
      (declaration)           | log_spec(sub, ext, jobs, sites) -> {name: [S]}
   end of run                 | finalize(sub, ext, jobs, sites, clock)
                              |   -> (ext, {SimResult field: value})

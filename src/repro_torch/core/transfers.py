@@ -33,6 +33,11 @@ counters sum in XLA's order (``scan.sum_f32``).  The ring takes
 overflow but needs ``2 * S * S * J`` int32 (7.2e10 bytes at S = 300 and
 J = 100000), so runs at that scale pass a smaller ``queue_slots`` and rely
 on the overflow valve (``n_overflow``).
+
+In an ensemble every field leads with the lane axis (rings ``[K, L, Q]``,
+counters ``[K]``): ring reads and job lookups go lane by lane
+(``types.take``), the per-link counts of all lanes are one integer segment
+sum over ``K * L`` segments, and the counters sum over the last axis.
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ import torch
 from . import rng as _rng
 from .network import link_caps
 from .scan import fma_f32, sum_f32
-from .types import RUNNING, resolve_device
+from .types import RUNNING, per_lane, resolve_device, take
 
 INF = float("inf")
 
@@ -161,47 +166,51 @@ def _enqueue(ts: TransferState, want, link, nbytes, resid, cache, clock):
     """
     from .engine import _segment_exclusive_base
 
-    L, Q = ts.queue.shape
-    J = want.shape[0]
+    L, Q = ts.queue.shape[-2:]
+    J = want.shape[-1]
     idx = torch.arange(J, dtype=torch.int32, device=want.device)
     lc = link.clamp(0, L - 1)
     seg = torch.where(want, lc, L)
-    order = torch.sort(seg, stable=True).indices
-    want_o = want[order].int()
-    incl = _segment_exclusive_base(want_o, seg[order], L + 1)
-    rank = torch.empty_like(incl)
-    rank[order] = incl - want_o
+    order = torch.sort(seg, dim=-1, stable=True).indices
+    want_o = take(want, order).int()
+    incl = _segment_exclusive_base(want_o, take(seg, order), L + 1)
+    rank = torch.empty_like(incl).scatter_(-1, order, incl - want_o)
     lcl = lc.long()
-    depth = ts.qlen[lcl] + rank                  # entries ahead at enqueue time
+    depth = take(ts.qlen, lcl) + rank            # entries ahead at enqueue time
     room = want & (depth < Q)
-    slot = torch.remainder(ts.head[lcl] + depth, Q)
+    slot = torch.remainder(take(ts.head, lcl) + depth, Q)
     # a unique ticket per enqueue: the running counter + the rank this round
     wi = want.int()
-    tkt = ts.n_enq + (torch.cumsum(wi, 0, dtype=torch.int32) - wi)
-    # rows with room write distinct slots; the rest go to a spare cell that
-    # is cut off (the JAX package's mode="drop")
-    tgt = torch.where(room, lcl * Q + slot, L * Q)
+    tkt = ts.n_enq[..., None] + (torch.cumsum(wi, -1, dtype=torch.int32) - wi)
+    # rows with room write distinct slots (of their lane's rings); the rest
+    # go to a spare cell that is cut off (the JAX package's mode="drop")
+    cells = ts.queue.numel()
+    tgt = lcl * Q + slot
+    if tgt.dim() > 1:
+        tgt = tgt + torch.arange(0, cells, L * Q, device=tgt.device).view(*tgt.shape[:-1], 1)
+    tgt = torch.where(room, tgt, cells)
     queue = torch.cat([ts.queue.reshape(-1), ts.queue.new_empty((1,))])
-    queue[tgt] = idx
+    queue[tgt] = idx.expand_as(tgt)
     tickets = torch.cat([ts.tickets.reshape(-1), ts.tickets.new_empty((1,))])
     tickets[tgt] = tkt
     ovf = want & ~room
+    clock_j = per_lane(clock)
     return ts._replace(
-        queue=queue[:L * Q].view(L, Q),
-        tickets=tickets[:L * Q].view(L, Q),
+        queue=queue[:cells].view(ts.queue.shape),
+        tickets=tickets[:cells].view(ts.queue.shape),
         qlen=ts.qlen + _link_count(room, lc, L),
         active=ts.active + _link_count(ovf, lc, L),
         stat=torch.where(room, T_QUEUED, torch.where(ovf, T_ACTIVE, ts.stat)),
         link=torch.where(want, lc, ts.link),
         rem=torch.where(want, nbytes, ts.rem),
         resid=torch.where(want, resid, ts.resid),
-        enq_t=torch.where(want, clock, ts.enq_t),
-        act_t=torch.where(want, clock, ts.act_t),  # re-stamped on admission
+        enq_t=torch.where(want, clock_j, ts.enq_t),
+        act_t=torch.where(want, clock_j, ts.act_t),  # re-stamped on admission
         ticket=torch.where(want, tkt, ts.ticket),
         cache=torch.where(want, cache, ts.cache),
-        n_enq=ts.n_enq + wi.sum().int(),
-        n_overflow=ts.n_overflow + ovf.sum().int(),
-        bytes_enq=ts.bytes_enq + sum_f32(torch.where(want, nbytes, 0.0), 0),
+        n_enq=ts.n_enq + wi.sum(-1).int(),
+        n_overflow=ts.n_overflow + ovf.sum(-1).int(),
+        bytes_enq=ts.bytes_enq + sum_f32(torch.where(want, nbytes, 0.0), -1),
     ), depth
 
 
@@ -213,44 +222,44 @@ def _admit(ts: TransferState, clock) -> TransferState:
     under a new ticket) are tombstones and pop for free, even at zero
     budget, so they never wedge a queue.
     """
-    L, Q = ts.queue.shape
-    J = ts.stat.shape[0]
-    off = torch.arange(Q, dtype=torch.int32, device=ts.queue.device)[None, :]
-    pos = torch.remainder(ts.head[:, None] + off, Q).long()
-    ent = ts.queue.gather(1, pos)
-    tkt = ts.tickets.gather(1, pos)
-    in_q = off < ts.qlen[:, None]
+    from .replicas import _drop_fill
+
+    Q = ts.queue.shape[-1]
+    J = ts.stat.shape[-1]
+    off = torch.arange(Q, dtype=torch.int32, device=ts.queue.device)
+    pos = torch.remainder(ts.head[..., None] + off, Q).long()
+    ent = ts.queue.gather(-1, pos)
+    tkt = ts.tickets.gather(-1, pos)
+    in_q = off < ts.qlen[..., None]
     ec = ent.clamp(0, J - 1).long()
-    live = in_q & (ent >= 0) & (ts.stat[ec] == T_QUEUED) & (ts.ticket[ec] == tkt)
+    live = in_q & (ent >= 0) & (take(ts.stat, ec) == T_QUEUED) & (take(ts.ticket, ec) == tkt)
     vcum = torch.cumsum(live.int(), -1, dtype=torch.int32)
-    budget = (ts.cap - ts.active).clamp_min(0)[:, None]
+    budget = (ts.cap - ts.active).clamp_min(0)[..., None]
     popped = in_q & (vcum <= budget)  # a contiguous head prefix: tombstones ride along
     admit = popped & live
     # every admitted row is written True: repeats give one result
-    go = torch.zeros((J + 1,), dtype=torch.bool, device=ec.device)
-    go.index_fill_(0, torch.where(admit, ec, J).reshape(-1), True)
-    go = go[:J]
+    go = _drop_fill(J, ec.flatten(-2), admit.flatten(-2), True, torch.zeros_like(ts.cache))
     n_pop = popped.sum(-1, dtype=torch.int32)
     return ts._replace(
         head=torch.remainder(ts.head + n_pop, Q),
         qlen=ts.qlen - n_pop,
         active=ts.active + admit.sum(-1, dtype=torch.int32),
         stat=torch.where(go, T_ACTIVE, ts.stat),
-        act_t=torch.where(go, clock, ts.act_t),
+        act_t=torch.where(go, per_lane(clock), ts.act_t),
     )
 
 
 def _rate(ts: TransferState, bw_flat: torch.Tensor) -> torch.Tensor:
     """Each flow's equal share of its link's bandwidth."""
-    lc = ts.link.clamp(0, bw_flat.shape[0] - 1).long()
-    return bw_flat[lc] / ts.active[lc].clamp_min(1).float()
+    lc = ts.link.clamp(0, bw_flat.shape[-1] - 1).long()
+    return take(bw_flat, lc) / take(ts.active, lc).clamp_min(1).float()
 
 
 def _reprice(ts: TransferState, bw_flat: torch.Tensor, clock) -> TransferState:
     """Each active flow's completion time under the current equal-share
     split.  The active sets only change at rounds, so this is exact, and it
     is what ``event_times`` reads."""
-    t_done = clock + ts.rem / _rate(ts, bw_flat).clamp_min(1e-9)
+    t_done = per_lane(clock) + ts.rem / _rate(ts, bw_flat).clamp_min(1e-9)
     return ts._replace(t_done=torch.where(ts.stat == T_ACTIVE, t_done, INF))
 
 
@@ -273,7 +282,7 @@ def _tr_init(sub, state0, jobs, sites):
 
 def _tr_event_times(sub, ctx):
     """Transfer completions join the round clock: the staging gate's wake."""
-    return ctx.ext["transfers"].t_done.amin()
+    return ctx.ext["transfers"].t_done.amin(-1)
 
 
 def _tr_on_completions(sub, ctx):
@@ -289,21 +298,22 @@ def _tr_on_completions(sub, ctx):
         return
     jobs, S, J = ctx.jobs, ctx.S, ctx.J
     L = S * S
-    bw_flat = dext.network.bw.reshape(L)
+    bw_flat = dext.network.bw.flatten(-2)
     lc = ts.link.clamp(0, L - 1)
     act = ts.stat == T_ACTIVE
+    clock_j = per_lane(ctx.clock)
 
     # byte progress: the active set (and so each flow's share) was constant
     # over [clock_prev, clock].  XLA contracts rem - rate * dt into one
     # fused multiply-add
-    dt = (ctx.clock - ctx.clock_prev).clamp_min(0.0)
+    dt = per_lane((ctx.clock - ctx.clock_prev).clamp_min(0.0))
     rem = torch.where(act, fma_f32(-_rate(ts, bw_flat), dt, ts.rem).clamp_min(0.0), ts.rem)
 
     # a staging job that availability moved out of RUNNING in this same hook
     # phase (availability runs first) abandons its transfer; its ring entry
     # becomes a tombstone
     staging = jobs.state == RUNNING
-    fin = act & (ts.t_done <= ctx.clock) & staging
+    fin = act & (ts.t_done <= clock_j) & staging
     cancel = (ts.stat > T_IDLE) & ~staging
 
     # fault injection (only with the faults subsystem): a would-complete
@@ -322,8 +332,8 @@ def _tr_on_completions(sub, ctx):
     frac = _rng.uniform(ctx.subkey("transfers"), (J,), minval=0.05, maxval=1.0)
     t_rest = torch.where(jobs.will_fail, ts.resid * frac, ts.resid)
     ctx.jobs = jobs._replace(
-        t_finish=torch.where(fin, ctx.clock + t_rest, jobs.t_finish),
-        xfer_time=torch.where(fin, ctx.clock - ts.act_t, jobs.xfer_time),
+        t_finish=torch.where(fin, clock_j + t_rest, jobs.t_finish),
+        xfer_time=torch.where(fin, clock_j - ts.act_t, jobs.xfer_time),
         xfer_wait=torch.where(fin, ts.act_t - ts.enq_t, jobs.xfer_wait),
     )
     # deferred landing: the replica and the WAN counters at the destination
@@ -338,14 +348,14 @@ def _tr_on_completions(sub, ctx):
         rem=torch.where(clear, 0.0, rem),
         t_done=torch.where(clear, INF, ts.t_done),
         active=ts.active - _link_count(freed, lc, L),
-        n_done=ts.n_done + fin.sum().int(),
-        n_cancel=ts.n_cancel + cancel.sum().int(),
-        bytes_done=ts.bytes_done + sum_f32(torch.where(fin, jobs.xfer_bytes, 0.0), 0),
-        bytes_cancel=ts.bytes_cancel + sum_f32(torch.where(cancel, jobs.xfer_bytes, 0.0), 0),
+        n_done=ts.n_done + fin.sum(-1).int(),
+        n_cancel=ts.n_cancel + cancel.sum(-1).int(),
+        bytes_done=ts.bytes_done + sum_f32(torch.where(fin, jobs.xfer_bytes, 0.0), -1),
+        bytes_cancel=ts.bytes_cancel + sum_f32(torch.where(cancel, jobs.xfer_bytes, 0.0), -1),
     )
     ts = _admit(ts, ctx.clock)
     ctx.ext["transfers"] = _reprice(ts, bw_flat, ctx.clock)
-    ctx.progressed = ctx.progressed | fin.any() | cancel.any()
+    ctx.progressed = ctx.progressed | fin.any(-1) | cancel.any(-1)
 
 
 def _tr_on_start(sub, ctx):
@@ -356,7 +366,6 @@ def _tr_on_start(sub, ctx):
     dext = ctx.ext.get("data")
     if dext is None:
         return
-    L = ctx.S * ctx.S
     sc = ctx.scratch.get("transfers")
     if sc is not None:
         xfer = sc["xfer"]
@@ -372,12 +381,11 @@ def _tr_on_start(sub, ctx):
     # newly enqueued flows activate now if their link has a free slot: an
     # uncontended transfer must create its own wake event this same round
     ts = _admit(ts, ctx.clock)
-    ctx.ext["transfers"] = _reprice(ts, dext.network.bw.reshape(L), ctx.clock)
+    ctx.ext["transfers"] = _reprice(ts, dext.network.bw.flatten(-2), ctx.clock)
 
 
 def _tr_log_spec(sub, ts: TransferState, jobs, sites):
-    L = ts.cap.shape[-1]
-    zeros = torch.zeros((L,), dtype=torch.int32, device=ts.cap.device)
+    zeros = torch.zeros(ts.cap.shape, dtype=torch.int32, device=ts.cap.device)
     return {"link_active": zeros, "link_queued": zeros}
 
 

@@ -58,6 +58,16 @@ def take(x: torch.Tensor, idx: torch.Tensor, tail: int = 0) -> torch.Tensor:
     return x.reshape(-1, *x.shape[lead + 1:])[idx + off]
 
 
+def per_lane(x, axes: int = 1):
+    """A per-run value (the clock, a scalar of a subsystem's state)
+    broadcast over ``axes`` trailing axes of a state: an ensemble's ``[K]``
+    tensor becomes ``[K, 1, ...]``; a solo run's 0-d tensor or a Python
+    number stays as it is."""
+    if isinstance(x, torch.Tensor) and x.dim():
+        return x.view(x.shape + (1,) * axes)
+    return x
+
+
 class JobsState(NamedTuple):
     """Struct-of-arrays over a fixed job capacity J (padded with inactive rows)."""
 
@@ -132,7 +142,7 @@ class EventLog(NamedTuple):
     site_running: torch.Tensor  # i32[R, S]
     extra: dict                 # {name: [R, ...]} subsystem-declared columns
     cursor: int                 # next write slot (wraps); the host loop owns it
-                                # (an ensemble's result holds each lane's, i32[K])
+                                # (an ensemble's is each lane's own, i32[K])
 
     @property
     def rows(self) -> int:
@@ -140,16 +150,17 @@ class EventLog(NamedTuple):
 
 
 class EngineState(NamedTuple):
-    """The round-loop carry.  ``round`` and the log cursor are host integers:
-    the loop runs in Python and decides on the host which rounds log.
+    """The round-loop carry.  A solo run's ``round`` and log cursor are host
+    integers: the loop runs in Python and decides on the host which rounds
+    log.
 
     An ensemble of K lanes carries a leading K on every tensor (``clock``
-    and ``halted`` are ``[K]``) and counts each lane's own rounds in
-    ``ext["~rounds"]``; ``round`` counts the loop's iterations, which every
-    lane still running has taken."""
+    and ``halted`` are ``[K]``), and ``round`` and the log cursor are each
+    lane's own, ``i32[K]``: a lane frozen by a horizon resumes at its own
+    count, as ``vmap`` of the JAX package's ``while_loop`` counts."""
 
     clock: torch.Tensor        # f32[]
-    round: int
+    round: int                 # i32[K] in an ensemble
     jobs: JobsState
     sites: SiteState
     rng: torch.Tensor          # threefry key, see rng.py

@@ -38,6 +38,14 @@
 //      order and one warp scan joins the lanes;
 //   3. place (one thread a row): pos = base + in-tile prefix, and
 //      admit = pos + size <= cap + 1e-6.
+// Lanes: L independent problems (scores [L][N][K], cand [L][N][K], sizes
+// [L][N], caps [L][E]; outputs [L][N]) take the same three launches, the
+// JAX package's kernel under vmap.  A lane's tiles are a block of CTAs and no
+// tile straddles two lanes; rows are numbered across lanes ([L][N]
+// flattened), so the rows pass is the one-problem code; the tile totals are
+// [L][E][tiles] and the base pass scans L * E rows.  A lane's results are
+// those of a call on it alone.  L = 1 compiles the kernels without the lane
+// arithmetic (the LANES template flag), so one problem keeps its registers.
 // The scans add in another order than the plain version's cumulative sum.
 // For integral sizes (cores) whose sums stay below 2^24 every partial sum is
 // an integer that f32 holds exactly, so site and admit equal the plain
@@ -47,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -103,7 +113,7 @@ __device__ __forceinline__ void consider(float x, int c, int s, int k, int e_cou
   }
 }
 
-template <bool VEC>
+template <bool VEC, bool LANES>
 __global__ void __launch_bounds__(kThreads, 4)  // 64 registers: 4 CTAs an SM, no spills
     fused_rows_kernel(const float* __restrict__ scores, const int* __restrict__ cand,
                       const float* __restrict__ sizes, int n, int k, int e_count, int g_lanes,
@@ -114,8 +124,16 @@ __global__ void __launch_bounds__(kThreads, 4)  // 64 registers: 4 CTAs an SM, n
   __shared__ float s_w[kTileRows];   // the row's size (0 without a claim)
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTileRows;
-  const int rows = n - row0 < kTileRows ? static_cast<int>(n - row0) : kTileRows;
+  // this CTA's problem (lane of the batch) and its tile there; rows are
+  // numbered across lanes, so every row access below is the one-problem code
+  const int problem = LANES ? static_cast<int>(blockIdx.x) / n_tiles : 0;
+  const int tile = LANES ? static_cast<int>(blockIdx.x) - problem * n_tiles
+                         : static_cast<int>(blockIdx.x);
+  const long long tile0 = static_cast<long long>(tile) * kTileRows;
+  const long long row0 = static_cast<long long>(problem) * n + tile0;
+  const int rows = n - tile0 < kTileRows ? static_cast<int>(n - tile0) : kTileRows;
+  // this problem's tile totals: [E][n_tiles] at problem * E * n_tiles
+  if (LANES) tile_tot += static_cast<long long>(problem) * e_count * n_tiles;
   const int ec0 = e_count < kTableBins ? e_count : kTableBins;
   for (int e = lane; e < ec0; e += kWarp) s_tab[warp * ec0 + e] = 0.f;  // this warp's row, chunk 0
 
@@ -201,7 +219,7 @@ __global__ void __launch_bounds__(kThreads, 4)  // 64 registers: 4 CTAs an SM, n
         s_tab[w * ec + e] = carry;
         carry += x;
       }
-      tile_tot[(e0 + e) * static_cast<long long>(n_tiles) + blockIdx.x] = carry;
+      tile_tot[(e0 + e) * static_cast<long long>(n_tiles) + tile] = carry;
     }
     __syncthreads();
     if (mine && i < rows) local[row0 + i] = s_tab[warp * ec + bin - e0] + excl;
@@ -262,61 +280,83 @@ __global__ void __launch_bounds__(kBaseWarps * kWarp)
   }
 }
 
+// One thread a row of the [lanes][n] rows; with LANES, row r is row r % n
+// of problem r / n, whose site bins start at problem * E.  One problem keeps
+// the 32-bit row arithmetic.
+template <bool LANES>
 __global__ void fused_place_kernel(const int* __restrict__ site, const float* __restrict__ local,
                                    const float* __restrict__ base,
                                    const float* __restrict__ sizes,
-                                   const float* __restrict__ caps, int n, int e_count,
-                                   int n_tiles, bool* __restrict__ admit) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
+                                   const float* __restrict__ caps, long long rows, int n,
+                                   int e_count, int n_tiles, bool* __restrict__ admit) {
+  using Row = typename std::conditional<LANES, long long, int>::type;
+  const Row r = static_cast<Row>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
   const float l = local[r];
   bool a = false;
   if (!isnan(l)) {  // the row claims a site
+    const Row problem = LANES ? r / n : 0;
     const int s = site[r];
-    const int b = s < 0 ? 0 : (s >= e_count ? e_count - 1 : s);
-    const float pos = base[static_cast<long long>(b) * n_tiles + r / kTileRows] + l;
+    const Row b = problem * e_count + (s < 0 ? 0 : (s >= e_count ? e_count - 1 : s));
+    const Row t = (r - problem * n) / kTileRows;   // the row's tile in its problem
+    const float pos = base[static_cast<long long>(b) * n_tiles + t] + l;
     a = pos + sizes[r] <= caps[b] + 1e-6f;
   }
   admit[r] = a;
 }
 
-template <bool VEC>
-cudaError_t launch_rows(int n_tiles, size_t smem, cudaStream_t st, const float* scores,
-                        const int* cand, const float* sizes, int n, int k, int e_count, int g,
-                        int* site, float* local, float* tile_tot) {
-  fused_rows_kernel<VEC><<<n_tiles, kThreads, smem, st>>>(scores, cand, sizes, n, k, e_count, g,
-                                                           n_tiles, site, local, tile_tot);
+template <bool VEC, bool LANES>
+cudaError_t launch_rows(int ctas, int n_tiles, size_t smem, cudaStream_t st,
+                        const float* scores, const int* cand, const float* sizes, int n, int k,
+                        int e_count, int g, int* site, float* local, float* tile_tot) {
+  fused_rows_kernel<VEC, LANES><<<ctas, kThreads, smem, st>>>(
+      scores, cand, sizes, n, k, e_count, g, n_tiles, site, local, tile_tot);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Rows of a tile: the caller's scratch is local float[n] and tile_tot
-// float[E * ceil(n / fused_tile_rows())].
+// Rows of a tile: the caller's scratch is local float[lanes * n] and tile_tot
+// float[lanes * E * ceil(n / fused_tile_rows())].
 extern "C" int fused_tile_rows() { return kTileRows; }
 
-// Launch the three passes on `stream`; returns cudaGetLastError() after them.
+// Launch the three passes over `lanes` problems of n rows on `stream`;
+// returns cudaGetLastError() after them.
 extern "C" int fused_launch(const float* scores, const int* cand, const float* sizes,
-                            const float* caps, int n, int k, int e_count, int* site, bool* admit,
-                            float* local, float* tile_tot, void* stream) {
+                            const float* caps, int lanes, int n, int k, int e_count, int* site,
+                            bool* admit, float* local, float* tile_tot, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || k <= 0 || e_count <= 0) return static_cast<int>(cudaGetLastError());
+  if (lanes <= 0 || n <= 0 || k <= 0 || e_count <= 0)
+    return static_cast<int>(cudaGetLastError());
   const int n_tiles = (n + kTileRows - 1) / kTileRows;
+  const int ctas = lanes * n_tiles;
   const int quads = (k + 3) / 4;
   int g = 1;
   while (g < quads && g < kWarp) g <<= 1;
   const bool vec = k % 4 == 0 && (reinterpret_cast<uintptr_t>(scores) & 15u) == 0 &&
                    (reinterpret_cast<uintptr_t>(cand) & 15u) == 0;
+  const bool many = lanes > 1;
   const size_t smem = sizeof(float) * kWarps * (e_count < kTableBins ? e_count : kTableBins);
-  const cudaError_t err =
-      vec ? launch_rows<true>(n_tiles, smem, st, scores, cand, sizes, n, k, e_count, g, site,
-                              local, tile_tot)
-          : launch_rows<false>(n_tiles, smem, st, scores, cand, sizes, n, k, e_count, g, site,
-                               local, tile_tot);
+  cudaError_t err;
+  switch ((vec ? 2 : 0) + (many ? 1 : 0)) {
+    case 0: err = launch_rows<false, false>(ctas, n_tiles, smem, st, scores, cand, sizes, n, k, e_count, g, site, local, tile_tot); break;
+    case 1: err = launch_rows<false, true>(ctas, n_tiles, smem, st, scores, cand, sizes, n, k, e_count, g, site, local, tile_tot); break;
+    case 2: err = launch_rows<true, false>(ctas, n_tiles, smem, st, scores, cand, sizes, n, k, e_count, g, site, local, tile_tot); break;
+    default: err = launch_rows<true, true>(ctas, n_tiles, smem, st, scores, cand, sizes, n, k, e_count, g, site, local, tile_tot); break;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_base_kernel<<<(e_count + kBaseWarps - 1) / kBaseWarps, kBaseWarps * kWarp, 0, st>>>(
-      tile_tot, n_tiles, e_count);
-  fused_place_kernel<<<(n + kPlaceThreads - 1) / kPlaceThreads, kPlaceThreads, 0, st>>>(
-      site, local, tile_tot, sizes, caps, n, e_count, n_tiles, admit);
+  const int bins = lanes * e_count;   // rows of the tile totals, one warp each
+  fused_base_kernel<<<(bins + kBaseWarps - 1) / kBaseWarps, kBaseWarps * kWarp, 0, st>>>(
+      tile_tot, n_tiles, bins);
+  const long long rows = static_cast<long long>(lanes) * n;
+  const unsigned blocks = static_cast<unsigned>((rows + kPlaceThreads - 1) / kPlaceThreads);
+  if (many)
+    fused_place_kernel<true><<<blocks, kPlaceThreads, 0, st>>>(site, local, tile_tot, sizes,
+                                                               caps, rows, n, e_count, n_tiles,
+                                                               admit);
+  else
+    fused_place_kernel<false><<<blocks, kPlaceThreads, 0, st>>>(site, local, tile_tot, sizes,
+                                                                caps, rows, n, e_count, n_tiles,
+                                                                admit);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,11 +2,13 @@
 (``csrc/fused.cu``).
 
 Replaces the TPU kernel ``src/repro/kernels/assign/fused.py:_fused_kernel``
-(entry point ``fused_assign_pallas``).  The kernel reads the ``N x K`` f32
-scores and i32 candidates once, so it is bound by device-memory bandwidth:
-13.7 MB at the engine's N=100000, K=16, E=300.  Three launches: rows (picks
-and in-tile prefixes over 256-row tiles), a scan of the per-site tile
-totals, then positions and admits; see the source.
+(entry point ``fused_assign_pallas``), also batched over lanes as ``jax.vmap``
+runs it.  The kernel reads the ``N x K`` f32 scores and i32 candidates once,
+so it is bound by device-memory bandwidth: 13.7 MB at the engine's N=100000,
+K=16, E=300.  Three launches: rows (picks and in-tile prefixes over 256-row
+tiles), a scan of the per-site tile totals, then positions and admits; see
+the source.  With a leading lane axis (``scores_k [L, N, K]``) the same three
+launches solve L independent problems.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ def _lib():
         i = ctypes.c_int
         lib.fused_tile_rows.argtypes = []
         lib.fused_tile_rows.restype = i
-        lib.fused_launch.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p]
+        lib.fused_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p]
         lib.fused_launch.restype = i
     return lib
 
@@ -38,17 +40,20 @@ def fused_assign_cuda(scores_k: torch.Tensor, cand: torch.Tensor, sizes: torch.T
     """Launch the kernel; same contract as ``fused_ref.fused_assign_ref``
     (whose ``block_n`` does not change the result for integral sizes).  Takes
     contiguous float32 ``scores_k [N, K]``, int32 ``cand [N, K]``, float32
-    ``sizes [N]`` and ``caps [E]`` on one CUDA device, ``K, E >= 1``, and
-    raises on anything else."""
+    ``sizes [N]`` and ``caps [E]``, or a batch of L problems ``[L, N, K]``,
+    ``[L, N, K]``, ``[L, N]``, ``[L, E]`` (outputs ``[L, N]``), on one CUDA
+    device, ``K, E >= 1``, and raises on anything else."""
     global launches, _TILE_ROWS
-    if scores_k.dim() != 2:
-        raise ValueError(f"scores_k must be [N, K], got {tuple(scores_k.shape)}")
-    N, K = scores_k.shape
-    E = caps.shape[0] if caps.dim() == 1 else -1
-    for name, t, dtype, shape in (("scores_k", scores_k, torch.float32, (N, K)),
-                                  ("cand", cand, torch.int32, (N, K)),
-                                  ("sizes", sizes, torch.float32, (N,)),
-                                  ("caps", caps, torch.float32, (E,))):
+    if scores_k.dim() not in (2, 3):
+        raise ValueError(f"scores_k must be [N, K] or [L, N, K], got {tuple(scores_k.shape)}")
+    lanes = tuple(scores_k.shape[:-2])
+    L = lanes[0] if lanes else 1
+    N, K = scores_k.shape[-2:]
+    E = caps.shape[-1] if caps.dim() == len(lanes) + 1 else -1
+    for name, t, dtype, shape in (("scores_k", scores_k, torch.float32, (*lanes, N, K)),
+                                  ("cand", cand, torch.int32, (*lanes, N, K)),
+                                  ("sizes", sizes, torch.float32, (*lanes, N)),
+                                  ("caps", caps, torch.float32, (*lanes, E))):
         if not t.is_cuda or t.device != scores_k.device:
             raise ValueError(f"{name} must lie on the CUDA device of scores_k")
         if t.dtype != dtype:
@@ -59,20 +64,22 @@ def fused_assign_cuda(scores_k: torch.Tensor, cand: torch.Tensor, sizes: torch.T
             raise ValueError(f"{name} must be contiguous")
     if K < 1 or E < 1:
         raise ValueError(f"K and E must be positive, got K={K}, E={E}")
-    lib = _lib()
     dev = scores_k.device
+    rows = L * N
+    lib = _lib()
     if _TILE_ROWS is None:
         _TILE_ROWS = lib.fused_tile_rows()
     tiles = -(-N // _TILE_ROWS)
-    # one allocation: site i32[N], local f32[N], tile totals f32[E, tiles], admit bool[N]
-    buf = torch.empty((8 * N + 4 * E * tiles + N,), dtype=torch.uint8, device=dev)
-    site = buf[:4 * N].view(torch.int32)
-    admit = buf[buf.numel() - N:].view(torch.bool)
+    # one allocation: site i32[L*N], local f32[L*N], tile totals f32[L, E, tiles],
+    # admit bool[L*N]
+    buf = torch.empty((8 * rows + 4 * L * E * tiles + rows,), dtype=torch.uint8, device=dev)
+    site = buf[:4 * rows].view(torch.int32).view(*lanes, N)
+    admit = buf[buf.numel() - rows:].view(torch.bool).view(*lanes, N)
     with torch.cuda.device(dev):
         rc = lib.fused_launch(
-            scores_k.data_ptr(), cand.data_ptr(), sizes.data_ptr(), caps.data_ptr(), N, K, E,
-            site.data_ptr(), admit.data_ptr(), buf.data_ptr() + 4 * N,
-            buf.data_ptr() + 8 * N, _build.stream_handle(dev),
+            scores_k.data_ptr(), cand.data_ptr(), sizes.data_ptr(), caps.data_ptr(), L, N, K, E,
+            site.data_ptr(), admit.data_ptr(), buf.data_ptr() + 4 * rows,
+            buf.data_ptr() + 8 * rows, _build.stream_handle(dev),
         )
     if rc != 0:
         raise RuntimeError(f"fused assign kernel launch failed: cudaError {rc}")

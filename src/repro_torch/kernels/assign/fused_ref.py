@@ -27,6 +27,10 @@ Inputs
 Outputs
   site     i32[N]     picked site, -1 when the row has no valid candidate
   admit    bool[N]    admitted under capacity
+
+With a leading lane axis (``[L, N, K]``, ``[L, N]``, ``[L, E]`` in,
+``[L, N]`` out) every lane is an independent problem with its own ``used``
+carry, the JAX package's kernel under ``jax.vmap``.
 """
 from __future__ import annotations
 
@@ -38,6 +42,10 @@ NEG_INF = -1e30
 
 
 def fused_assign_ref(scores_k, cand, sizes, caps, *, block_n: int = 256):
+    if scores_k.dim() == 3:
+        outs = [fused_assign_ref(s, c, z, e, block_n=block_n)
+                for s, c, z, e in zip(scores_k, cand, sizes, caps)]
+        return tuple(torch.stack(col) for col in zip(*outs))
     N, K = scores_k.shape
     E = caps.shape[0]
     dev = scores_k.device

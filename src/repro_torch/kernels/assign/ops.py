@@ -53,8 +53,9 @@ def make_capacity_assign(jobs_cores: torch.Tensor | None = None, *, block_n: int
 
 def fused_topk_assign(scores_k, cand, sizes, caps, *, block_n: int = 256):
     """Fused candidate-set rank + capacity pick (see fused_ref.py for
-    semantics): the Hopper kernel for CUDA tensors, the plain version with
-    row blocks of ``block_n`` for CPU tensors."""
+    semantics), one problem ``[N, K]`` or L of them ``[L, N, K]``: the Hopper
+    kernel for CUDA tensors (one set of launches for all L), the plain
+    version with row blocks of ``block_n`` for CPU tensors."""
     if scores_k.is_cuda:
         return fused_assign_cuda(scores_k.float().contiguous(), cand.int().contiguous(),
                                  sizes.float().contiguous(), caps.float().contiguous())
@@ -67,11 +68,13 @@ def make_fused_capacity_assign(jobs_cores: torch.Tensor | None = None, *, block_
     under free-core capacity in one fused pass, without the dense ``[J, S]``
     masked-score matrix that ``make_capacity_assign`` builds.  With candidates
     covering all feasible sites (``topk >= S``) the result equals the dense
-    ``make_capacity_assign`` path bit for bit."""
+    ``make_capacity_assign`` path bit for bit.  In an ensemble (``scores_k
+    [L, J, K]``) every lane is its own problem, all in one call;
+    ``jobs_cores`` is ``[J]`` or ``[L, J]``."""
 
     def assign_cand(scores_k, queued, feas_k, cand, sites):
         S = sites.capacity
-        cand_eff = torch.where(feas_k & queued[:, None], cand, S).int()
+        cand_eff = torch.where(feas_k & queued[..., None], cand, S).int()
         sizes, caps = _sizes_and_caps(jobs_cores, queued, sites)
         site, admit = fused_topk_assign(scores_k, cand_eff, sizes, caps, block_n=block_n)
         ok = admit & queued

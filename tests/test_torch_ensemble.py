@@ -340,16 +340,57 @@ def test_padding_stats_and_lane_occupancy_match_jax():
     assert T.lane_occupancy(rt)["summary"]["n_lanes"] == len(sizes)
 
 
-def test_unported_lane_paths_raise():
+@pytest.mark.parametrize("kw", [dict(log_rows=8), dict(log_rows=8, monitor_every=3),
+                                dict(max_rounds=20)], ids=["log", "monitor_every", "max_rounds"])
+def test_segmented_lanes_equal_one_call(kw):
+    """Lanes run in segments (``init_sim``, ``advance_sim(50)``,
+    ``advance_sim(inf)``) equal one ``simulate_many`` call, each lane's solo
+    segmented run and the JAX package's ``simulate_many``: a horizon freezes
+    lanes mid-run, and each resumes at its own round and log slot."""
+    sizes = [30, 41, 36]
+    scens, tscens = ragged(sizes)
+    pol = T.get_policy("panda_dispatch")
+    keys = split(PRNGKey(1), len(sizes))
+    stacked = T.stack_scenarios(tscens)
+    h = T.advance_sim(T.init_sim(stacked.jobs, stacked.sites, pol, keys, device="cpu", **kw), 50.0)
+    assert T.sim_active(h)
+    seg = T.finish_sim(T.advance_sim(h))
+    one = T.simulate_many(tscens, pol, PRNGKey(1), device="cpu", **kw)
+    _assert_same(_flat(one), _flat(seg))
+    rj = R.simulate_many(scens, R.get_policy("panda_dispatch"), jax.random.PRNGKey(1), **kw)
+    _assert_same(_flat(rj), _flat(seg))
+    for i, s in enumerate(tscens):
+        hs = T.init_sim(T.pad_jobs_capacity(s.jobs, max(sizes)), s.sites, pol, keys[i],
+                        device="cpu", **kw)
+        _assert_same(_flat(T.finish_sim(T.advance_sim(T.advance_sim(hs, 50.0)))), _lane(seg, i))
+    if "max_rounds" in kw:
+        assert seg.rounds.tolist() == [20, 20, 20]
+
+
+@pytest.mark.parametrize("name", ["availability", "workflow", "data_policy", "network",
+                                  "replicas", "transfers", "faults"])
+def test_simulate_many_refuses_subsystem_keywords(name):
+    """As the JAX package's ``simulate_many`` does: lanes take their
+    subsystem states through ``Scenario.ext``, flat and bucketed."""
     _, tscens = ragged([20, 24])
     pol = T.get_policy("panda_dispatch")
-    with pytest.raises(NotImplementedError, match="12b"):
-        T.simulate_many(tscens, pol, PRNGKey(0), device="cpu", topk=2)
-    for name in ("data", "transfers", "faults"):
-        sub = T.make_subsystem(name)
-        scn = [s._replace(ext={name: ()}) for s in tscens]
-        with pytest.raises(NotImplementedError, match="12b"):
-            T.simulate_many(scn, pol, PRNGKey(0), subsystems=(sub,), device="cpu")
+    with pytest.raises(TypeError, match=name):
+        T.simulate_many(tscens, pol, PRNGKey(0), device="cpu", **{name: object()})
+    with pytest.raises(TypeError, match=name):
+        T.simulate_many(T.stack_scenarios(tscens, buckets=2), pol, PRNGKey(0), device="cpu",
+                        **{name: object()})
+
+
+def test_ensemble_misuse_raises():
+    """What an ensemble still refuses: simulate's subsystem keywords, and
+    ``Scenario.ext`` keys that do not match the ``subsystems`` tuple."""
+    _, tscens = ragged([20, 24])
+    pol = T.get_policy("panda_dispatch")
+    with pytest.raises(TypeError, match="faults"):
+        T.simulate_many(tscens, pol, PRNGKey(0), device="cpu", faults=None)
     with pytest.raises(ValueError, match="one-to-one"):
         T.simulate_many(tscens, pol, PRNGKey(0), subsystems=(T.availability_subsystem(),),
+                        device="cpu")
+    with pytest.raises(ValueError, match="one-to-one"):
+        T.simulate_many([s._replace(ext={"faults": ()}) for s in tscens], pol, PRNGKey(0),
                         device="cpu")

@@ -91,9 +91,8 @@ def test_signed_zeros_ties_and_force_include():
     assert k1[2].tolist() == [0]          # site 5 (score 5.0) is inactive
 
 
-def test_data_locality_candidates_are_not_ported():
-    """The data branch of the candidate index (ported since the data
-    subsystem, the name kept): replica holders of a job's dataset and the
+def test_data_locality_candidates_match_jax():
+    """The data branch of the candidate index: replica holders of a job's dataset and the
     nearest WAN source toward its pre-rank-best site rank first, equal to
     the JAX package's at every ``k``."""
     jobs = R.synthetic_panda_jobs(60, seed=0, duration=600.0, n_datasets=9)
