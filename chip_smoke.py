@@ -154,6 +154,25 @@ check does not hold:
    catalog column sum timed, then four lanes of phase 13's fault channels
    (lane 0 alone too), each beside its solo rate.
 
+17. calibration (run after phase 16): (a) Fig. 3 at the paper's scale (3000
+   jobs over 30 days on 50 sites, misconfigured at sigma 1.05): ``grid``,
+   ``random``, ``cma_es`` and ``gp_bo`` at seed 3, each below err0, ``grid``
+   on the card equal to the CPU's; (b) ``calibrate_platform`` at
+   ``bench_calibration.run_platform``'s configuration (400 jobs, 6 sites,
+   engine trace, speeds and WAN links): SPSA, Adam through
+   ``torch.autograd`` (the segment sum's backward on the card, the loss
+   curve equal to the CPU's within rtol 1e-5) and CMA-ES with their
+   recovery errors, then the 8-lane engine population as one call against
+   a loop of 8 solo calls, cut to CAL_POP_ROUNDS rounds (lanes = solo bit
+   for bit); (c) SPSA on the engine objective at WLCG scale (300 sites,
+   100000 jobs, 50000 single-replica WAN datasets, D = 90300 knobs): one
+   ``simulate_many`` call of 9 lanes an iteration, cut to CAL_WLCG_ROUNDS
+   rounds, with lane-rounds/s, segment sums and kernels a round, the busy
+   share over SHORT_PROFILE_ROUNDS rounds and peak memory; (d) the segment
+   sum's backward bit for bit the plain version's gradient, timed at the
+   engine shape and at 90001 segments, and the forward without a gradient
+   against the kernel's wrapper alone.
+
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero without
@@ -1946,7 +1965,7 @@ FAULT_LOSS_RATE = 2.0
 FAULT_LOSS_HORIZON = 300.0
 FAULT_LOSS_SCAN = 30.0
 XFAULT_ROUNDS = 300            # depth cut of phase 15's blackhole runs
-XFAULT_MATRIX_ROUNDS = 200     # depth cut of phase 15's matrix run
+XFAULT_MATRIX_ROUNDS = 120     # depth cut of phase 15's matrix run (transfer failures by round 120)
 XFAULT_J = 5000                # phase 15's blackhole-site jobs at S = 50
 # the fused run rebuilds its candidate index every XFAULT_REFRESH rounds: at
 # t = 0 every 8-core site ties under least_loaded's pre-rank, so the index
@@ -2305,7 +2324,7 @@ ENS_BUCKET_ROUNDS = 100        # depth cut of (a)'s bucketed rerun
 ENS_SUB_K = 4
 ENS_SUB_ROUNDS = 300
 XENS_S, XENS_CHAINS = 50, (750, 1000, 1125, 1250)   # (c): 3000 to 5000 jobs a lane
-XENS_ROUNDS = 300
+XENS_ROUNDS = 200              # depth cut of 16(c)'s workflow lanes (preemptions by round 200)
 # (c)'s second run: four small lanes with data, transfer queues and faults at
 # topk=8, which drain at different rounds (168 to 277 of a CPU run)
 XENS_DATA_JOBS, XENS_DATA_D, XENS_DATA_ROUNDS = (40, 55, 70, 85), 64, 400
@@ -2986,6 +3005,283 @@ def phase_ensemble_data_card_vs_cpu(device, max_rounds: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 17: calibration (Fig. 3's optimizers, calibrate_platform over engine
+# lanes, torch.autograd through the closed form and the segment sum)
+# --------------------------------------------------------------------------
+
+CAL_METHODS = ("grid", "random", "cma_es", "gp_bo")
+CAL_PLATFORM = dict(n_jobs=400, n_sites=6, seed=2, include=("speed", "bw"), trace="engine",
+                    wan_frac=0.5, misconfig_sigma=0.7)   # bench_calibration.run_platform
+CAL_PLATFORM_FITS = (   # run_platform's three method rows (all on the closed form)
+    ("spsa", dict(objective="closed_form", n_iters=200, spsa_dirs=6, a0=0.25, c0=0.1)),
+    ("grad", dict(objective="closed_form", n_iters=150, lr=0.1)),
+    ("cma_es", dict(objective="closed_form", n_iters=40)),
+)
+CAL_POP_K = 8
+CAL_POP_ROUNDS = 40            # depth cut of 17(b)'s throughput runs (the replay drains in 800)
+CAL_WLCG_ROUNDS = 40           # depth cut of 17(c)'s population runs
+CAL_WLCG_DIRS, CAL_WLCG_ITERS = 4, 2
+
+
+def phase_calibration_fig3(device) -> dict:
+    """Phase 17(a): Fig. 3 at the paper's scale (``bench_calibration.run``):
+    3000 jobs over 30 days on 50 sites, misconfigured at sigma 1.05; the four
+    optimizers at seed 3 on the card, each below err0, and ``grid`` (no
+    draws) equal to the CPU's run."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import calibration as TC
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    def problem(dev):
+        jobs = T.synthetic_panda_jobs(3000, seed=0, duration=30 * 86400.0, device=dev)
+        sites = T.atlas_like_platform(50, seed=1, device=dev)
+        return TC.make_synthetic_problem(jobs, sites, seed=2, misconfig_sigma=1.05,
+                                         noise_sigma=0.15)
+
+    prob = problem(device)
+    err0 = float(TC.closed_form_objective(prob, prob.sites0.speed)[2])
+    segsum_mod.launches = 0
+    out = {"err0": err0}
+    for method in CAL_METHODS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = TC.calibrate(prob, method, seed=3)
+        err = float(r.err)
+        wall = time.perf_counter() - t0
+        check(math.isfinite(err) and err < float(r.err0), f"{method}: err {err} >= err0")
+        h = r.history.cpu()
+        check(bool((h[1:] <= h[:-1]).all()), f"{method}: the history rises")
+        out[method] = dict(err=err, seconds=wall)
+        if method == "grid":
+            grid_card = r
+    cpu = TC.calibrate(problem("cpu"), "grid")
+    check(torch.equal(cpu.speeds, grid_card.speeds.cpu()), "grid: card speeds differ from the CPU's")
+    for name in ("err", "err0", "history"):
+        torch.testing.assert_close(getattr(grid_card, name).cpu(), getattr(cpu, name),
+                                   rtol=1e-6, atol=0.0)
+    out["segment_sum"] = segsum_mod.launches
+    check(segsum_mod.launches > 0, "Fig. 3's objectives launched no segment sum")
+    print(f"[calib-fig3] err0 {err0:.4f} (paper ~0.76); " + "; ".join(
+        f"{m} err {out[m]['err']:.4f} in {out[m]['seconds']:.2f}s" for m in CAL_METHODS)
+        + f"; grid card = CPU (speeds exact, errors rtol 1e-6); {segsum_mod.launches} "
+        "segment-sum launches")
+    return out
+
+
+def phase_calibration_platform(device) -> dict:
+    """Phase 17(b): ``calibrate_platform`` at ``bench_calibration.run_platform``'s
+    configuration: SPSA, Adam through ``torch.autograd`` (the segment sum's
+    backward on the card; its loss curve equal to the CPU's) and CMA-ES,
+    each with its recovery error; then the K = 8 engine population as one
+    call against a loop of 8 solo ``engine_platform_objective`` calls, both
+    cut to CAL_POP_ROUNDS rounds."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import calibration as TC
+    from repro_torch.core.engine import _tree_map
+    from repro_torch.kernels.segment_sum import ops as segsum_ops
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    t0 = time.perf_counter()
+    prob, truth = TC.make_synthetic_platform_problem(**CAL_PLATFORM, device=device)
+    print(f"[calib-platform] problem (engine trace of 400 jobs at S=6) built in "
+          f"{time.perf_counter() - t0:.2f}s")
+    out = {}
+    segsum_mod.launches = segsum_ops.backward_launches = 0
+    for method, kw in CAL_PLATFORM_FITS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = TC.calibrate_platform(prob, method=method, include=CAL_PLATFORM["include"],
+                                  seed=CAL_PLATFORM["seed"] + 1, **kw)
+        err = float(r.err)
+        wall = time.perf_counter() - t0
+        check(err <= float(r.err0), f"{method}: err above err0")
+        out[method] = dict(recovery=TC.recovery_error(prob, r.params, truth), err=err,
+                           err0=float(r.err0), seconds=wall)
+        if method == "grad":
+            grad_card = r
+    out["segment_sum"] = segsum_mod.launches
+    out["backward"] = segsum_ops.backward_launches
+    check(segsum_mod.launches > 0, "calibrate_platform launched no segment sum")
+    check(segsum_ops.backward_launches > 0, "method='grad' ran no segment-sum backward on the card")
+    cpu_prob = _tree_map(lambda x: x.cpu(), prob)      # the same problem on the CPU
+    grad_cpu = TC.calibrate_platform(cpu_prob, method="grad", include=CAL_PLATFORM["include"],
+                                     seed=CAL_PLATFORM["seed"] + 1, **dict(CAL_PLATFORM_FITS)["grad"])
+    torch.testing.assert_close(grad_card.history.cpu(), grad_cpu.history, rtol=1e-5, atol=0.0)
+    print("[calib-platform] " + "; ".join(
+        f"{m} recovery {out[m]['recovery']:.4f} (loss {out[m]['err0']:.4f} -> {out[m]['err']:.4f}) "
+        f"in {out[m]['seconds']:.2f}s" for m, _ in CAL_PLATFORM_FITS)
+        + f"; {out['segment_sum']} segment-sum launches, {out['backward']} backward passes on the "
+        "card; grad's loss curve = the CPU's (rtol 1e-5)")
+
+    # candidate throughput: one population call of K lanes against K solo calls
+    be = TC.make_population_objective(prob, objective="engine", include=CAL_PLATFORM["include"],
+                                      max_rounds=CAL_POP_ROUNDS)
+    zs = be.z0[None, :] + 0.2 * T.rng.normal(T.PRNGKey(0, device), (CAL_POP_K, be.z0.shape[0]))
+    key = T.PRNGKey(1, device)
+    policy = TC.pinned_policy(prob.hist_site)
+    keys = T.rng.split(key, CAL_POP_K)
+
+    def loop():
+        return torch.stack([TC.engine_platform_objective(
+            prob, TC.decode_params(be.unravel(z), be.bounds), keys[i], max_rounds=CAL_POP_ROUNDS,
+            policy=policy) for i, z in enumerate(zs)])
+
+    walls, scores = {}, {}
+    for name, fn in (("lanes", lambda: be(zs, key)), ("loop", loop)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores[name] = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    check(torch.equal(scores["lanes"], scores["loop"]),
+          f"population lanes {scores['lanes'].tolist()} != solo {scores['loop'].tolist()}")
+    out["cands_per_s"] = {k: CAL_POP_K / v for k, v in walls.items()}
+    out["lane_speedup"] = walls["loop"] / walls["lanes"]
+    print(f"[calib-platform] {CAL_POP_K} engine candidates at {CAL_POP_ROUNDS} rounds: one "
+          f"population call {out['cands_per_s']['lanes']:.2f} candidates/s, a loop of solo calls "
+          f"{out['cands_per_s']['loop']:.2f}; ratio {out['lane_speedup']:.2f}x; lanes = solo "
+          "bit for bit")
+    return out
+
+
+def phase_calibration_wlcg(device) -> dict:
+    """Phase 17(c): the engine population at WLCG scale: 300 sites, 100000
+    jobs (50000 of them reading single-replica WAN datasets under
+    ``always_remote``), D = 300 speeds + 90000 links; ``calibrate_platform``
+    SPSA on the engine objective, CAL_WLCG_ITERS iterations of 2 *
+    CAL_WLCG_DIRS + 1 lanes (one ``simulate_many`` call each) after the
+    1-lane err0 call, every call cut to CAL_WLCG_ROUNDS rounds."""
+    import torch
+
+    from repro_torch.core import calibration as TC
+    from repro_torch.core import distributed as TD
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    t0 = time.perf_counter()
+    prob, truth = TC.make_synthetic_platform_problem(
+        n_jobs=ENGINE_J, n_sites=ENGINE_S, seed=2, include=("speed", "bw"), trace="closed_form",
+        wan_frac=0.5, misconfig_sigma=0.7, device=device)
+    torch.cuda.synchronize()
+    D = ENGINE_S + ENGINE_S * ENGINE_S
+    print(f"[calib-wlcg] problem built in {time.perf_counter() - t0:.2f}s: J={prob.jobs.capacity}, "
+          f"S={prob.n_sites}, {prob.replicas.n_datasets} datasets, D={D} knobs")
+    rounds = []
+    run_population = TD.simulate_population
+
+    def counted(*args, **kw):
+        res = run_population(*args, **kw)
+        rounds.append(res.rounds)
+        return res
+
+    TD.simulate_population = counted
+    try:
+        segsum_mod.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        r = TC.calibrate_platform(prob, method="spsa", objective="engine", include=("speed", "bw"),
+                                  n_iters=CAL_WLCG_ITERS, spsa_dirs=CAL_WLCG_DIRS,
+                                  max_rounds=CAL_WLCG_ROUNDS)
+        err0, err = float(r.err0), float(r.err)
+        wall = time.perf_counter() - t0
+    finally:
+        TD.simulate_population = run_population
+    lanes = [int(x.numel()) for x in rounds]
+    lane_rounds = sum(int(x.sum()) for x in rounds)
+    launches = segsum_mod.launches
+    check(lanes == [1] + [2 * CAL_WLCG_DIRS + 1] * CAL_WLCG_ITERS,
+          f"population calls of {lanes} lanes")
+    check(launches > 0, "the WLCG-scale population launched no segment sum")
+    check(err <= err0, "err above err0")
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    max_rounds = sum(int(x.max()) for x in rounds)
+    print(f"[calib-wlcg] SPSA over {len(lanes)} population calls of {lanes} lanes: {lane_rounds} "
+          f"lane-rounds in {wall:.2f}s = {lane_rounds / wall:.2f} lane-rounds/s; "
+          f"{launches} segment sums = {launches / max_rounds:.2f} a round; err0 {err0:.4f} -> "
+          f"err {err:.4f} (recovery {TC.recovery_error(prob, r.params, truth):.4f}); peak memory "
+          f"{peak:.2f} GB")
+    be = TC.make_population_objective(prob, objective="engine", include=("speed", "bw"),
+                                      max_rounds=SHORT_PROFILE_ROUNDS)
+    z_pop = be.z0[None, :].repeat(2 * CAL_WLCG_DIRS + 1, 1)
+    prof = profile_rounds(lambda: be(z_pop), "calib-wlcg-profile", rounds=SHORT_PROFILE_ROUNDS)
+    if prof:
+        print(f"[calib-wlcg] {prof['kernels'] / SHORT_PROFILE_ROUNDS:.1f} kernels a round of "
+              f"{2 * CAL_WLCG_DIRS + 1} lanes")
+    return dict(segment_sum=launches, rounds=max_rounds, lane_rounds_per_s=lane_rounds / wall,
+                peak_gb=peak)
+
+
+def phase_segment_sum_backward(device) -> dict:
+    """Phase 17(d): the segment sum's backward on the card against the plain
+    version's (``index_add_`` forward, autograd backward), bit for bit, at
+    the engine shape and at S*S + 1 = 90001 segments, with lanes and F = 3;
+    the forward without a gradient costs what the kernel alone costs."""
+    import torch
+
+    from repro_torch.kernels.segment_sum import ops as segsum_ops
+    from repro_torch.kernels.segment_sum.ops import segment_sum, segment_sum_ref
+    from repro_torch.kernels.segment_sum.segment_sum_cuda import segment_sum_cuda
+
+    def grads(fn, values, seg, n, w):
+        v = values.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad((fn(v, seg, n) * w).sum(), v)
+        return g
+
+    cases = [("uniform", ENGINE_J, ENGINE_S, 1), ("padding95", ENGINE_J, ENGINE_S, 3),
+             ("uniform", ENGINE_J, MANY_SEGMENTS, 1), ("out_of_range", 10_007, 37, 2)]
+    for mix, J, S, F in cases:
+        values, seg = (t.to(device) for t in segsum_inputs(mix, J, S, F, "float32", "int32", 5))
+        w = torch.randn((S,) + values.shape[1:], device=device)
+        got = grads(segment_sum, values, seg, S, w)
+        want = grads(segment_sum_ref, values, seg, S, w)
+        check(torch.equal(got, want), f"segment-sum backward {mix} J={J} S={S} F={F} differs")
+    lanes_v = torch.rand(3, 5000, device=device)
+    lanes_s = torch.randint(-2, 40, (3, 5000), device=device, dtype=torch.int32)
+    w = torch.randn(3, 37, device=device)
+    check(torch.equal(grads(segment_sum, lanes_v, lanes_s, 37, w),
+                      grads(lambda v, s, n: torch.stack([segment_sum_ref(v[i], s[i], n)
+                                                         for i in range(3)]),
+                            lanes_v, lanes_s, 37, w)), "lane-offset backward differs")
+    print(f"[segsum-backward] {len(cases) + 1} cases bit for bit the plain version's gradient "
+          "(engine shape, 95% padding at F = 3, 90001 segments, out-of-range ids, 3 lanes)")
+
+    out = {}
+    for label, S in (("engine", ENGINE_S), ("many", MANY_SEGMENTS)):
+        values, seg = (t.to(device) for t in segsum_inputs("uniform", ENGINE_J, S, 1, "float32",
+                                                           "int32", 1))
+        v = values.clone().requires_grad_(True)
+        w = torch.randn(S, device=device)
+        y_kernel, y_plain = segment_sum(v, seg, S), segment_sum_ref(v, seg, S)
+        segsum_ops.backward_launches = 0
+        ms = cuda_ms(lambda: torch.autograd.grad(y_kernel, v, w, retain_graph=True), iters=50)
+        check(segsum_ops.backward_launches > 0, "the backward did not run")
+        plain = cuda_ms(lambda: torch.autograd.grad(y_plain, v, w, retain_graph=True), iters=50)
+        idx = seg.long().clamp(0, S - 1)
+        library = cuda_ms(lambda: w.index_select(0, idx), iters=50)
+        # seg read, grad_out read, grad written: J ids, S sums, J values
+        nbytes = ENGINE_J * 4 + S * 4 + ENGINE_J * 4
+        bound = max(nbytes / PEAK_HBM_BYTES_PER_S, ENGINE_J / PEAK_FP32_OPS_PER_S) * 1e3
+        out[label] = dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=bound,
+                          bound_by="bytes")
+        print(f"[segsum-backward] J={ENGINE_J} S={S}: backward {ms:.4f} ms a call between CUDA "
+              f"events; plain (index_add_'s autograd) {plain:.4f} ms; index_select {library:.4f} "
+              f"ms; bound {bound:.6f} ms (bytes, {nbytes} B)")
+    values, seg = (t.to(device) for t in segsum_inputs("uniform", ENGINE_J, ENGINE_S, 1, "float32",
+                                                       "int32", 1))
+    with torch.no_grad():
+        via_ops = cuda_ms(lambda: segment_sum(values, seg, ENGINE_S), iters=200)
+    direct = cuda_ms(lambda: segment_sum_cuda(values, seg, ENGINE_S), iters=200)
+    out["forward_no_grad_ms"], out["forward_direct_ms"] = via_ops, direct
+    print(f"[segsum-backward] forward without a gradient through ops.segment_sum {via_ops:.4f} ms "
+          f"a call, the kernel's wrapper alone {direct:.4f} ms (CUDA events)")
+    return out
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3058,6 +3354,11 @@ def main() -> int:
     ens_fault_launches = phase_ensemble_faults_full_width(device, ENS_FAULT_ROUNDS,
                                                           fault_launches["rate"])
     lap("16e")
+    cal_fig3 = phase_calibration_fig3(device)
+    cal_platform = phase_calibration_platform(device)
+    cal_wlcg = phase_calibration_wlcg(device)
+    rows["segment_sum"]["backward"] = phase_segment_sum_backward(device)
+    lap("17")
     print(f"[power] {gpu_name_and_power()}")
     serve_launches = phase_serve(device)
     lap("8")
@@ -3087,6 +3388,12 @@ def main() -> int:
                              ("faults", ens_fault_launches)):
             if name in counts:
                 row[f"launches_ensemble_{part}"] = counts[name]
+        # the calibration paths' own counts (phase 17), the backward's passes
+        for part, counts in (("fig3", cal_fig3), ("platform", cal_platform),
+                             ("wlcg", cal_wlcg)):
+            if name in counts:
+                row[f"launches_calibration_{part}"] = counts[name]
+    rows["segment_sum"]["backward"]["launches_calibration_platform"] = cal_platform["backward"]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

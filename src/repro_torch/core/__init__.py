@@ -9,8 +9,10 @@ injection (``faults``), the plugin policy system (``policies``),
 PanDA-shaped workloads, calendars and fault scenarios (``workload``), the
 JSON input layer and platform builders (``platform``), metrics, the
 event-level ML dataset (``events``), the flight recorder (``telemetry``),
-monitoring (``monitor``, with ``watch``), and the numpy bridge
-(``convert``).
+monitoring (``monitor``, with ``watch``), calibration (``calibration``:
+the Fig. 3 optimizers, ``calibrate_platform`` over engine lanes or
+``torch.autograd`` of the closed form; ``distributed.simulate_population``
+runs its lanes), and the numpy bridge (``convert``).
 """
 from .types import (  # noqa: F401
     ASSIGNED,
@@ -159,6 +161,7 @@ from .sparse import bytes_per_round, build_candidates, static_feasibility  # noq
 from .workload import (  # noqa: F401
     flaky_grid,
     flaky_sites,
+    from_records,
     lossy_links,
     maintenance_calendar,
     replica_loss_calendar,
@@ -167,6 +170,7 @@ from .workload import (  # noqa: F401
 )
 from .platform import (  # noqa: F401
     ExecutionParams,
+    apply_site_params,
     atlas_like_platform,
     deactivate_sites,
     dump_platform,
@@ -176,11 +180,30 @@ from .platform import (  # noqa: F401
 )
 from .metrics import Metrics, compute_metrics, summary_str  # noqa: F401
 from .events import read_ml_trace, recorded_trace, stream_rows, write_ml_dataset  # noqa: F401
+from .calibration import (  # noqa: F401
+    CalibProblem,
+    CalibResult,
+    PlatformBounds,
+    PlatformCalibResult,
+    PlatformParams,
+    PlatformProblem,
+    calibrate,
+    calibrate_platform,
+    default_bounds,
+    make_population_objective,
+    make_synthetic_platform_problem,
+    platform_objective,
+    platform_params,
+    platform_problem_from_trace,
+    recovery_error,
+)
 from .convert import (  # noqa: F401
     availability_from_numpy,
+    calib_problem_from_numpy,
     faults_from_numpy,
     jobs_from_numpy,
     network_from_numpy,
+    platform_problem_from_numpy,
     replicas_from_numpy,
     result_to_numpy,
     scenario_from_numpy,

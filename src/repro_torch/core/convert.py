@@ -6,7 +6,9 @@
 ``{k: np.asarray(v) for k, v in state._asdict().items()}`` gives for the JAX
 package's state of the same name) and build the port's state on a device;
 ``scenario_from_numpy`` builds an ensemble's ``Scenario`` from such
-mappings (its ``ext`` keyed by subsystem name); ``result_to_numpy`` turns a
+mappings (its ``ext`` keyed by subsystem name); ``calib_problem_from_numpy``
+and ``platform_problem_from_numpy`` build calibration problems from a
+mapping of problem field to such mappings and arrays; ``result_to_numpy`` turns a
 ``SimResult`` back into nested dicts of numpy arrays, through ``to_numpy``.
 The tests feed both implementations identical inputs this way.
 """
@@ -89,6 +91,52 @@ def scenario_from_numpy(jobs, sites, ext=None, device="cuda"):
     return Scenario(
         jobs_from_numpy(jobs, device), sites_from_numpy(sites, device),
         {name: _ext_from_numpy(name, arrays, device) for name, arrays in (ext or {}).items()},
+    )
+
+
+def _tensor(a, device):
+    return None if a is None else torch.from_numpy(np.array(a, copy=True)).to(resolve_device(device))
+
+
+def calib_problem_from_numpy(arrays, device="cuda"):
+    """A ``calibration.CalibProblem`` from ``{"jobs": {...}, "sites0": {...},
+    "hist_site": array, "hist_wall": array, "n_sites": int}``."""
+    from .calibration import CalibProblem
+
+    return CalibProblem(
+        jobs=jobs_from_numpy(arrays["jobs"], device),
+        sites0=sites_from_numpy(arrays["sites0"], device),
+        hist_site=_tensor(arrays["hist_site"], device),
+        hist_wall=_tensor(arrays["hist_wall"], device),
+        n_sites=int(arrays["n_sites"]),
+    )
+
+
+def platform_problem_from_numpy(arrays, device="cuda"):
+    """A ``calibration.PlatformProblem`` from a mapping of its fields:
+    ``jobs``/``sites0``/``network0``/``replicas``/``availability`` as
+    mappings of their states' fields (or ``None``), the ``hist_*`` columns as
+    arrays (or ``None``), and ``data_policy`` as a registered data policy's
+    name, a port ``DataPolicy`` or ``None``."""
+    from .calibration import PlatformProblem
+    from .datapolicies import get_data_policy
+
+    def state(name, cls):
+        value = arrays.get(name)
+        return None if value is None else _from_numpy(cls, value, device)
+
+    policy = arrays.get("data_policy")
+    return PlatformProblem(
+        jobs=jobs_from_numpy(arrays["jobs"], device),
+        sites0=sites_from_numpy(arrays["sites0"], device),
+        network0=state("network0", NetworkState),
+        hist_site=_tensor(arrays.get("hist_site"), device),
+        hist_wall=_tensor(arrays.get("hist_wall"), device),
+        hist_src=_tensor(arrays.get("hist_src"), device),
+        hist_bytes=_tensor(arrays.get("hist_bytes"), device),
+        data_policy=get_data_policy(policy) if isinstance(policy, str) else policy,
+        replicas=state("replicas", ReplicaState),
+        availability=state("availability", AvailabilityState),
     )
 
 

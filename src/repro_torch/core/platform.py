@@ -5,7 +5,7 @@ network topology, execution parameters); ``load_platform`` takes the same
 three payloads and ``dump_platform`` writes the infrastructure back.
 ``load_availability`` and ``load_faults`` read the availability calendar
 and the fault scenario, resolving site names through ``load_platform``'s
-name list.  ``atlas_like_platform`` is the JAX package's generator: numpy's
+name list; ``apply_site_params`` overlays calibration's per-site knobs.  ``atlas_like_platform`` is the JAX package's generator: numpy's
 ``default_rng`` draws every column on the host, so a seed gives the same
 sites bit for bit in both packages.
 """
@@ -129,6 +129,19 @@ def atlas_like_platform(
         capacity=capacity,
         device=device,
     )
+
+
+def apply_site_params(sites: SiteState, *, speed=None, latency=None) -> SiteState:
+    """Overlay continuous per-site knobs on a platform (calibration's hot
+    path).  ``None`` leaves a knob as it is; values broadcast against the
+    site axis (a candidate population passes ``[K, S]``)."""
+    repl = {}
+    if speed is not None:
+        repl["speed"] = torch.as_tensor(speed, dtype=torch.float32, device=sites.speed.device)
+    if latency is not None:
+        repl["latency"] = torch.as_tensor(latency, dtype=torch.float32,
+                                          device=sites.latency.device)
+    return sites._replace(**repl) if repl else sites
 
 
 def load_availability(spec: dict | str, names=None, *, n_sites: int | None = None,

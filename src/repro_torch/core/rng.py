@@ -9,6 +9,13 @@ element counter, given as (hi, lo) uint32 words, under the key.
 A key is an ``int64[2]`` tensor holding two uint32 words, on the device of
 the tensors it draws for.  The uint32 arithmetic runs in int64 with masking,
 so it is exact on the CPU and the GPU alike.
+
+The samplers built on ``uniform`` follow ``jax.random``'s float32 forms:
+``bernoulli`` and ``rademacher`` use only uniform bits and are exact;
+``normal`` is ``sqrt(2) * erf_inv(u)`` with XLA's f32 ``ErfInv`` and
+``gumbel``/``categorical`` take ``log(-log(u))``, both through XLA:CPU's
+``log``/``log1p`` as ``scan`` spells them, whose last bit still differs on
+about one input in 2000.
 """
 from __future__ import annotations
 
@@ -16,7 +23,7 @@ import math
 
 import torch
 
-from .scan import fma_f32
+from .scan import fma_f32, log1p_f32, log_f32, sqrt_f32
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -96,3 +103,58 @@ def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0, maxval: float = 1
 def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` for float32."""
     return uniform_from_bits(random_bits(key, shape), minval, maxval)
+
+
+def bernoulli(key: torch.Tensor, p: float = 0.5, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli`` (mode "low"): ``uniform < p``, bool."""
+    return uniform(key, shape) < p
+
+
+def rademacher(key: torch.Tensor, shape, dtype=torch.int32) -> torch.Tensor:
+    """``jax.random.rademacher``: ``2 * bernoulli(0.5) - 1`` in ``dtype``."""
+    return 2 * bernoulli(key, 0.5, shape).to(dtype) - 1
+
+
+# XLA's f32 ErfInv (Giles' single-precision polynomials in w = -log1p(-x*x),
+# one for w < 5 and one in sqrt(w) above), highest power first
+_ERFINV_LO = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+              0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_HI = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+              0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_F32_MAX = 3.4028234663852886e38
+_SQRT2 = 1.4142135381698608             # np.float32(np.sqrt(2))
+_TINY = 1.1754943508222875e-38          # finfo(float32).tiny
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` of an f32 tensor in XLA's form (the polynomial's
+    multiply-adds contracted to FMAs); +-1 give +-inf."""
+    w = -log1p_f32(x * -x)
+    low = w < 5.0
+    w = torch.where(low, w - 2.5, sqrt_f32(w) - 3.0)
+    coeff = [torch.where(low, torch.tensor(a, dtype=torch.float32, device=x.device),
+                         torch.tensor(b, dtype=torch.float32, device=x.device))
+             for a, b in zip(_ERFINV_LO, _ERFINV_HI)]
+    p = coeff[0].expand_as(x)
+    for c in coeff[1:]:
+        p = fma_f32(p, w, c)
+    return torch.where(x.abs() == 1.0, x * _F32_MAX, p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal`` for float32: ``sqrt(2) * erf_inv(u)`` with ``u``
+    uniform on ``[nextafter(-1, 0), 1)``."""
+    u = uniform(key, shape, minval=-0.99999994, maxval=1.0)
+    return _SQRT2 * erf_inv(u)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel`` (mode "low"): ``-log(-log(u))`` with ``u``
+    uniform on ``[tiny, 1)``."""
+    return -log_f32(-log_f32(uniform(key, shape, minval=_TINY, maxval=1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical`` with replacement: the first argmax of
+    ``logits + gumbel`` along ``axis`` (int64 indices)."""
+    return (gumbel(key, tuple(logits.shape)) + logits).argmax(axis)

@@ -19,6 +19,8 @@ Integer sums are exact in any order and need none of this.
 """
 from __future__ import annotations
 
+import struct
+
 import torch
 
 from ..kernels.segment_sum import segment_sum
@@ -132,3 +134,123 @@ def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     toward = torch.where(err > 0, float("inf"), float("-inf")).to(torch.float64)
     s = torch.where(midpoint & (err != 0), torch.nextafter(s, toward), s)
     return s.float()
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32 (``fma_f32`` takes its Python floats as is)."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
+# XLA:CPU's own f32 ``exp`` and ``log`` (Cephes polynomials, the multiply-
+# adds contracted to FMAs); ``torch.exp``/``torch.log`` differ from them in
+# the last bit on ~10% of inputs.  Every constant is a float32 value.
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+          1.6666665459e-1, 5.0000001201e-1)
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+# log1p's Cephes rational form for |x| < sqrt(2) - 1, highest power first
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_EXP_P, _LOG_P, _LOG1P_NUM, _LOG1P_DEN = (
+    tuple(map(_f32, c)) for c in (_EXP_P, _LOG_P, _LOG1P_NUM, _LOG1P_DEN))
+_LOG2E, _LN2_HI, _LN2_LO = _f32(1.44269504088896341), 0.693359375, _f32(-2.12194440e-4)
+_SQRT_HALF, _LOG1P_SMALL = _f32(0.707106781186547524), _f32(0.41421356237309504880)
+_MIN_NORMAL = 1.1754943508222875e-38
+
+
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
+    t = x.clamp(-87.8, 88.8)
+    fx = torch.floor(t * _LOG2E + 0.5)
+    r = fma_f32(-fx, _LN2_HI, t)
+    r = fma_f32(-fx, _LN2_LO, r)
+    y = fma_f32(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        y = fma_f32(y, r, c)
+    y = 1.0 + fma_f32(y, r * r, r)
+    two_n = ((fx.nan_to_num().int() + 127) << 23).view(torch.float32)
+    return torch.where(torch.isnan(x), x, y * two_n)
+
+
+def _log_f32(x: torch.Tensor) -> torch.Tensor:
+    bits = torch.maximum(x, x.new_tensor(_MIN_NORMAL)).view(torch.int32)
+    e = ((bits >> 23) - 126).float()
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)   # mantissa in [0.5, 1)
+    small = m < _SQRT_HALF
+    m = (m - 1.0) + torch.where(small, m, 0.0)
+    e = e - small.float()
+    m2 = m * m
+    m3 = m2 * m
+    p = _LOG_P
+    y = fma_f32(fma_f32(m, p[0], p[1]), m, p[2])
+    y1 = fma_f32(fma_f32(m, p[3], p[4]), m, p[5])
+    y2 = fma_f32(fma_f32(m, p[6], p[7]), m, p[8])
+    y = fma_f32(fma_f32(y, m3, y1), m3, y2) * m3
+    out = ((m - m2 * 0.5) + (y + e * _LN2_LO)) + e * _LN2_HI
+    out = torch.where(x == float("inf"), x, out)
+    out = torch.where(x.abs() < _MIN_NORMAL, float("-inf"), out)   # subnormals flush to 0
+    return torch.where((x < 0) | torch.isnan(x), float("nan"), out)
+
+
+class _Exp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _exp_f32(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * y
+
+
+class _Log(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _log_f32(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g / x
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.exp`` of an f32 tensor with XLA:CPU's bits (exact on every input
+    tested); the gradient is ``g * exp(x)``, as JAX's."""
+    return _Exp.apply(x)
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` of an f32 tensor in XLA:CPU's form; one input in ~1000
+    still differs in the last bit.  The gradient is ``g / x``, as JAX's."""
+    return _Log.apply(x)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as XLA's: the float64 root
+    rounded once (53 bits are enough for a root to round right).  The CPU's
+    f32 ``torch.sqrt`` is off by an ulp on ~0.6% of inputs."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _poly(x: torch.Tensor, coeffs) -> torch.Tensor:
+    p = torch.zeros_like(x)
+    for c in coeffs:
+        p = fma_f32(p, x, c)
+    return p
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log1p`` in XLA:CPU's form: ``log(1 + x)`` where ``|x| >= sqrt(2)
+    - 1``, Cephes' rational form below.  No gradient."""
+    x2 = x * x
+    small = x + fma_f32(x2, -0.5, (x * x2) * (_poly(x, _LOG1P_NUM) / _poly(x, _LOG1P_DEN)))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, _log_f32(x + 1.0))

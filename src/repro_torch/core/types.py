@@ -45,7 +45,14 @@ def take(x: torch.Tensor, idx: torch.Tensor, tail: int = 0) -> torch.Tensor:
     lane: ``x [..., S, *T]`` at int64 ``idx [..., *I]`` gives
     ``[..., *I, *T]``, each lane of the leading axes looked up in its own
     ``x``; a negative index counts from the end, as in indexing.  Without
-    lane axes it is plain indexing."""
+    lane axes it is plain indexing.
+
+    A lookup whose gradient is asked for (calibration's closed form) adds
+    the gradient back with the row-order segment sum, not with the atomics
+    of indexing's backward, so it has the same bits on every run, on the
+    card and on the CPU."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Take.apply(x, idx, tail)
     lead = x.dim() - 1 - tail
     if lead == 0:
         return x[idx]
@@ -53,9 +60,43 @@ def take(x: torch.Tensor, idx: torch.Tensor, tail: int = 0) -> torch.Tensor:
     idx = idx.remainder(n)
     if tail == 0 and idx.dim() == x.dim():
         return torch.gather(x, -1, idx)
-    off = torch.arange(0, math.prod(lanes) * n, n, device=x.device)
-    off = off.view(*lanes, *([1] * (idx.dim() - lead)))
-    return x.reshape(-1, *x.shape[lead + 1:])[idx + off]
+    return x.reshape(-1, *x.shape[lead + 1:])[idx + _lane_offsets(lanes, n, idx.dim() - lead,
+                                                                  x.device)]
+
+
+def _lane_offsets(lanes, n: int, idx_axes: int, device) -> torch.Tensor:
+    off = torch.arange(0, math.prod(lanes) * n, n, device=device)
+    return off.view(*lanes, *([1] * idx_axes))
+
+
+class _Take(torch.autograd.Function):
+    """``take`` as one flat lookup, its backward a segment sum of the
+    gradient rows onto the looked-up rows."""
+
+    @staticmethod
+    def forward(ctx, x, idx, tail):
+        lead = x.dim() - 1 - tail
+        n = x.shape[lead]
+        flat = idx.remainder(n)
+        if lead:
+            flat = flat + _lane_offsets(x.shape[:lead], n, idx.dim() - lead, x.device)
+        rows = x.reshape(-1, *x.shape[lead + 1:])
+        ctx.save_for_backward(flat)
+        ctx.shape = x.shape
+        return rows[flat]
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..kernels.segment_sum import segment_sum
+
+        (flat,) = ctx.saved_tensors
+        tail = g.shape[flat.dim():]
+        n_rows = math.prod(ctx.shape) // max(math.prod(tail), 1)
+        rows = g.reshape(-1, *tail)
+        if tail:
+            rows = rows.reshape(rows.shape[0], -1)
+        out = segment_sum(rows.contiguous(), flat.reshape(-1), n_rows)
+        return out.reshape(ctx.shape), None, None
 
 
 def per_lane(x, axes: int = 1):

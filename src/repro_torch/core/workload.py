@@ -5,9 +5,14 @@ The same generators as the JAX package's ``workload`` module
 ``rolling_brownout``, ``lossy_links``, ``replica_loss_calendar``,
 ``flaky_grid``): numpy's ``default_rng`` draws every column, window and
 event on the host, so a seed gives the same scenario bit for bit in both
-packages.
+packages.  ``from_records`` ingests job records (a list of dicts, a dict of
+columns, CSV text or JSON text).
 """
 from __future__ import annotations
+
+import csv
+import io
+import json
 
 import numpy as np
 import torch
@@ -263,3 +268,36 @@ def flaky_grid(
     fr = sites.fail_rate.cpu().numpy().copy()
     fr[flaky_idx] = flaky_fail_rate
     return sites._replace(fail_rate=torch.as_tensor(fr, device=sites.fail_rate.device)), flaky_idx
+
+
+_FIELDS = ("job_id", "arrival", "work", "cores", "memory", "bytes_in", "bytes_out", "priority")
+
+
+def from_records(records, *, capacity: int | None = None, device="cuda") -> JobsState:
+    """Ingest job records: a list of dicts, a dict of columns, CSV text or
+    JSON text (of either form).  Missing columns take ``make_jobs``'s
+    defaults: ids 0..n-1, one core, 2 GB, no bytes, priority 0, no dataset."""
+    if isinstance(records, str):
+        text = records.lstrip()
+        if text.startswith("[") or text.startswith("{"):
+            records = json.loads(records)
+        else:
+            records = list(csv.DictReader(io.StringIO(records)))
+    if isinstance(records, dict):  # dict of columns
+        cols = {k: np.asarray(v) for k, v in records.items()}
+    else:  # list of dicts
+        cols = {k: np.array([float(r.get(k, 0) or 0) for r in records]) for k in _FIELDS}
+    n = len(cols["arrival"])
+    return make_jobs(
+        job_id=cols.get("job_id", np.arange(n)).astype(np.int32),
+        arrival=cols["arrival"],
+        work=cols["work"],
+        cores=cols.get("cores", np.ones(n)).astype(np.int32),
+        memory=cols.get("memory", np.full(n, 2.0)),
+        bytes_in=cols.get("bytes_in", np.zeros(n)),
+        bytes_out=cols.get("bytes_out", np.zeros(n)),
+        priority=cols.get("priority", np.zeros(n)),
+        dataset=np.asarray(cols.get("dataset", np.full(n, -1))).astype(np.int32),
+        capacity=capacity,
+        device=device,
+    )

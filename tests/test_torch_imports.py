@@ -43,7 +43,9 @@ print(len(names))
 
 # modules the port must have (a sample; every module found is imported)
 REQUIRED = ("repro_torch.monitor", "repro_torch.core.faults", "repro_torch.core.telemetry",
-            "repro_torch.core.monitor", "repro_torch.core.engine", "repro_torch.core.platform")
+            "repro_torch.core.monitor", "repro_torch.core.engine", "repro_torch.core.platform",
+            "repro_torch.core.calibration", "repro_torch.core.distributed",
+            "repro_torch.core.workload", "repro_torch.core.rng")
 
 
 def test_port_modules_import_no_jax_and_no_reference():
