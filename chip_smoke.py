@@ -173,6 +173,29 @@ check does not hold:
    engine shape and at 90001 segments, and the forward without a gradient
    against the kernel's wrapper alone.
 
+18. serving families (run after phase 8, whose model is freed first), bf16,
+   seed-0 weights, 4 prompts of 4096 seeded tokens and 32 new, ``generate``
+   greedy and then sampled (temperature 1.0, ``PRNGKey(0)``), counters set to
+   0 just before the greedy run; prefill tokens/s, decode ms a step, peak
+   memory and each kernel's launches a prefill and a decode step: (a)
+   granite-moe-1b-a400m at full width and depth (the router launches the
+   assign kernel once a layer, prefill and decode), the dropped share of
+   one ``forward`` at the prompt, and ``moe_route`` on layer 0's router
+   logits through the kernel against ``moe_route_ref`` on the card at the
+   prefill's ``[32, 512, 32]`` and a decode step's ``[1, 4, 32]`` (idx, slot
+   and keep exact, combine within 1e-6), timed; (b) kimi-k2-1t-a32b at full
+   width cut to KIMI_LAYERS layer, the same routing check at E = 384; (c)
+   mamba2-130m at full width and depth; (d) recurrentgemma-2b at full width
+   and depth, then a decode from a rolling cache of ``window`` slots (the
+   ``long_500k`` plan) within 2e-2 of the largest logit of the full cache's;
+   then the flash kernel at each family's prefill attention (granite 16/8
+   heads D = 64, kimi 64/8 D = 128, recurrentgemma 10/1 D = 256 window
+   2048) against its plain version, each error within FLASH_REL_TOL of its
+   row's largest output, timed beside SDPA with the same mask; then, for each
+   family, a sampled ``generate`` at full width, depth cut to
+   CPU_CHECK_LAYERS, on the card and with the same weights on the CPU port:
+   the tokens must agree, or differ only at a printed near-tie.
+
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero without
@@ -201,17 +224,17 @@ ENS_K = 16                     # phase 16's lanes
 MANY_SEGMENTS = ENGINE_S * ENGINE_S + 1   # the link sums' segments at S=300
 FULL_MAX_ROUNDS = 1300         # depth cut of phase 13: its walltime kills start
                                # ~1150 rounds in (300 simulated seconds)
-DENSE_FULL_ROUNDS = 600        # depth cut of phase 3
+DENSE_FULL_ROUNDS = 300        # depth cut of phase 3
 # rounds in phase 3's profile (the solo path's kernels a round) and in every
 # other engine profile: reading the profiler's events back takes ~0.5 ms a
 # kernel on the host, and a round launches 800-2800 kernels
 PROFILE_ROUNDS = 30
 SHORT_PROFILE_ROUNDS = 10
-SPARSE_FULL_ROUNDS = 500       # depth cut of phase 4
+SPARSE_FULL_ROUNDS = 300       # depth cut of phase 4
 SUB_FULL_ROUNDS = 600          # depth cut of phase 9
 DATA_FULL_ROUNDS = 300         # depth cut of phase 11(a)
-DRAIN_ROUNDS = 300             # depth cut of phase 5 (the whole drain takes 10103)
-SPARSE_DRAIN_ROUNDS = 300      # depth cut of phase 6
+DRAIN_ROUNDS = 200             # depth cut of phase 5 (the whole drain takes 10103)
+SPARSE_DRAIN_ROUNDS = 200      # depth cut of phase 6 (topk=8 binds by round 150)
 CROSS_ROUNDS = 300             # depth cut of phase 10
 ASSIGN_CASES = [  # (N, E, k, block_n)
     (ENGINE_J, ENGINE_S, 1, 256),   # the engine shape
@@ -255,49 +278,85 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
-def device_ms(fn, kernel_names, iters: int, forbid=(), counts=None, per_call=None) -> dict:
+PROFILE_FILLER = (256, 2048, 8192)   # cheap launches ahead of a profile's timed calls, by try
+TIMED_RANGE = "device_ms: timed calls"
+
+
+def device_ms(fn, kernel_names, iters: int, call_ms: float, forbid=(), counts=None,
+              per_call=None) -> dict:
     """Device milliseconds per call of ``fn`` for each named kernel, from
     ``torch.profiler`` over ``iters`` calls: the kernels' own time, without
     the host time between launches that CUDA events around a short call
     would include.  Fails if a kernel whose name holds one of ``forbid`` ran.
-    ``counts``, when given, receives each named kernel's launches per call
-    as the profiler recorded them.
+    ``counts``, when given, receives each named kernel's launches per call;
+    ``per_call``, when given, is the launches of each named kernel a call
+    must make.
 
-    ``per_call`` is the number of launches of each named kernel that one
-    call makes.  When given, a kernel's time per call is its mean time per
-    recorded launch times ``per_call``, and the profile is taken again (up
-    to three times) while the profiler recorded fewer launches than were
-    made, since a share of dropped launches would otherwise pass for a
-    faster kernel."""
+    Late in a long process the profiler has kept no device record for the
+    first few dozen launches of a profile (48 of 650 in phase 18, however
+    long the window first stayed idle; once every one of 650).  So a profile
+    starts with ``PROFILE_FILLER`` cheap launches, and only the launches made
+    inside the timed calls' range count: each must have its device record,
+    else the profile is taken again with more filler, and the run fails after
+    the last try.  A recorded launch carries its own start and end from the
+    device, so a complete profile cannot read a kernel short.  ``call_ms``,
+    the call's time between CUDA events, bounds the named kernels' time a
+    call from above: more fails the run."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    filler = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
+    for n_fill in PROFILE_FILLER:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
+            for _ in range(n_fill):
+                filler.add_(1)
             torch.cuda.synchronize()
-        total = {name: 0.0 for name in kernel_names}
-        seen = {name: 0 for name in kernel_names}
+            with record_function(TIMED_RANGE):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
         for e in prof.key_averages():
             bad = [f for f in forbid if f in e.key]
             check(not bad, f"the profiled calls ran {e.key[:120]}")
-            for name in kernel_names:
-                if name in e.key and e.self_device_time_total > 0:
-                    total[name] += e.self_device_time_total / 1e3
-                    seen[name] += e.count
-        check(all(v > 0 for v in total.values()), f"the profiler saw no device time for {total}")
-        if per_call is None or all(n == per_call * iters for n in seen.values()):
+        launches = timed_launches(prof)
+        lost = [i for i, (name, _) in enumerate(launches) if name is None]
+        if not lost:
             break
-        print(f"[profile] profile {attempt + 1} recorded {json.dumps(seen)} launches of "
-              f"{per_call * iters} made")
+        print(f"[profile] after {n_fill} filler launches, {len(lost)} of the timed calls' "
+              f"{len(launches)} launches have no device record (launches {lost[:8]}"
+              f"{'...' if len(lost) > 8 else ''})")
+    check(launches and not lost, f"{len(lost)} of {len(launches)} launches of the timed calls "
+                                 f"have no device record in each of {len(PROFILE_FILLER)} profiles")
+    seen = {name: sum(1 for k, _ in launches if name in k) for name in kernel_names}
+    total = {name: sum(t for k, t in launches if name in k) for name in kernel_names}
+    check(all(n > 0 and (per_call is None or n == per_call * iters) for n in seen.values()),
+          f"the timed calls launched {json.dumps(seen)} of the named kernels in {iters} calls")
     if counts is not None:
         counts.update({name: n / iters for name, n in seen.items()})
-    if per_call is None:
-        return {name: t / iters for name, t in total.items()}
-    return {name: t / seen[name] * per_call for name, t in total.items()}
+    ms = {name: t / iters for name, t in total.items()}
+    check(sum(ms.values()) <= 1.1 * call_ms + 2e-3,
+          f"the profiler put {json.dumps(ms)} ms of device time in a call that takes "
+          f"{call_ms:.4f} ms between CUDA events")
+    return ms
+
+
+def timed_launches(prof) -> list:
+    """Each kernel launch (``cudaLaunchKernel``, ``cudaLaunchCooperativeKernel``,
+    ...) made on the host inside ``TIMED_RANGE``, in order,
+    as (kernel name, device ms) from its device record, found by the
+    launch's correlation id, or (None, 0.0) where the profile has none."""
+    events = prof.profiler.kineto_results.events()
+    on_device = [e for e in events if str(e.device_type()).endswith("CUDA")]
+    mark = next(e for e in events
+                if e.name() == TIMED_RANGE and not str(e.device_type()).endswith("CUDA"))
+    lo, hi = mark.start_ns(), mark.start_ns() + mark.duration_ns()
+    ran = {e.correlation_id(): e for e in on_device if e.name() != TIMED_RANGE}
+    launches = sorted((e for e in events if "Launch" in e.name() and "Kernel" in e.name()
+                       and lo <= e.start_ns() <= hi), key=lambda e: e.start_ns())
+    return [(ran[e.correlation_id()].name(), ran[e.correlation_id()].duration_ns() / 1e6)
+            if e.correlation_id() in ran else (None, 0.0) for e in launches]
 
 
 def kernel_label(mangled: str) -> str:
@@ -420,7 +479,7 @@ def phase_kernels(device) -> dict:
     call_ms = cuda_ms(lambda: assign_cuda(scores, sizes, caps, k=1), iters=200)
     per_call = {}
     parts = device_ms(lambda: assign_cuda(scores, sizes, caps, k=1), ASSIGN_KERNELS, iters=200,
-                      counts=per_call, per_call=1)
+                      call_ms=call_ms, counts=per_call, per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: assign_ref(scores, sizes, caps, k=1), iters=5)
     bytes_moved = N * E * 4 + N * 4 + E * 4 + N * (4 + 4 + 1 + 4)
@@ -464,7 +523,7 @@ def phase_kernels(device) -> dict:
         call = cuda_ms(lambda: segment_sum_cuda(vals, seg_d, ENGINE_S), iters=200)
         per_call = {}
         dev = device_ms(lambda: segment_sum_cuda(vals, seg_d, ENGINE_S), ("segment_sum_kernel",),
-                        iters=200, counts=per_call)["segment_sum_kernel"]
+                        iters=200, call_ms=call, counts=per_call)["segment_sum_kernel"]
         plain = cuda_ms(lambda: segment_sum_ref(vals, seg_d, ENGINE_S), iters=200)
         idx64 = seg_d.long()
         acc = torch.zeros(ENGINE_S + 1, device=device)
@@ -482,7 +541,7 @@ def phase_kernels(device) -> dict:
         call = cuda_ms(lambda: segment_sum_cuda(vals, seg_d, MANY_SEGMENTS), iters=50)
         per_call = {}
         dev = device_ms(lambda: segment_sum_cuda(vals, seg_d, MANY_SEGMENTS), (kernel,), iters=50,
-                        counts=per_call)[kernel]
+                        call_ms=call, counts=per_call)[kernel]
         plain = cuda_ms(lambda: segment_sum_ref(vals, seg_d, MANY_SEGMENTS), iters=50)
         idx64 = seg_d.long()
         acc = torch.zeros(MANY_SEGMENTS + 1, dtype=vals.dtype, device=device)
@@ -559,7 +618,7 @@ def phase_assign_lanes(device) -> dict:
     call_ms = cuda_ms(lambda: assign_cuda(scores, sizes, caps, k=1), iters=50)
     per_call = {}
     parts = device_ms(lambda: assign_cuda(scores, sizes, caps, k=1), ASSIGN_KERNELS, iters=20,
-                      counts=per_call, per_call=1)
+                      call_ms=call_ms, counts=per_call, per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: assign_ref(scores, sizes, caps, k=1), iters=2, warmup=1)
     unbatched_ms = cuda_ms(lambda: [assign_cuda(scores[i], sizes[i], caps[i], k=1)
@@ -663,7 +722,7 @@ def phase_fused_kernel(device) -> dict:
     call_ms = cuda_ms(lambda: fused_assign_cuda(*args), iters=200)
     per_call = {}
     parts = device_ms(lambda: fused_assign_cuda(*args), FUSED_KERNELS, iters=200,
-                      counts=per_call, per_call=1)
+                      call_ms=call_ms, counts=per_call, per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: fused_assign_ref(*args), iters=5)
     bytes_moved = N * K * (4 + 4) + N * 4 + E * 4 + N * (4 + 1)
@@ -737,7 +796,7 @@ def phase_fused_lanes(device) -> dict:
     call_ms = cuda_ms(lambda: fused_assign_cuda(*args), iters=100)
     per_call = {}
     parts = device_ms(lambda: fused_assign_cuda(*args), FUSED_KERNELS, iters=50,
-                      counts=per_call, per_call=1)
+                      call_ms=call_ms, counts=per_call, per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: fused_assign_ref(*args), iters=2, warmup=1)
 
@@ -745,7 +804,7 @@ def phase_fused_lanes(device) -> dict:
         return [fused_assign_cuda(*(a[i] for a in args)) for i in range(K)]
 
     unbatched_ms = cuda_ms(unbatched, iters=20)
-    unbatched_device_ms = sum(device_ms(unbatched, FUSED_KERNELS, iters=10,
+    unbatched_device_ms = sum(device_ms(unbatched, FUSED_KERNELS, iters=10, call_ms=unbatched_ms,
                                         per_call=K).values())
     bytes_moved = K * (N * Kc * (4 + 4) + N * 4 + E * 4 + N * (4 + 1))
     bound_ms = max(bytes_moved / PEAK_HBM_BYTES_PER_S,
@@ -839,10 +898,11 @@ def phase_flash_kernel(device) -> dict:
     print(f"[flash] {FLASH_KERNEL} at D={D}: {smem} B of dynamic shared memory a CTA of 384 "
           "threads (one CTA an SM)")
     # the profiled launches must be the wgmma kernel, not the mma.sync or f32 one
-    parts = device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), (FLASH_KERNEL,),
-                      iters=10, forbid=("flash_fwd_kernel_mma", "flash_fwd_kernel<"))
-    ms = parts[FLASH_KERNEL]
     call_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), iters=10)
+    parts = device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), (FLASH_KERNEL,),
+                      iters=10, call_ms=call_ms, per_call=1,
+                      forbid=("flash_fwd_kernel_mma", "flash_fwd_kernel<"))
+    ms = parts[FLASH_KERNEL]
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=causal), iters=3)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
                          iters=10)
@@ -1021,6 +1081,405 @@ def profile_serve(model, params, batch, cache_len, n_layers: int) -> None:
             ms = sum(e.self_device_time_total for e in flash) / 1e3
             print(f"[serve-profile] prefill: {n} launches of {FLASH_KERNEL}, {ms:.3f} ms "
                   f"= {100 * ms / busy:.1f}% of the device time")
+
+
+# ------------------------------------------------ phase 18: serving families ---
+
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 4, 4096, 32   # phase 8's prompts
+KIMI_LAYERS = 1            # depth cut of kimi-k2 (61 layers, 2.06 TB in bf16)
+# depth of the sampled card = CPU check of each family, at full width
+CPU_CHECK_LAYERS = {"granite-moe-1b-a400m": 2, "mamba2-130m": 24, "recurrentgemma-2b": 3}
+CPU_CHECK_BATCH, CPU_CHECK_PROMPT, CPU_CHECK_NEW = 2, 16, 8
+
+
+def check_moe_route(logits, cfg, label: str) -> dict:
+    """Hold ``moe_route`` through the kernel against its plain version on
+    the card at a router's real logits [G, Tg, E] (idx/slot/keep exact,
+    combine within 1e-6), and time both."""
+    import torch
+
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign.ops import moe_route, moe_route_ref
+    from repro_torch.models.moe import moe_capacity
+
+    G, Tg, E = logits.shape
+    k, C = cfg.top_k, moe_capacity(cfg, Tg)
+    kw = dict(k=k, capacity=C, block_n=Tg if not cfg.scan_layers else 256)
+    before = assign_mod.launches
+    got = moe_route(logits, **kw)
+    check(assign_mod.launches == before + 1, f"{label}: moe_route did not launch the kernel once")
+    want = moe_route_ref(logits, **kw)
+    torch.cuda.synchronize()
+    check(assign_mod.launches == before + 1, f"{label}: the plain route launched the kernel")
+    for name, i in (("idx", 0), ("slot", 2), ("keep", 3)):
+        bad = int((got[i] != want[i]).sum())
+        check(bad == 0, f"{label}: {bad} {name} entries of moe_route differ from the plain version")
+    err = float((got[1] - want[1]).abs().max())
+    check(err <= 1e-6, f"{label}: combine differs from the plain version by {err:.3e}")
+    call_ms = cuda_ms(lambda: moe_route(logits, **kw), iters=50)
+    ms = sum(device_ms(lambda: moe_route(logits, **kw), ASSIGN_KERNELS, iters=50,
+                       call_ms=call_ms, per_call=1).values())
+    plain_ms = cuda_ms(lambda: moe_route_ref(logits, **kw), iters=3, warmup=1)
+    N = G * Tg
+    bytes_moved = N * E * 4 + N * 4 + G * E * 4 + N * k * (4 + 4 + 1 + 4)
+    ops = N * E * (7 + 2 * k)    # the softmax's passes, then k compare-and-mask passes
+    t_bytes, t_ops = bytes_moved / PEAK_HBM_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    kept = float(got[3].float().mean())
+    print(f"[families] {label} moe_route [{G}, {Tg}, {E}] k={k} capacity {C} block_n "
+          f"{kw['block_n']}: kernel = plain (idx/slot/keep exact, combine max_abs_err {err:.3e}), "
+          f"{100 * (1 - kept):.2f}% of slots dropped; assign kernels {ms:.4f} ms of device time, "
+          f"{call_ms:.4f} ms a moe_route call between CUDA events, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4e} ms ({bound_by}: {bytes_moved} B, {ops} operations)")
+    return dict(shape=[G, Tg, E], k=k, capacity=C, block_n=kw["block_n"], max_abs_err=err,
+                ms=ms, cuda_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                dropped=1 - kept)
+
+
+def capture_router_logits(run):
+    """Run ``run()`` and return the router logits of the first ``moe_route``
+    call it makes (layer 0's)."""
+    from repro_torch.models import moe
+
+    seen = []
+    route = moe.moe_route
+
+    def recording(logits, **kw):
+        if not seen:
+            seen.append(logits.clone())
+        return route(logits, **kw)
+
+    moe.moe_route = recording
+    try:
+        run()
+    finally:
+        moe.moe_route = route
+    return seen[0]
+
+
+def serve_family(device, cfg, *, batch: int, prompt: int, new: int, seed: int = 0):
+    """Draw ``cfg``'s weights on the card (torch.Generator seed 0), then
+    ``generate`` greedy and sampled (temperature 1.0, key ``PRNGKey(seed)``)
+    over seeded prompts, the launch counters set to 0 just before the greedy
+    run.  Prints prefill tokens/s, decode ms a step, peak memory and the
+    launches of each kernel a prefill and a decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.rng import PRNGKey
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as flash_mod
+    from repro_torch.models import build_model, param_count
+    from repro_torch.serve.serve_step import generate
+
+    model = build_model(cfg, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    print(f"[families] {cfg.name}: {cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}; {param_count(params)} parameters drawn on the "
+          f"card in {time.perf_counter() - t0:.2f}s; {batch} prompts of {prompt} tokens, {new} new")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    batch_t = {"tokens": torch.from_numpy(tokens).to(device)}
+    calls = {"prefill": [], "decode": []}
+
+    def counted(name, fn):
+        def call(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            n0 = (assign_mod.launches, flash_mod.launches)
+            start.record()
+            out = fn(*args)
+            end.record()
+            calls[name].append((start, end, assign_mod.launches - n0[0],
+                                flash_mod.launches - n0[1]))
+            return out
+        return call
+
+    timed = model._replace(prefill=counted("prefill", model.prefill),
+                           decode=counted("decode", model.decode))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    assign_mod.launches = flash_mod.launches = 0
+    torch.cuda.synchronize()
+    greedy = generate(timed, params, batch_t, max_new=new, cache_len=prompt + new)
+    torch.cuda.synchronize()
+    launches = {"assign": assign_mod.launches, "flash_attention": flash_mod.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sampled = generate(timed, params, batch_t, max_new=new, cache_len=prompt + new,
+                       rng=PRNGKey(seed))
+    torch.cuda.synchronize()
+    (p_s, p_e, p_assign, p_flash), *_ = calls["prefill"]
+    steps = calls["decode"][:new - 1]
+    prefill_s = p_s.elapsed_time(p_e) / 1e3
+    decode_ms = sum(s.elapsed_time(e) for s, e, _, _ in steps) / len(steps)
+    d_assign = {a for _, _, a, _ in steps}
+    d_flash = {f for _, _, _, f in steps}
+    check(len(d_assign) == 1 and len(d_flash) == 1, f"{cfg.name}: decode steps launched "
+                                                    f"{d_assign} assign, {d_flash} flash kernels")
+    for name, out in (("greedy", greedy), ("sampled", sampled)):
+        check(out.shape == (batch, new) and out.dtype == torch.int32, f"{name} tokens {out.shape}")
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"{name}: a token outside "
+                                                                  "the vocabulary")
+    check(torch.equal(greedy[:, 0], sampled[:, 0]), "the sampled run's first token is not the "
+                                                     "prefill's argmax")
+    check(not torch.equal(greedy, sampled), "sampling gave the greedy tokens")
+    stats = dict(prefill_tokens_per_s=batch * prompt / prefill_s, decode_ms=decode_ms,
+                 peak_gb=peak_gb, assign_prefill=p_assign, assign_decode=d_assign.pop(),
+                 flash_prefill=p_flash, flash_decode=d_flash.pop(), launches=launches)
+    print(f"[families] {cfg.name}: prefill {prefill_s:.4f}s = "
+          f"{stats['prefill_tokens_per_s']:.1f} tokens/s; decode {len(steps)} steps, "
+          f"{decode_ms:.3f} ms a step = {1e3 * batch / decode_ms:.1f} tokens/s; peak "
+          f"{peak_gb:.2f} GB; launches a prefill: assign {p_assign}, flash {p_flash}; a decode "
+          f"step: assign {stats['assign_decode']}, flash {stats['flash_decode']}; greedy "
+          f"{greedy[0, :8].tolist()}, sampled {sampled[0, :8].tolist()} (prompt 0)")
+    return model, params, batch_t, stats
+
+
+def sampled_scores(model, params, batch, new: int, cache_len: int, key):
+    """``generate``'s sampled loop, keeping each step's ``logits + gumbel``."""
+    import torch
+
+    from repro_torch.core import rng as prng
+
+    cache = model.init_cache(batch["tokens"].shape[0], cache_len)
+    logits, cache = model.prefill(params, batch, cache)
+    scores = [logits[:, -1]]
+    cur = logits[:, -1].argmax(-1, keepdim=True).int()
+    for i in range(new - 1):
+        logits, cache = model.decode(params, cur, cache)
+        step_key = prng.fold_in(key, i).to(logits.device)
+        noisy = prng.gumbel(step_key, tuple(logits[:, -1].shape)) + logits[:, -1]
+        scores.append(noisy)
+        cur = noisy.argmax(-1, keepdim=True).int()
+    return torch.stack(scores, 1)
+
+
+def sampled_card_vs_cpu(device, arch: str) -> None:
+    """One sampled ``generate`` (key ``PRNGKey(0)``) at ``arch``'s full width,
+    depth cut to ``CPU_CHECK_LAYERS``, on the card and with the same weights
+    on the CPU port: the first CPU_CHECK_NEW tokens must agree, or differ
+    only where the CPU's noisy scores of the two picks are within the bf16
+    tolerance (2e-2 of the largest logit), which is printed."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.rng import PRNGKey
+    from repro_torch.models import build_model
+    from repro_torch.serve.serve_step import generate
+
+    cfg = get_config(arch).replace(n_layers=CPU_CHECK_LAYERS[arch])
+    card, cpu = build_model(cfg, device=device), build_model(cfg, device="cpu")
+    params = card.init(0)
+    params_cpu = copy.deepcopy(params).cpu()
+    tok = np.random.default_rng(1).integers(0, cfg.vocab_size, (CPU_CHECK_BATCH, CPU_CHECK_PROMPT))
+    tok = torch.from_numpy(tok.astype(np.int32))
+    n, cache_len = CPU_CHECK_NEW, CPU_CHECK_PROMPT + CPU_CHECK_NEW
+    t0 = time.perf_counter()
+    got = generate(card, params, {"tokens": tok.to(device)}, max_new=n, cache_len=cache_len,
+                   rng=PRNGKey(0)).cpu()
+    want = generate(cpu, params_cpu, {"tokens": tok}, max_new=n, cache_len=cache_len,
+                    rng=PRNGKey(0))
+    seconds = time.perf_counter() - t0
+    flips = []
+    if not torch.equal(got, want):
+        s_card = sampled_scores(card, params, {"tokens": tok.to(device)}, n, cache_len,
+                                PRNGKey(0)).cpu()
+        s_cpu = sampled_scores(cpu, params_cpu, {"tokens": tok}, n, cache_len, PRNGKey(0))
+        for b in range(CPU_CHECK_BATCH):
+            diff = (got[b] != want[b]).nonzero()
+            if len(diff) == 0:
+                continue
+            i = int(diff[0])   # later tokens follow other histories
+            gap = float(s_cpu[b, i, want[b, i]] - s_cpu[b, i, got[b, i]])
+            top = float(s_cpu[b, i].abs().max())
+            card_gap = float(s_card[b, i, got[b, i]] - s_card[b, i, want[b, i]])
+            flips.append((b, i, gap, card_gap, top))
+            check(gap <= 2e-2 * top, f"{arch}: sampled token {i} of prompt {b} is {int(got[b, i])} "
+                                     f"on the card and {int(want[b, i])} on the CPU, a gap of "
+                                     f"{gap:.4e} in the CPU's noisy scores (max {top:.4e})")
+    print(f"[families] {cfg.name} cut to {cfg.n_layers} layers, sampled generate card vs CPU "
+          f"({CPU_CHECK_BATCH} prompts of {CPU_CHECK_PROMPT}, {n} tokens, {seconds:.1f}s): " +
+          ("equal" if not flips else "near-ties at " + ", ".join(
+              f"prompt {b} token {i} (CPU gap {g:.3e}, card gap {cg:.3e}, max score {t:.3e})"
+              for b, i, g, cg, t in flips)) + f"; card {got[0].tolist()}")
+    del params, params_cpu
+
+
+FLASH_REL_TOL = 2.0 ** -6   # two bf16 ulps of a row's largest output
+
+
+def check_family_flash(device, cfg, B: int, S: int) -> dict:
+    """Hold the flash kernel against its plain version at ``cfg``'s prefill
+    attention: q [B, Hq, S, D] against k/v [B, Hkv, S, D], causal, with the
+    config's window, in its dtype, on seeded standard-normal inputs.  The
+    error of each output element is held relative to the largest output of
+    its row (``FLASH_REL_TOL``); the plain version runs one prompt at a time
+    to bound its f32 scores.  Times the kernel (device and call) beside the
+    plain version and SDPA with the same mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as flash_mod
+    from repro_torch.kernels.flash_attention.flash_attention_cuda import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    Hq, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.window
+    q, k, v = flash_inputs(B, Hq, Hkv, S, S, D, cfg.dtype, 18 + D, device)
+
+    def plain():
+        return torch.cat([attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True, window=W)
+                          for b in range(B)])
+
+    before = flash_mod.launches
+    got = flash_attention_cuda(q, k, v, causal=True, window=W)
+    want = plain()
+    torch.cuda.synchronize()
+    check(flash_mod.launches == before + 1, f"{cfg.name}: the flash call did not launch the kernel")
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{cfg.name}: flash output {got.dtype} {tuple(got.shape)} is not the plain version's")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    rel = float((diff / want.float().abs().amax(-1, keepdim=True)).max())
+    check(rel <= FLASH_REL_TOL, f"{cfg.name}: flash differs from the plain version by {rel:.3e} "
+                                f"of a row's largest output (max_abs_err {err:.3e})")
+    del got, want, diff
+    wgmma = cfg.dtype == "bfloat16" and D in (64, 128)
+    kernel = FLASH_KERNEL if wgmma else "flash_fwd_kernel<"
+    others = tuple(n for n in ("flash_fwd_kernel_wgmma", "flash_fwd_kernel_mma", "flash_fwd_kernel<")
+                   if n != kernel)
+    call_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=W), iters=5)
+    ms = device_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=W), (kernel,),
+                   iters=5, call_ms=call_ms, per_call=1, forbid=others)[kernel]
+    plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    kq, vq = k.repeat_interleave(Hq // Hkv, 1), v.repeat_interleave(Hq // Hkv, 1)
+    if W > 0:
+        pos = torch.arange(S, device=device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kq, vq, attn_mask=mask),
+                             iters=5)
+    else:
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kq, vq, is_causal=True),
+                             iters=5)
+    ops = 4 * B * Hq * D * attention_live_pairs(S, S, True, W)
+    bytes_moved = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = ops / PEAK_BF16_OPS_PER_S, bytes_moved / PEAK_HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"[families] flash at {cfg.name}'s attention q [{B}, {Hq}, {S}, {D}], k/v [{B}, {Hkv}, "
+          f"{S}, {D}], causal, window {W}, {cfg.dtype}: max_abs_err {err:.3e}, largest error "
+          f"{rel:.3e} of its row's largest output (limit {FLASH_REL_TOL:.3e}); kernel {kernel} "
+          f"{ms:.4f} ms of device time ({call_ms:.4f} ms a call between CUDA events), "
+          f"{ops / ms / 1e9:.2f} TFLOP/s; plain {plain_ms:.4f} ms; scaled_dot_product_attention "
+          f"with the same mask {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{ops:.4e} FLOP at 989 TFLOP/s bf16, {bytes_moved} B)")
+    del q, k, v, kq, vq
+    torch.cuda.empty_cache()
+    return dict(shape=[B, Hq, Hkv, S, S, D], window=W, kernel=kernel, max_abs_err=err,
+                max_rel_err=rel, ms=ms, cuda_ms=call_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_serve_families(device) -> dict:
+    """Phase 18: granite-moe, kimi-k2 (1 layer), mamba2 and recurrentgemma
+    served on the card, with the MoE router held on the assign kernel and
+    the flash kernel at each family's attention (recurrentgemma's windowed
+    D = 256 among them)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_kinds
+
+    B, S, new = FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW
+    torch.cuda.empty_cache()
+    out = {"moe": {}, "launches": {}}
+
+    # (a) granite-moe-1b-a400m at full width and depth
+    cfg = get_config("granite-moe-1b-a400m")
+    model, params, batch, stats = serve_family(device, cfg, batch=B, prompt=S, new=new)
+    check(stats["assign_prefill"] == cfg.n_layers and stats["assign_decode"] == cfg.n_layers,
+          f"granite: the router launched the assign kernel {stats['assign_prefill']} times a "
+          f"prefill and {stats['assign_decode']} a decode step, not once a layer")
+    check(stats["flash_prefill"] == cfg.n_layers, "granite: not one flash launch a layer")
+    out["launches"]["granite"] = stats
+    _, aux = model.forward(params, batch)
+    drop = float(aux["moe_drop_frac"]) / cfg.n_layers
+    print(f"[families] granite forward at the prompt: {100 * drop:.2f}% of the token slots "
+          f"dropped (mean over layers), lb loss {float(aux['moe_lb_loss']):.4f}, z loss "
+          f"{float(aux['moe_z_loss']):.4f} (sums over layers)")
+    cache = model.init_cache(B, S + new)
+    logits = capture_router_logits(lambda: model.prefill(params, batch, cache))
+    out["moe"]["granite_prefill"] = check_moe_route(logits, cfg, "granite prefill")
+    token = batch["tokens"][:, -1:]
+    logits = capture_router_logits(lambda: model.decode(params, token, cache))
+    out["moe"]["granite_decode"] = check_moe_route(logits, cfg, "granite decode")
+    out["moe"]["granite_prefill"]["drop_frac_forward"] = drop
+    del model, params, batch, cache, logits, aux
+    torch.cuda.empty_cache()
+
+    # (b) kimi-k2-1t-a32b at full width, depth cut
+    cfg = get_config("kimi-k2-1t-a32b").replace(n_layers=KIMI_LAYERS)
+    model, params, batch, stats = serve_family(device, cfg, batch=B, prompt=S, new=new)
+    check(stats["assign_prefill"] == 1 and stats["assign_decode"] == 1 and
+          stats["flash_prefill"] == 1, f"kimi: launches {stats}")
+    out["launches"]["kimi"] = stats
+    cache = model.init_cache(B, S + new)
+    logits = capture_router_logits(lambda: model.prefill(params, batch, cache))
+    out["moe"]["kimi_prefill"] = check_moe_route(logits, cfg, "kimi prefill")
+    logits = capture_router_logits(lambda: model.decode(params, batch["tokens"][:, -1:], cache))
+    out["moe"]["kimi_decode"] = check_moe_route(logits, cfg, "kimi decode")
+    del model, params, batch, cache, logits
+    torch.cuda.empty_cache()
+
+    # (c) mamba2-130m at full width and depth
+    cfg = get_config("mamba2-130m")
+    model, params, batch, stats = serve_family(device, cfg, batch=B, prompt=S, new=new)
+    check(stats["launches"] == {"assign": 0, "flash_attention": 0}, f"mamba2: launches {stats}")
+    out["launches"]["mamba2"] = stats
+    del model, params, batch
+    torch.cuda.empty_cache()
+
+    # (d) recurrentgemma-2b at full width and depth, prompts past the window
+    cfg = get_config("recurrentgemma-2b")
+    model, params, batch, stats = serve_family(device, cfg, batch=B, prompt=S, new=new)
+    n_att = layer_kinds(cfg).count("att")
+    check(stats["flash_prefill"] == n_att and stats["assign_prefill"] == 0,
+          f"recurrentgemma: {stats['flash_prefill']} flash launches a prefill, not {n_att}")
+    out["launches"]["recurrentgemma"] = stats
+    # the rolling cache (the long_500k plan: cache_len = window) against the full one
+    W = cfg.window
+    full = model.init_cache(B, S + new)
+    logits, full = model.prefill(params, batch, full)
+    token = logits[:, -1].argmax(-1, keepdim=True).int()
+    want, _ = model.decode(params, token, full)
+    del full
+    roll = model.init_cache(B, W)
+    _, roll = model.prefill(params, batch, roll)
+    got, roll = model.decode(params, token, roll)
+    diff, top = float((got - want).abs().max()), float(want.abs().max())
+    print(f"[families] recurrentgemma rolling cache of {W} slots (prompt {S}): first decode "
+          f"logits vs the {S + new}-slot cache max|d|={diff:.4e}, max|logits|={top:.4e} "
+          f"(limit 2e-2 of it), argmax agrees on "
+          f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/{B}")
+    check(diff <= 2e-2 * top, f"recurrentgemma rolling-cache decode differs by {diff:.4e}")
+    del model, params, batch, roll, logits, got, want
+    torch.cuda.empty_cache()
+
+    # the flash kernel at each family's prefill attention against its plain version
+    out["flash"] = {name: check_family_flash(device, get_config(arch), B, S)
+                    for name, arch in (("granite", "granite-moe-1b-a400m"),
+                                       ("kimi", "kimi-k2-1t-a32b"),
+                                       ("recurrentgemma", "recurrentgemma-2b"))}
+
+    # sampling: the card's sampled tokens against the CPU port's, one model a family
+    for arch in CPU_CHECK_LAYERS:
+        sampled_card_vs_cpu(device, arch)
+        torch.cuda.empty_cache()
+    return out
 
 
 def snapshot(res) -> dict:
@@ -1645,7 +2104,7 @@ DATA_D = 1024                  # bench_data_movement.py:65's largest catalog
 DATA_LOG_ROWS = 256
 DATA_QUEUE_SLOTS = 256         # the [L, Q] rings at S=300: 2 x 90000 x 256 int32 = 184 MB
 DATA_TR_ROUNDS = 400           # depth cut of run (b) and of phase 14
-DATA_SPARSE_ROUNDS = 300       # depth cut of run (c)
+DATA_SPARSE_ROUNDS = 150       # depth cut of run (c)
 XDATA_S, XDATA_J, XDATA_CHAINS = 50, 5000, 1250   # phase 12: card against CPU
 XDATA_ROUNDS = 300             # depth cut of phase 12
 # disk = memory x this, bytes: the workflow run's disks are ten times tighter
@@ -3362,6 +3821,8 @@ def main() -> int:
     print(f"[power] {gpu_name_and_power()}")
     serve_launches = phase_serve(device)
     lap("8")
+    families = phase_serve_families(device)
+    lap("18")
     for name, row in rows.items():
         row["launches"] = (sparse_launches[name] if name == "fused_assign" else
                            serve_launches[name] if name == "flash_attention" else launches[name])
@@ -3394,6 +3855,17 @@ def main() -> int:
             if name in counts:
                 row[f"launches_calibration_{part}"] = counts[name]
     rows["segment_sum"]["backward"]["launches_calibration_platform"] = cal_platform["backward"]
+    # the serving families' own counts (phase 18): the MoE router's assign
+    # launches, and the flash launches of every family's greedy run
+    fam = families["launches"]
+    rows["assign"]["launches_moe"] = {
+        name: {"run": fam[name]["launches"]["assign"], "prefill": fam[name]["assign_prefill"],
+               "decode_step": fam[name]["assign_decode"]} for name in ("granite", "kimi")}
+    rows["assign"]["moe_routes"] = families["moe"]
+    rows["flash_attention"]["launches_families"] = {
+        name: {"run": st["launches"]["flash_attention"], "prefill": st["flash_prefill"]}
+        for name, st in fam.items()}
+    rows["flash_attention"]["families"] = families["flash"]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

@@ -6,5 +6,7 @@ from .ops import (  # noqa: F401
     fused_topk_assign,
     make_capacity_assign,
     make_fused_capacity_assign,
+    moe_route,
+    moe_route_ref,
 )
 from .ref import assign_ref  # noqa: F401

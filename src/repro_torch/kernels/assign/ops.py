@@ -1,5 +1,6 @@
-"""The assignment kernels as simulator dispatch combinators: dense
-(``make_capacity_assign``) and sparse top-k (``make_fused_capacity_assign``)."""
+"""The assignment kernels as simulator dispatch combinators, dense
+(``make_capacity_assign``) and sparse top-k (``make_fused_capacity_assign``),
+and as the MoE router (``moe_route``)."""
 from __future__ import annotations
 
 import torch
@@ -81,3 +82,34 @@ def make_fused_capacity_assign(jobs_cores: torch.Tensor | None = None, *, block_
         return torch.where(ok, site, -1), ok
 
     return assign_cand
+
+
+def moe_route(router_logits: torch.Tensor, *, k: int, capacity: int, block_n: int = 256):
+    """Token->expert routing for the MoE layer: ``router_logits`` f32 ``[T, E]``,
+    or ``[G, T, E]`` for G routing groups solved in one call, ->
+    ``(expert i32[.., T, k], combine f32[.., T, k], slot i32[.., T, k],
+    keep bool[.., T, k])``.  Every token has size 1 and every expert
+    ``capacity`` slots; ``slot`` is the token's place in its expert's
+    capacity buffer.  Combine weights are renormalised over the kept slots
+    (the Switch/GShard convention).  ``block_n`` sets the rows whose picks are
+    resolved slot-major together, so it changes the result for ``k > 1``."""
+    return _route(assign, router_logits, k, capacity, block_n)
+
+
+def moe_route_ref(router_logits: torch.Tensor, *, k: int, capacity: int, block_n: int = 256):
+    """``moe_route`` through the plain assignment (``assign_ref``) on the
+    logits' own device: the plain version of the kernel route."""
+    return _route(assign_ref, router_logits, k, capacity, block_n)
+
+
+def _route(assign_fn, router_logits, k, capacity, block_n):
+    lanes = router_logits.shape[:-2]
+    T, E = router_logits.shape[-2:]
+    dev = router_logits.device
+    sizes = torch.ones((*lanes, T), dtype=torch.float32, device=dev)
+    caps = torch.full((*lanes, E), float(capacity), dtype=torch.float32, device=dev)
+    idx, gate, keep, pos = assign_fn(router_logits.float(), sizes, caps, k=k, block_n=block_n)
+    combine = gate * keep
+    norm = combine.sum(-1, keepdim=True).clamp_min(1e-9)
+    combine = combine / norm * gate.sum(-1, keepdim=True).clamp(0.0, 1.0)
+    return idx, combine, pos.int(), keep

@@ -84,7 +84,12 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> 
 def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *, start: int = 0,
                       rope: bool = True):
     """Run causal attention over a prompt chunk and write its K/V into
-    ``cache`` at positions ``start ..`` in place."""
+    ``cache`` at positions ``start ..`` in place.
+
+    A rolling cache (no longer than the window, see ``attention_decode``)
+    keeps position ``t`` in slot ``t % L``; a chunk longer than the buffer
+    leaves its last ``L`` positions there, every one the next token's window
+    needs.  (Where the chunk fits, the slots are the reference's.)"""
     S = x.shape[1]
     q, k, v = _project_qkv(p, x, cfg)
     if rope:
@@ -92,8 +97,15 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *, star
         q = apply_rope(q, pos, theta=cfg.rope_theta)
         k = apply_rope(k, pos, theta=cfg.rope_theta)
     o = _causal_attn(q, k, v, cfg)
-    cache["k"][:, :, start:start + S] = k
-    cache["v"][:, :, start:start + S] = v
+    L = cache["k"].shape[2]
+    if cfg.window > 0 and L <= cfg.window and start + S > L:
+        keep = min(S, L)
+        slots = (start + S - keep + torch.arange(keep, device=x.device)) % L
+        cache["k"][:, :, slots] = k[:, :, S - keep:]
+        cache["v"][:, :, slots] = v[:, :, S - keep:]
+    else:
+        cache["k"][:, :, start:start + S] = k
+        cache["v"][:, :, start:start + S] = v
     return _merge_heads(o, cfg) @ p["wo"], cache
 
 

@@ -2,9 +2,11 @@
 
 The same fields as the JAX package's ``ModelConfig``, so a configuration
 carries across unchanged.  On one device the port ignores the mesh and
-compile fields (``router_groups``, ``seq_shard``, ``explicit_fsdp_gather``,
-``scan_layers``, ``remat``): layers run in a Python loop over an
-``nn.ModuleList``.
+compile fields (``seq_shard``, ``explicit_fsdp_gather``, ``remat``): layers
+run in a Python loop over an ``nn.ModuleList``.  ``router_groups`` splits the
+MoE router's tokens into independent problems, and ``scan_layers`` picks the
+router's row block as in the reference (256 rows, or one group's tokens when
+it is False).
 """
 from __future__ import annotations
 

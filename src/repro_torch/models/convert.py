@@ -29,20 +29,22 @@ def _param(a, device) -> nn.Parameter:
     return nn.Parameter(tensor_from_numpy(a, device), requires_grad=False)
 
 
-def _group(tree: dict, layer: int, device) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _param(v[layer], device) for k, v in tree.items()})
+def _block(tree: dict, kind: str, r: int, device) -> Block:
+    """Repeat ``r`` of one stacked ``seg{si}/k{ki}`` block as a ``Block``."""
+    parts = {name: nn.ParameterDict({k: _param(v[r], device) for k, v in leaf.items()})
+             if isinstance(leaf, dict) else _param(leaf[r], device)
+             for name, leaf in tree.items()}
+    return Block(kind, **parts)
 
 
 def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> LM:
-    """The JAX parameter pytree (numpy leaves) as the port's ``LM``: the
-    stacked ``seg0/k0`` layer axis becomes the ``nn.ModuleList``."""
+    """The JAX parameter pytree (numpy leaves) as the port's ``LM``: every
+    segment's stacked ``seg{si}/k{ki}`` layer axis becomes layers of the
+    ``nn.ModuleList`` in the reference's scan order (segment, repeat, pattern
+    slot)."""
     device = resolve_device(device)
-    (seg,) = plan_segments(cfg)
-    stacked = tree["seg0"]["k0"]
-    layers = [
-        Block(_group(stacked["attn"], i, device), _group(stacked["mlp"], i, device),
-              _param(stacked["ln1"][i], device), _param(stacked["ln2"][i], device))
-        for i in range(seg.repeats)
-    ]
+    layers = [_block(tree[f"seg{si}"][f"k{ki}"], kind, r, device)
+              for si, seg in enumerate(plan_segments(cfg)) for r in range(seg.repeats)
+              for ki, kind in enumerate(seg.pattern)]
     head = None if cfg.tie_embeddings else _param(tree["lm_head"], device)
     return LM(_param(tree["embed"], device), layers, _param(tree["final_norm"], device), head)

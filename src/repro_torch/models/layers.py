@@ -46,3 +46,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000
     x1, x2 = x[..., ::2], x[..., 1::2]
     out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).reshape(x.shape)
     return out.to(x.dtype)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` everywhere (``F.softplus``
+    returns ``x`` itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal 1-D convolution.  x [B, L, C], w [K, C] -> [B, L, C],
+    summed in f32 (K shifted multiply-adds) and cast back to x's dtype."""
+    K = w.shape[0]
+    L = x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, K - 1, 0)).float()
+    wf = w.float()
+    out = xp[:, 0:L] * wf[0]
+    for j in range(1, K):
+        out = out + xp[:, j:j + L] * wf[j]
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
+
+
+def causal_conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
+                       b: torch.Tensor | None = None):
+    """One decode step.  x_t [B, C]; conv_state [B, K-1, C] (oldest first) ->
+    (out [B, C], the next state [B, K-1, C])."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)  # [B, K, C]
+    out = torch.einsum("bkc,kc->bc", window.float(), w.float())
+    if b is not None:
+        out = out + b.float()
+    return out.to(x_t.dtype), window[:, 1:]

@@ -7,9 +7,9 @@
     logits, cache = m.prefill(params, batch, cache)
     logits, cache = m.decode(params, token, cache)
 
-``batch`` is a dict holding ``tokens [B, S]``.  The port serves the dense
-family; the encoder-decoder (whisper) and the other families raise
-``NotImplementedError``.
+``batch`` is a dict holding ``tokens [B, S]``.  The port serves the dense,
+MoE, SSM and hybrid families; the encoder-decoder (whisper) and VLM
+families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -1,11 +1,15 @@
-"""Decoder-only LM stack: the dense family.
+"""Decoder-only LM stack: the dense, MoE, SSM and hybrid families.
 
-The JAX package stacks each segment's layer parameters and runs them with
-``lax.scan``; here every layer is a ``Block`` module in an ``nn.ModuleList``
-and runs in a Python loop.  The KV cache holds one ``[L, B, Hkv, max_len,
-dh]`` tensor each for K and V (the JAX package's stacked layout), and each
-layer writes its slice in place.  The MoE, SSM and hybrid families raise
-``NotImplementedError``.
+Layers are organised in *segments*, as in the JAX package: a block pattern
+(e.g. ``("rec", "rec", "att")``) repeated ``repeats`` times.  The JAX package
+stacks each segment's parameters and runs them with ``lax.scan``; here every
+layer is a ``Block`` module in an ``nn.ModuleList``, in the reference's scan
+order (segment, then repeat, then pattern slot), and runs in a Python loop.
+
+The cache holds one stacked tensor per kind of state, each layer writing its
+own slice in place: ``k``/``v`` ``[n_att, B, Hkv, max_len, dh]`` for the
+attention layers (``att`` and ``moe``), ``ssm_conv``/``ssm_state`` for the
+SSM layers and ``rec_conv``/``rec_h`` for the RG-LRU layers.
 """
 from __future__ import annotations
 
@@ -24,19 +28,41 @@ from .attention import (
 from .config import ModelConfig
 from .layers import embed_init, rmsnorm
 from .mlp import init_mlp, mlp_forward
+from .moe import AUX_KEYS, init_moe, moe_forward
+from .rglru import init_rglru, init_rglru_cache, rglru_decode, rglru_forward
+from .ssm import init_ssm, init_ssm_cache, ssm_decode, ssm_forward
 
 
 class Segment(NamedTuple):
-    pattern: tuple  # block kinds, e.g. ("att",)
+    pattern: tuple  # block kinds, e.g. ("att",) or ("rec", "rec", "att")
     repeats: int
 
 
 def plan_segments(cfg: ModelConfig) -> list[Segment]:
     if cfg.family == "dense":
         return [Segment(("att",), cfg.n_layers)]
+    if cfg.family == "moe":
+        return [Segment(("moe",), cfg.n_layers)]
+    if cfg.family == "ssm":
+        return [Segment(("ssm",), cfg.n_layers)]
+    if cfg.family == "hybrid":
+        pat = tuple(cfg.block_pattern)
+        reps, rem = divmod(cfg.n_layers, len(pat))
+        return [Segment(pat, reps)] + ([Segment(pat[:rem], 1)] if rem else [])
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 16); the port "
-        "serves the dense family")
+        "serves the dense, moe, ssm and hybrid families")
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """Every layer's kind, in the port's layer order."""
+    return [kind for seg in plan_segments(cfg) for _ in range(seg.repeats) for kind in seg.pattern]
+
+
+# each kind's cache entries: the layer's own name -> the stacked entry's
+CACHE_ENTRIES = {"att": {"k": "k", "v": "v"}, "moe": {"k": "k", "v": "v"},
+                 "ssm": {"conv": "ssm_conv", "state": "ssm_state"},
+                 "rec": {"conv": "rec_conv", "h": "rec_h"}}
 
 
 def _zeros(d: int, dtype, device) -> nn.Parameter:
@@ -44,12 +70,16 @@ def _zeros(d: int, dtype, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One ``"att"`` block: pre-norm attention and MLP, each with a residual."""
+    """One layer of kind ``"att"``, ``"moe"``, ``"ssm"`` or ``"rec"``: ``ln1``
+    and its mixer (``attn``, ``ssm`` or ``rec``), then, for every kind but
+    ``"ssm"``, ``ln2`` and its feed-forward (``mlp`` or ``moe``); each with a
+    residual."""
 
-    def __init__(self, attn: nn.ParameterDict, mlp: nn.ParameterDict, ln1: nn.Parameter,
-                 ln2: nn.Parameter):
+    def __init__(self, kind: str, **parts):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+        self.kind = kind
+        for name, part in parts.items():
+            setattr(self, name, part)
 
 
 class LM(nn.Module):
@@ -66,28 +96,77 @@ class LM(nn.Module):
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype) -> Block:
-    if kind != "att":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    return Block(init_attention(gen, cfg, dtype), init_mlp(gen, cfg, dtype=dtype),
-                 _zeros(cfg.d_model, dtype, gen.device), _zeros(cfg.d_model, dtype, gen.device))
+    ln = lambda: _zeros(cfg.d_model, dtype, gen.device)  # noqa: E731
+    if kind == "att":
+        return Block(kind, ln1=ln(), attn=init_attention(gen, cfg, dtype), ln2=ln(),
+                     mlp=init_mlp(gen, cfg, dtype=dtype))
+    if kind == "moe":
+        return Block(kind, ln1=ln(), attn=init_attention(gen, cfg, dtype), ln2=ln(),
+                     moe=init_moe(gen, cfg, dtype))
+    if kind == "ssm":
+        return Block(kind, ln1=ln(), ssm=init_ssm(gen, cfg, dtype))
+    if kind == "rec":
+        return Block(kind, ln1=ln(), rec=init_rglru(gen, cfg, dtype), ln2=ln(),
+                     mlp=init_mlp(gen, cfg, dtype=dtype))
+    raise ValueError(kind)
 
 
-def block_train(p: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = x + attention_train(p.attn, rmsnorm(x, p.ln1, eps=cfg.norm_eps), cfg)
-    return x + mlp_forward(p.mlp, rmsnorm(x, p.ln2, eps=cfg.norm_eps), cfg)
+def _ffn(p: Block, x: torch.Tensor, cfg: ModelConfig, with_aux: bool = False):
+    """The block's second half: x plus its MLP or MoE output (and the MoE aux)."""
+    h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
+    if p.kind == "moe":
+        y, aux = moe_forward(p.moe, h, cfg, with_aux=with_aux)
+        return x + y.to(x.dtype), aux
+    return x + mlp_forward(p.mlp, h, cfg), None
+
+
+def block_train(p: Block, x: torch.Tensor, cfg: ModelConfig):
+    """-> (x, the MoE aux or None)."""
+    h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
+    if p.kind == "ssm":
+        return x + ssm_forward(p.ssm, h, cfg)[0].to(x.dtype), None
+    if p.kind == "rec":
+        x = x + rglru_forward(p.rec, h, cfg)[0].to(x.dtype)
+    else:
+        x = x + attention_train(p.attn, h, cfg)
+    return _ffn(p, x, cfg, with_aux=True)
+
+
+def _write(cache: dict, new: dict) -> None:
+    for name, t in new.items():
+        cache[name].copy_(t)
 
 
 def block_prefill(p: Block, x: torch.Tensor, cfg: ModelConfig, cache: dict, start: int):
-    h, cache = attention_prefill(p.attn, rmsnorm(x, p.ln1, eps=cfg.norm_eps), cfg, cache,
-                                 start=start)
-    x = x + h
-    return x + mlp_forward(p.mlp, rmsnorm(x, p.ln2, eps=cfg.norm_eps), cfg), cache
+    h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
+    if p.kind == "ssm":
+        y, new = ssm_forward(p.ssm, h, cfg)
+        _write(cache, new)
+        return x + y.to(x.dtype), cache
+    if p.kind == "rec":
+        y, new = rglru_forward(p.rec, h, cfg)
+        _write(cache, new)
+        x = x + y.to(x.dtype)
+    else:
+        y, cache = attention_prefill(p.attn, h, cfg, cache, start=start)
+        x = x + y
+    return _ffn(p, x, cfg)[0], cache
 
 
 def block_decode(p: Block, x_t: torch.Tensor, cfg: ModelConfig, cache: dict, kv_len: int):
-    h, cache = attention_decode(p.attn, rmsnorm(x_t, p.ln1, eps=cfg.norm_eps), cfg, cache, kv_len)
-    x_t = x_t + h
-    return x_t + mlp_forward(p.mlp, rmsnorm(x_t, p.ln2, eps=cfg.norm_eps), cfg), cache
+    h = rmsnorm(x_t, p.ln1, eps=cfg.norm_eps)
+    if p.kind == "ssm":
+        y, new = ssm_decode(p.ssm, h, cfg, cache)
+        _write(cache, new)
+        return x_t + y.to(x_t.dtype), cache
+    if p.kind == "rec":
+        y, new = rglru_decode(p.rec, h, cfg, cache)
+        _write(cache, new)
+        x_t = x_t + y.to(x_t.dtype)
+    else:
+        y, cache = attention_decode(p.attn, h, cfg, cache, kv_len)
+        x_t = x_t + y
+    return _ffn(p, x_t, cfg)[0], cache
 
 
 # ------------------------------------------------------------------ model ---
@@ -104,8 +183,7 @@ def init_params(rng, cfg: ModelConfig, device="cuda") -> LM:
     ``rng`` (a seed or a ``torch.Generator``)."""
     gen = _generator(rng, device)
     dtype = getattr(torch, cfg.dtype)
-    layers = [init_block(gen, cfg, kind, dtype)
-              for seg in plan_segments(cfg) for _ in range(seg.repeats) for kind in seg.pattern]
+    layers = [init_block(gen, cfg, kind, dtype) for kind in layer_kinds(cfg)]
     head = None if cfg.tie_embeddings else embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
     return LM(
         nn.Parameter(embed_init(gen, cfg.vocab_size, cfg.d_model, dtype), requires_grad=False),
@@ -125,36 +203,63 @@ def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor):
     """Teacher-forced full-sequence forward -> (logits f32[B,S,V], aux).
-    ``aux`` holds the MoE losses, zero for the dense family."""
+    ``aux`` holds the MoE losses summed over the layers, zero without MoE
+    layers."""
     x = _embed(params, tokens)
+    aux = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
     for layer in params.layers:
-        x = block_train(layer, x, cfg)
+        x, layer_aux = block_train(layer, x, cfg)
+        if layer_aux is not None:
+            aux = {k: aux[k] + layer_aux[k] for k in AUX_KEYS}
     x = rmsnorm(x, params.final_norm, eps=cfg.norm_eps)
-    zero = torch.zeros((), device=x.device)
-    return _logits(params, cfg, x), {"moe_lb_loss": zero, "moe_z_loss": zero,
-                                     "moe_drop_frac": zero}
+    return _logits(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------- serving ---
 
 
+def _one_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype, device) -> dict:
+    if kind == "ssm":
+        return init_ssm_cache(cfg, batch, dtype, device)
+    if kind == "rec":
+        return init_rglru_cache(cfg, batch, dtype, device)
+    return init_kv_cache(cfg, batch, max_len, dtype, device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> dict:
-    """``{"len": 0, "k": [L,B,Hkv,max_len,dh], "v": same}`` in the model's dtype."""
-    n_layers = sum(seg.repeats * len(seg.pattern) for seg in plan_segments(cfg))
-    one = init_kv_cache(cfg, batch, max_len, getattr(torch, cfg.dtype), device)
-    return {"len": 0, **{name: t[None].repeat(n_layers, 1, 1, 1, 1) for name, t in one.items()}}
+    """``{"len": 0}`` and, for the kinds of state the layers keep, stacked
+    zeros in the model's dtype (the SSM and LRU states in f32): ``k``/``v``
+    ``[n_att, B, Hkv, max_len, dh]``, ``ssm_conv``/``ssm_state``
+    ``[n_ssm, ...]``, ``rec_conv``/``rec_h`` ``[n_rec, ...]``.  A ``max_len``
+    no longer than the attention window makes the K/V a rolling buffer."""
+    dtype = getattr(torch, cfg.dtype)
+    kinds = layer_kinds(cfg)
+    cache = {"len": 0}
+    for kind in dict.fromkeys(kinds):
+        n = sum(CACHE_ENTRIES[k] == CACHE_ENTRIES[kind] for k in kinds)
+        for name, t in _one_cache(cfg, kind, batch, max_len, dtype, device).items():
+            cache[CACHE_ENTRIES[kind][name]] = t[None].repeat(n, *([1] * t.dim()))
+    return cache
 
 
-def _layer_cache(cache: dict, i: int) -> dict:
-    return {"k": cache["k"][i], "v": cache["v"][i]}  # views: layers write in place
+def _layer_caches(cfg: ModelConfig, cache: dict) -> list[dict]:
+    """Each layer's slice of the stacked cache (views: layers write in place)."""
+    seen: dict = {}   # layers so far of each stack
+    out = []
+    for kind in layer_kinds(cfg):
+        entries = CACHE_ENTRIES[kind]
+        stack = next(iter(entries.values()))
+        j = seen[stack] = seen.get(stack, -1) + 1
+        out.append({name: cache[entry][j] for name, entry in entries.items()})
+    return out
 
 
 @torch.no_grad()
 def prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor, cache: dict):
     """Consume the prompt, fill the cache, return last-position logits."""
     x = _embed(params, tokens)
-    for i, layer in enumerate(params.layers):
-        x, _ = block_prefill(layer, x, cfg, _layer_cache(cache, i), 0)
+    for layer, layer_cache in zip(params.layers, _layer_caches(cfg, cache)):
+        x, _ = block_prefill(layer, x, cfg, layer_cache, 0)
     x = rmsnorm(x, params.final_norm, eps=cfg.norm_eps)
     cache["len"] = tokens.shape[1]
     return _logits(params, cfg, x[:, -1:]), cache
@@ -165,8 +270,8 @@ def decode_step(params: LM, cfg: ModelConfig, token: torch.Tensor, cache: dict):
     """token i32[B, 1] -> (logits f32[B, 1, V], the cache updated in place)."""
     x = _embed(params, token)
     kv_len = cache["len"]
-    for i, layer in enumerate(params.layers):
-        x, _ = block_decode(layer, x, cfg, _layer_cache(cache, i), kv_len)
+    for layer, layer_cache in zip(params.layers, _layer_caches(cfg, cache)):
+        x, _ = block_decode(layer, x, cfg, layer_cache, kv_len)
     x = rmsnorm(x, params.final_norm, eps=cfg.norm_eps)
     cache["len"] = kv_len + 1
     return _logits(params, cfg, x), cache
