@@ -196,6 +196,32 @@ check does not hold:
    CPU_CHECK_LAYERS, on the card and with the same weights on the CPU port:
    the tokens must agree, or differ only at a printed near-tie.
 
+19. scenario ensembles over a device mesh (run after phase 16(d)): phase
+   16(a)'s 16 dense lanes and 16(d)'s 16 sparse lanes (``topk=16``, the fused
+   kernel) through ``distributed.simulate_many_sharded`` on a 1-rank NCCL
+   mesh, counters set to 0 just before each run: bit for bit the phase-16
+   lanes over the same rounds, one assign (fused) launch a round with work
+   for all lanes, lane-rounds/s.  With more than one card, one spawned rank a
+   card (``distributed.run_ranks``): lane-rounds/s of the 16 dense lanes at
+   1, 2, ... N ranks, every rank's gathered result equal to the 1-rank run
+   (by digest), then 64 lanes (16 a card) on N ranks.
+
+20. the encoder-decoder and VLM families (run after phase 18), bf16, seed-0
+   weights, greedy then sampled, counters set to 0 just before the greedy
+   run: (a) whisper-small at full width and depth (12 + 12 layers), 4
+   utterances of 1500 stub frame embeddings, 32-token prompts, 32 new
+   tokens: 36 flash launches a prefill (encoder, causal self, cross) and 12
+   a decode step (the cross-attention, Sq = 1 against 1500 frames); (b)
+   internvl2-26b at VLM_LAYERS layers, 4 prompts of 4096 tokens with 256
+   stub patch embeddings over their first positions, 32 new tokens: one
+   flash launch a layer a prefill; prefill tokens/s, decode ms a step, peak
+   memory; then the flash kernel against its plain version (FLASH_REL_TOL of
+   each row's largest output), timed beside SDPA, at whisper's encoder
+   ``[4, 12, 1500, 64]`` and cross-attention (Sq = 32 and 1 against 1500),
+   non-causal, and at internvl2's ``[4, 48, 4096, 128]`` on 8 KV heads,
+   causal; then a sampled ``generate`` card = CPU at full width, depth cut
+   to ENCDEC_CPU_CHECK_LAYERS (internvl2 with 8 patches in 16-token prompts).
+
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero without
@@ -222,7 +248,7 @@ ENGINE_J, ENGINE_S = 100_000, 300
 ENGINE_K = 16                  # bench_wlcg_scale.py's top-k
 ENS_K = 16                     # phase 16's lanes
 MANY_SEGMENTS = ENGINE_S * ENGINE_S + 1   # the link sums' segments at S=300
-FULL_MAX_ROUNDS = 1300         # depth cut of phase 13: its walltime kills start
+FULL_MAX_ROUNDS = 1200         # depth cut of phase 13: its walltime kills start
                                # ~1150 rounds in (300 simulated seconds)
 DENSE_FULL_ROUNDS = 300        # depth cut of phase 3
 # rounds in phase 3's profile (the solo path's kernels a round) and in every
@@ -1158,12 +1184,14 @@ def capture_router_logits(run):
     return seen[0]
 
 
-def serve_family(device, cfg, *, batch: int, prompt: int, new: int, seed: int = 0):
+def serve_family(device, cfg, *, batch: int, prompt: int, new: int, seed: int = 0,
+                 extra: dict | None = None):
     """Draw ``cfg``'s weights on the card (torch.Generator seed 0), then
     ``generate`` greedy and sampled (temperature 1.0, key ``PRNGKey(seed)``)
-    over seeded prompts, the launch counters set to 0 just before the greedy
-    run.  Prints prefill tokens/s, decode ms a step, peak memory and the
-    launches of each kernel a prefill and a decode step."""
+    over seeded prompts (with ``extra``, the frontend stub's tensors, in the
+    batch), the launch counters set to 0 just before the greedy run.  Prints
+    prefill tokens/s, decode ms a step, peak memory and the launches of each
+    kernel a prefill and a decode step."""
     import numpy as np
     import torch
 
@@ -1182,7 +1210,7 @@ def serve_family(device, cfg, *, batch: int, prompt: int, new: int, seed: int = 
           f"vocab {cfg.vocab_size}, {cfg.dtype}; {param_count(params)} parameters drawn on the "
           f"card in {time.perf_counter() - t0:.2f}s; {batch} prompts of {prompt} tokens, {new} new")
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
-    batch_t = {"tokens": torch.from_numpy(tokens).to(device)}
+    batch_t = dict(extra or {}, tokens=torch.from_numpy(tokens).to(device))
     calls = {"prefill": [], "decode": []}
 
     def counted(name, fn):
@@ -1225,11 +1253,14 @@ def serve_family(device, cfg, *, batch: int, prompt: int, new: int, seed: int = 
     check(torch.equal(greedy[:, 0], sampled[:, 0]), "the sampled run's first token is not the "
                                                      "prefill's argmax")
     check(not torch.equal(greedy, sampled), "sampling gave the greedy tokens")
+    warm_s = calls["prefill"][1][0].elapsed_time(calls["prefill"][1][1]) / 1e3
     stats = dict(prefill_tokens_per_s=batch * prompt / prefill_s, decode_ms=decode_ms,
+                 prefill_tokens_per_s_warm=batch * prompt / warm_s,
                  peak_gb=peak_gb, assign_prefill=p_assign, assign_decode=d_assign.pop(),
                  flash_prefill=p_flash, flash_decode=d_flash.pop(), launches=launches)
     print(f"[families] {cfg.name}: prefill {prefill_s:.4f}s = "
-          f"{stats['prefill_tokens_per_s']:.1f} tokens/s; decode {len(steps)} steps, "
+          f"{stats['prefill_tokens_per_s']:.1f} tokens/s (the sampled run's, warm, {warm_s:.4f}s = "
+          f"{stats['prefill_tokens_per_s_warm']:.1f}); decode {len(steps)} steps, "
           f"{decode_ms:.3f} ms a step = {1e3 * batch / decode_ms:.1f} tokens/s; peak "
           f"{peak_gb:.2f} GB; launches a prefill: assign {p_assign}, flash {p_flash}; a decode "
           f"step: assign {stats['assign_decode']}, flash {stats['flash_decode']}; greedy "
@@ -1256,12 +1287,15 @@ def sampled_scores(model, params, batch, new: int, cache_len: int, key):
     return torch.stack(scores, 1)
 
 
-def sampled_card_vs_cpu(device, arch: str) -> None:
+def sampled_card_vs_cpu(device, arch: str, layers: int | None = None,
+                        extra: dict | None = None) -> None:
     """One sampled ``generate`` (key ``PRNGKey(0)``) at ``arch``'s full width,
-    depth cut to ``CPU_CHECK_LAYERS``, on the card and with the same weights
-    on the CPU port: the first CPU_CHECK_NEW tokens must agree, or differ
-    only where the CPU's noisy scores of the two picks are within the bf16
-    tolerance (2e-2 of the largest logit), which is printed."""
+    depth cut to ``layers`` (``CPU_CHECK_LAYERS``; an encoder-decoder's
+    encoder and decoder each), with ``extra`` (CPU tensors of the frontend
+    stub) in the batch, on the card and with the same weights on the CPU
+    port: the first CPU_CHECK_NEW tokens must agree, or differ only where the
+    CPU's noisy scores of the two picks are within the bf16 tolerance (2e-2
+    of the largest logit), which is printed."""
     import copy
 
     import numpy as np
@@ -1272,24 +1306,28 @@ def sampled_card_vs_cpu(device, arch: str) -> None:
     from repro_torch.models import build_model
     from repro_torch.serve.serve_step import generate
 
-    cfg = get_config(arch).replace(n_layers=CPU_CHECK_LAYERS[arch])
+    L = CPU_CHECK_LAYERS[arch] if layers is None else layers
+    cfg = get_config(arch).replace(n_layers=L)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(n_enc_layers=L, n_dec_layers=L)
     card, cpu = build_model(cfg, device=device), build_model(cfg, device="cpu")
     params = card.init(0)
     params_cpu = copy.deepcopy(params).cpu()
     tok = np.random.default_rng(1).integers(0, cfg.vocab_size, (CPU_CHECK_BATCH, CPU_CHECK_PROMPT))
     tok = torch.from_numpy(tok.astype(np.int32))
     n, cache_len = CPU_CHECK_NEW, CPU_CHECK_PROMPT + CPU_CHECK_NEW
+    batch_cpu = dict(extra or {}, tokens=tok)
+    batch_card = {k: v.to(device) for k, v in batch_cpu.items()}
     t0 = time.perf_counter()
-    got = generate(card, params, {"tokens": tok.to(device)}, max_new=n, cache_len=cache_len,
+    got = generate(card, params, batch_card, max_new=n, cache_len=cache_len,
                    rng=PRNGKey(0)).cpu()
-    want = generate(cpu, params_cpu, {"tokens": tok}, max_new=n, cache_len=cache_len,
+    want = generate(cpu, params_cpu, batch_cpu, max_new=n, cache_len=cache_len,
                     rng=PRNGKey(0))
     seconds = time.perf_counter() - t0
     flips = []
     if not torch.equal(got, want):
-        s_card = sampled_scores(card, params, {"tokens": tok.to(device)}, n, cache_len,
-                                PRNGKey(0)).cpu()
-        s_cpu = sampled_scores(cpu, params_cpu, {"tokens": tok}, n, cache_len, PRNGKey(0))
+        s_card = sampled_scores(card, params, batch_card, n, cache_len, PRNGKey(0)).cpu()
+        s_cpu = sampled_scores(cpu, params_cpu, batch_cpu, n, cache_len, PRNGKey(0))
         for b in range(CPU_CHECK_BATCH):
             diff = (got[b] != want[b]).nonzero()
             if len(diff) == 0:
@@ -1302,7 +1340,7 @@ def sampled_card_vs_cpu(device, arch: str) -> None:
             check(gap <= 2e-2 * top, f"{arch}: sampled token {i} of prompt {b} is {int(got[b, i])} "
                                      f"on the card and {int(want[b, i])} on the CPU, a gap of "
                                      f"{gap:.4e} in the CPU's noisy scores (max {top:.4e})")
-    print(f"[families] {cfg.name} cut to {cfg.n_layers} layers, sampled generate card vs CPU "
+    print(f"[families] {cfg.name} cut to {L} layers, sampled generate card vs CPU "
           f"({CPU_CHECK_BATCH} prompts of {CPU_CHECK_PROMPT}, {n} tokens, {seconds:.1f}s): " +
           ("equal" if not flips else "near-ties at " + ", ".join(
               f"prompt {b} token {i} (CPU gap {g:.3e}, card gap {cg:.3e}, max score {t:.3e})"
@@ -1313,14 +1351,16 @@ def sampled_card_vs_cpu(device, arch: str) -> None:
 FLASH_REL_TOL = 2.0 ** -6   # two bf16 ulps of a row's largest output
 
 
-def check_family_flash(device, cfg, B: int, S: int) -> dict:
-    """Hold the flash kernel against its plain version at ``cfg``'s prefill
-    attention: q [B, Hq, S, D] against k/v [B, Hkv, S, D], causal, with the
-    config's window, in its dtype, on seeded standard-normal inputs.  The
-    error of each output element is held relative to the largest output of
-    its row (``FLASH_REL_TOL``); the plain version runs one prompt at a time
-    to bound its f32 scores.  Times the kernel (device and call) beside the
-    plain version and SDPA with the same mask."""
+def check_family_flash(device, cfg, B: int, S: int, Skv: int | None = None,
+                       causal: bool = True, label: str | None = None) -> dict:
+    """Hold the flash kernel against its plain version at ``cfg``'s
+    attention: q [B, Hq, S, D] against k/v [B, Hkv, Skv, D] (Skv = S by
+    default), causal or not, with the config's window, in its dtype, on
+    seeded standard-normal inputs.  The error of each output element is held
+    relative to the largest output of its row (``FLASH_REL_TOL``); the plain
+    version runs one prompt at a time to bound its f32 scores.  Times the
+    kernel (device and call) beside the plain version and SDPA with the same
+    mask."""
     import torch
     import torch.nn.functional as F
 
@@ -1329,58 +1369,69 @@ def check_family_flash(device, cfg, B: int, S: int) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     Hq, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.window
-    q, k, v = flash_inputs(B, Hq, Hkv, S, S, D, cfg.dtype, 18 + D, device)
+    Skv = S if Skv is None else Skv
+    label = label or cfg.name
+    seed = 18 + D if causal and Skv == S else 18 + D + S + Skv   # phase 18's seeds kept
+    q, k, v = flash_inputs(B, Hq, Hkv, S, Skv, D, cfg.dtype, seed, device)
+
+    def kernel_call():
+        return flash_attention_cuda(q, k, v, causal=causal, window=W)
 
     def plain():
-        return torch.cat([attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True, window=W)
-                          for b in range(B)])
+        return torch.cat([attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal,
+                                        window=W) for b in range(B)])
 
     before = flash_mod.launches
-    got = flash_attention_cuda(q, k, v, causal=True, window=W)
+    got = kernel_call()
     want = plain()
     torch.cuda.synchronize()
-    check(flash_mod.launches == before + 1, f"{cfg.name}: the flash call did not launch the kernel")
+    check(flash_mod.launches == before + 1, f"{label}: the flash call did not launch the kernel")
     check(got.dtype == want.dtype and got.shape == want.shape,
-          f"{cfg.name}: flash output {got.dtype} {tuple(got.shape)} is not the plain version's")
+          f"{label}: flash output {got.dtype} {tuple(got.shape)} is not the plain version's")
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     rel = float((diff / want.float().abs().amax(-1, keepdim=True)).max())
-    check(rel <= FLASH_REL_TOL, f"{cfg.name}: flash differs from the plain version by {rel:.3e} "
+    check(rel <= FLASH_REL_TOL, f"{label}: flash differs from the plain version by {rel:.3e} "
                                 f"of a row's largest output (max_abs_err {err:.3e})")
     del got, want, diff
     wgmma = cfg.dtype == "bfloat16" and D in (64, 128)
     kernel = FLASH_KERNEL if wgmma else "flash_fwd_kernel<"
     others = tuple(n for n in ("flash_fwd_kernel_wgmma", "flash_fwd_kernel_mma", "flash_fwd_kernel<")
                    if n != kernel)
-    call_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=W), iters=5)
-    ms = device_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=W), (kernel,),
-                   iters=5, call_ms=call_ms, per_call=1, forbid=others)[kernel]
+    iters = 5 if S * Skv >= 1 << 20 else 50
+    call_ms = cuda_ms(kernel_call, iters=iters)
+    ms = device_ms(kernel_call, (kernel,), iters=iters, call_ms=call_ms, per_call=1,
+                   forbid=others)[kernel]
     plain_ms = cuda_ms(plain, iters=2, warmup=1)
     kq, vq = k.repeat_interleave(Hq // Hkv, 1), v.repeat_interleave(Hq // Hkv, 1)
     if W > 0:
-        pos = torch.arange(S, device=device)
-        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+        qpos = torch.arange(S, device=device) + (Skv - S)
+        kpos = torch.arange(Skv, device=device)
+        mask = kpos[None, :] > qpos[:, None] - W
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kq, vq, attn_mask=mask),
-                             iters=5)
+                             iters=iters)
     else:
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kq, vq, is_causal=True),
-                             iters=5)
-    ops = 4 * B * Hq * D * attention_live_pairs(S, S, True, W)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kq, vq,
+                                                                    is_causal=causal),
+                             iters=iters)
+    ops = 4 * B * Hq * D * attention_live_pairs(S, Skv, causal, W)
     bytes_moved = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     t_ops, t_bytes = ops / PEAK_BF16_OPS_PER_S, bytes_moved / PEAK_HBM_BYTES_PER_S
     bound_ms = max(t_ops, t_bytes) * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"[families] flash at {cfg.name}'s attention q [{B}, {Hq}, {S}, {D}], k/v [{B}, {Hkv}, "
-          f"{S}, {D}], causal, window {W}, {cfg.dtype}: max_abs_err {err:.3e}, largest error "
-          f"{rel:.3e} of its row's largest output (limit {FLASH_REL_TOL:.3e}); kernel {kernel} "
-          f"{ms:.4f} ms of device time ({call_ms:.4f} ms a call between CUDA events), "
-          f"{ops / ms / 1e9:.2f} TFLOP/s; plain {plain_ms:.4f} ms; scaled_dot_product_attention "
-          f"with the same mask {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{ops:.4e} FLOP at 989 TFLOP/s bf16, {bytes_moved} B)")
+    print(f"[families] flash at {label}'s attention q [{B}, {Hq}, {S}, {D}], k/v [{B}, {Hkv}, "
+          f"{Skv}, {D}], causal {causal}, window {W}, {cfg.dtype}: max_abs_err {err:.3e}, "
+          f"largest error {rel:.3e} of its row's largest output (limit {FLASH_REL_TOL:.3e}); "
+          f"kernel {kernel} {ms:.4f} ms of device time ({call_ms:.4f} ms a call between CUDA "
+          f"events), {ops / ms / 1e9:.2f} TFLOP/s; plain {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention with the same mask {library_ms:.4f} ms; bound "
+          f"{bound_ms:.4e} ms ({bound_by}: {ops:.4e} FLOP at 989 TFLOP/s bf16, {bytes_moved} B)")
     del q, k, v, kq, vq
     torch.cuda.empty_cache()
-    return dict(shape=[B, Hq, Hkv, S, S, D], window=W, kernel=kernel, max_abs_err=err,
-                max_rel_err=rel, ms=ms, cuda_ms=call_ms, plain_ms=plain_ms,
+    return dict(shape=[B, Hq, Hkv, S, Skv, D], causal=causal, window=W, kernel=kernel,
+                max_abs_err=err, max_rel_err=rel, ms=ms, cuda_ms=call_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -2779,17 +2830,17 @@ def phase_faults_card_vs_cpu(device, max_rounds: int) -> dict:
 # phase 16: scenario ensembles (simulate_many) on the lane axis
 ENS_ROUNDS = 300
 ENS_BUCKETS = 4
-ENS_BUCKET_ROUNDS = 100        # depth cut of (a)'s bucketed rerun
+ENS_BUCKET_ROUNDS = 50         # depth cut of (a)'s bucketed rerun (and of phase 19's dense lanes)
 ENS_SUB_K = 4
-ENS_SUB_ROUNDS = 300
+ENS_SUB_ROUNDS = 200
 XENS_S, XENS_CHAINS = 50, (750, 1000, 1125, 1250)   # (c): 3000 to 5000 jobs a lane
 XENS_ROUNDS = 200              # depth cut of 16(c)'s workflow lanes (preemptions by round 200)
 # (c)'s second run: four small lanes with data, transfer queues and faults at
 # topk=8, which drain at different rounds (168 to 277 of a CPU run)
 XENS_DATA_JOBS, XENS_DATA_D, XENS_DATA_ROUNDS = (40, 55, 70, 85), 64, 400
-ENS_SPARSE_ROUNDS = 300        # phase 16(d)
-ENS_DATA_K, ENS_DATA_ROUNDS = 4, 200   # phase 16(e)
-ENS_FAULT_ROUNDS = 1300        # 16(e)'s fault lanes: the walltime kills start at
+ENS_SPARSE_ROUNDS = 200        # phase 16(d) (and phase 19's sparse lanes)
+ENS_DATA_K, ENS_DATA_ROUNDS = 4, 150   # phase 16(e)
+ENS_FAULT_ROUNDS = 1200        # 16(e)'s fault lanes: the walltime kills start at
                                # 300 simulated seconds, ~1150 rounds in
 
 
@@ -2817,18 +2868,19 @@ def lane_of(res, i):
                         log=out.log._replace(cursor=int(res.log.cursor[i])))
 
 
-def ensemble_scenarios(device):
+def ensemble_scenarios(device, K: int = ENS_K):
     """Phase 16(a)'s 16 lanes: the WLCG platform with speeds x (0.7 + 0.04 i)
     and 62500 + 2500 i synthetic PanDA jobs (seed 10 + i), ragged up to
-    100000."""
+    100000; past 16 lanes (phase 19's scaling rows) lane i takes lane i % 16's
+    speed and size and its own seed."""
     from repro_torch import core as T
 
     sites = T.atlas_like_platform(ENGINE_S, seed=1, device=device)
     return [T.Scenario(
-        T.synthetic_panda_jobs(62_500 + 2_500 * i, seed=10 + i, duration=6 * 3600.0,
+        T.synthetic_panda_jobs(62_500 + 2_500 * (i % ENS_K), seed=10 + i, duration=6 * 3600.0,
                                device=device),
-        sites._replace(speed=sites.speed * (0.7 + 0.04 * i)))
-        for i in range(ENS_K)]
+        sites._replace(speed=sites.speed * (0.7 + 0.04 * (i % ENS_K))))
+        for i in range(K)]
 
 
 def phase_ensemble_full_width(device, max_rounds: int, plain_rates) -> dict:
@@ -2964,6 +3016,7 @@ def phase_ensemble_full_width(device, max_rounds: int, plain_rates) -> dict:
               "rounds/s solo)")
     launches["rounds"] = loops
     launches["rates"] = rates
+    launches["snapshot"] = flat    # ENS_BUCKET_ROUNDS rounds: phase 19's dense lanes
     return launches
 
 
@@ -3174,6 +3227,7 @@ def phase_ensemble_sparse_full_width(device, max_rounds: int, sparse_rates) -> d
     print(f"[ens-sparse] lane {i} equals its solo run on the card")
     launches["rounds"] = max(rounds)
     launches["rate"] = rate
+    launches["snapshot"] = full_snapshot(res)
     return launches
 
 
@@ -3741,6 +3795,275 @@ def phase_segment_sum_backward(device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 19: scenario ensembles over a device mesh (simulate_many_sharded)
+# --------------------------------------------------------------------------
+
+MESH_SCALING_LANES = (16, 64)  # the scaling rows' lanes (64: 16 a card on 4 cards)
+MESH_SCALING_ROUNDS = 300      # depth of the scaling rows (phase 16(a)'s ENS_ROUNDS)
+MESH_WARMUP_ROUNDS = 5         # a spawned rank's first call (kernels loaded, NCCL set up)
+
+
+def mesh_policy(kind: str, stacked, lanes, shapes=None):
+    """Phase 16(a)'s (``"dense"``) or 16(d)'s (``"sparse"``) policy for the
+    lanes ``lanes`` of ``stacked``: capacity dispatch over their own cores.
+    With ``shapes``, every assignment call appends its scores' shape."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.kernels.assign import make_capacity_assign, make_fused_capacity_assign
+
+    cores = stacked.jobs.cores[torch.tensor(lanes, device=stacked.jobs.cores.device)]
+    fn = (make_capacity_assign if kind == "dense" else make_fused_capacity_assign)(cores)
+
+    def counted(scores, *args):
+        if shapes is not None:
+            shapes.append(tuple(scores.shape))
+        return fn(scores, *args)
+
+    if kind == "dense":
+        return T.with_capacity_assign(T.get_policy("panda_dispatch"), counted)
+    return T.with_fused_assign(T.get_policy("data_locality"), counted)
+
+
+def snapshot_digest(snap: dict) -> dict:
+    """A sha256 of every array of a snapshot, by key."""
+    import hashlib
+
+    import numpy as np
+
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in sorted(snap.items())}
+
+
+def mesh_scaling_rank(mesh, out_dir: str, K: int, rounds: int) -> None:
+    """One rank of a spawned NCCL mesh: phase 16(a)'s configuration with K
+    lanes on this rank's card and the policy of its own lanes; a short
+    warm-up call, a barrier, then ``simulate_many_sharded`` timed.  Writes
+    the wall seconds, the lane-rounds and the gathered result's digest to
+    ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import core as T
+    from repro_torch.core import distributed as D
+
+    device = D.mesh_device(mesh)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    stacked = T.stack_scenarios(ensemble_scenarios(device, K))
+    policy = mesh_policy("dense", stacked, D.lane_block(K, mesh))
+    # the policy holds the block's [b, J] cores: one batched call a round
+    D.simulate_many_sharded(stacked, policy, T.PRNGKey(0), mesh, lane_mode="vmap",
+                            max_rounds=MESH_WARMUP_ROUNDS)
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = D.simulate_many_sharded(stacked, policy, T.PRNGKey(0), mesh, lane_mode="vmap",
+                                  max_rounds=rounds)
+    sync()
+    wall = time.perf_counter() - t0
+    rank = mesh.get_local_rank("data")
+    (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(dict(
+        wall=wall, lane_rounds=int(res.rounds.sum()), device=str(device),
+        digest=snapshot_digest(full_snapshot(res)))))
+
+
+def phase_mesh(device, dense_snap=None, sparse_snap=None) -> dict:
+    """Phase 19: phase 16(a)'s 16 dense lanes (ENS_BUCKET_ROUNDS rounds) and
+    16(d)'s sparse lanes (ENS_SPARSE_ROUNDS) through ``simulate_many_sharded``
+    on a 1-rank NCCL mesh (lane mode ``auto``: ``vmap`` on a card), counters
+    set to 0 just before each run: each equals phase 16's ``simulate_many``
+    run of as many rounds (its snapshot, or recomputed when not given), with
+    one assign (fused) launch a round with work for all lanes.  With more
+    than one card, one spawned rank a card: lane-rounds/s of the 16 dense
+    lanes at 1, 2, ... N ranks over MESH_SCALING_ROUNDS rounds, every rank's
+    gathered result equal to the 1-rank spawn's (by digest), then 64 lanes
+    (16 a card) on N ranks."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import fused_cuda as fused_mod
+    from repro_torch.kernels.assign import ops as assign_ops
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    out = {}
+    key = T.PRNGKey(0)
+    with D.local_mesh("cuda") as mesh:
+        check(D.mesh_device(mesh) == device, f"the 1-rank mesh runs on {D.mesh_device(mesh)}")
+        for kind, want, rounds, kw in (("dense", dense_snap, ENS_BUCKET_ROUNDS, {}),
+                                       ("sparse", sparse_snap, ENS_SPARSE_ROUNDS,
+                                        {"topk": ENGINE_K})):
+            stacked = T.stack_scenarios(ensemble_scenarios(device))
+            if want is None:
+                want = full_snapshot(T.simulate_many(
+                    stacked, mesh_policy(kind, stacked, list(range(ENS_K))), key,
+                    max_rounds=rounds, device=device, **kw))
+            shapes = []
+            policy = mesh_policy(kind, stacked, D.lane_block(ENS_K, mesh), shapes)
+
+            def no_plain_version(*args, **kw):
+                raise SmokeFailure("the mesh path called a plain assignment version on the card")
+
+            plain = assign_ops.fused_assign_ref, assign_ops.assign_ref
+            assign_ops.fused_assign_ref = assign_ops.assign_ref = no_plain_version
+            try:
+                torch.cuda.synchronize()
+                assign_mod.launches = fused_mod.launches = segsum_mod.launches = 0
+                t0 = time.perf_counter()
+                res = D.simulate_many_sharded(stacked, policy, key, mesh, max_rounds=rounds,
+                                              **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {"assign": assign_mod.launches, "fused_assign": fused_mod.launches,
+                            "segment_sum": segsum_mod.launches}
+            finally:
+                assign_ops.fused_assign_ref, assign_ops.assign_ref = plain
+            name = "assign" if kind == "dense" else "fused_assign"
+            other = "fused_assign" if kind == "dense" else "assign"
+            check(launches[name] > 0 and launches[name] == len(shapes),
+                  f"mesh {kind}: {launches[name]} {name} launches, {len(shapes)} rounds with work")
+            check(launches[other] == 0, f"mesh {kind}: launched the {other} kernel")
+            check(all(sh[0] == ENS_K for sh in shapes),
+                  f"mesh {kind}: the kernel was not called once for all {ENS_K} lanes")
+            bad = mismatches(want, full_snapshot(res))
+            check(not bad, f"mesh {kind}: the 1-rank mesh differs from phase 16's lanes: {bad}")
+            lane_rounds = int(res.rounds.sum())
+            print(f"[mesh] {kind}: {ENS_K} lanes over a 1-rank NCCL mesh, {rounds} rounds, "
+                  f"equal to phase 16's simulate_many lanes bit for bit; launches "
+                  f"{json.dumps(launches)} ({len(shapes)} rounds with work); "
+                  f"{lane_rounds / wall:.2f} lane-rounds/s")
+            out[kind] = dict(launches, rounds=rounds, rate=lane_rounds / wall)
+            del res, stacked
+            torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[mesh] {n_cards} card: the scaling rows (one rank a card) need two or more")
+        return out
+    want, rows = None, []
+    for K, ranks in [(MESH_SCALING_LANES[0], n) for n in range(1, n_cards + 1)] + [
+            (MESH_SCALING_LANES[1], n_cards)]:
+        rounds = MESH_SCALING_ROUNDS
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            t0 = time.perf_counter()
+            D.run_ranks(mesh_scaling_rank, ranks, (tmp, K, rounds), device_type="cuda")
+            spawn_s = time.perf_counter() - t0
+            reports = [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
+                       for r in range(ranks)]
+        wall = max(r["wall"] for r in reports)
+        rate = reports[0]["lane_rounds"] / wall
+        if K == ENS_K:
+            want = want or reports[0]["digest"]   # the 1-rank spawn's
+            for r, rep in enumerate(reports):
+                bad = [k for k in want if rep["digest"].get(k) != want[k]]
+                check(not bad, f"mesh: rank {r} of {ranks} differs from the 1-rank run in {bad}")
+        rows.append(dict(lanes=K, ranks=ranks, rounds=rounds, lane_rounds_per_s=rate,
+                         wall=wall, spawn_s=spawn_s))
+        print(f"[mesh] {K} lanes over {ranks} ranks (one a card, NCCL), {rounds} rounds: "
+              f"{rate:.2f} lane-rounds/s ({wall:.2f}s, the slowest rank; {spawn_s:.1f}s with "
+              f"the processes' start)" + (", every rank's result = the 1-rank run"
+                                          if K == ENS_K else ""))
+    out["scaling"] = rows
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 20: the encoder-decoder (whisper) and VLM (internvl2) families
+# --------------------------------------------------------------------------
+
+WHISPER_PROMPT, WHISPER_NEW = 32, 32   # decoder prompt and new tokens a 1500-frame utterance
+VLM_LAYERS = 48                        # internvl2-26b at full depth (39.8 GB of bf16 weights)
+ENCDEC_CPU_CHECK_LAYERS = {"whisper-small": 2, "internvl2-26b": 1}
+VLM_CPU_CHECK_PATCHES = 8              # patches spliced in the card = CPU check's 16-token prompts
+
+
+def frontend_stub(cfg, batch: int, device, seed: int, patches: int | None = None) -> dict:
+    """The stub frontends' output, seeded standard normal in the model's
+    dtype: whisper's ``frames [B, n_frames, d]``, internvl2's
+    ``patch_embeds [B, P, d]``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        name, rows = "frames", cfg.n_frames
+    else:
+        name, rows = "patch_embeds", cfg.n_patches if patches is None else patches
+    x = rng.standard_normal((batch, rows, cfg.d_model), dtype=np.float32)
+    return {name: torch.from_numpy(x).to(device=device, dtype=getattr(torch, cfg.dtype))}
+
+
+def phase_serve_encdec_vlm(device) -> dict:
+    """Phase 20: whisper-small (12 + 12 layers, 4 utterances of 1500 frames,
+    32-token prompts) and internvl2-26b (VLM_LAYERS layers, 4 prompts of
+    4096 tokens with 256 patches) served greedy then sampled, counters set
+    to 0 just before the greedy run; the flash kernel at each new attention
+    shape against its plain version; sampled tokens card = CPU at a cut
+    depth."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    B = FAMILY_BATCH
+    out = {"launches": {}, "flash": {}}
+    torch.cuda.empty_cache()
+
+    cfg = get_config("whisper-small")
+    L = cfg.n_dec_layers
+    model, params, batch, stats = serve_family(
+        device, cfg, batch=B, prompt=WHISPER_PROMPT, new=WHISPER_NEW,
+        extra=frontend_stub(cfg, B, device, 0))
+    check(stats["flash_prefill"] == cfg.n_enc_layers + 2 * L and stats["flash_decode"] == L
+          and stats["launches"]["assign"] == 0,
+          f"whisper: {stats['flash_prefill']} flash launches a prefill (want encoder "
+          f"{cfg.n_enc_layers} + decoder self {L} + cross {L}), {stats['flash_decode']} a decode "
+          f"step (want {L}: the cross-attention)")
+    frames = [cfg.n_frames * stats[k] / WHISPER_PROMPT
+              for k in ("prefill_tokens_per_s", "prefill_tokens_per_s_warm")]
+    print(f"[encdec] whisper prefill: {frames[0]:.1f} frames/s encoded with the "
+          f"{WHISPER_PROMPT}-token prompts (warm: {frames[1]:.1f})")
+    stats["prefill_frames_per_s"], stats["prefill_frames_per_s_warm"] = frames
+    out["launches"]["whisper"] = stats
+    del model, params, batch
+    torch.cuda.empty_cache()
+
+    cfg = get_config("internvl2-26b").replace(n_layers=VLM_LAYERS)
+    model, params, batch, stats = serve_family(
+        device, cfg, batch=B, prompt=FAMILY_PROMPT, new=FAMILY_NEW,
+        extra=frontend_stub(cfg, B, device, 0))
+    check(stats["flash_prefill"] == cfg.n_layers and stats["flash_decode"] == 0
+          and stats["launches"]["assign"] == 0,
+          f"internvl2: {stats['flash_prefill']} flash launches a prefill, "
+          f"{stats['flash_decode']} a decode step")
+    out["launches"]["internvl2"] = stats
+    del model, params, batch
+    torch.cuda.empty_cache()
+
+    wcfg = get_config("whisper-small")
+    for name, S, Skv, causal, c in (
+            ("whisper_encoder", wcfg.n_frames, None, False, wcfg),
+            ("whisper_cross_prefill", WHISPER_PROMPT, wcfg.n_frames, False, wcfg),
+            ("whisper_cross_decode", 1, wcfg.n_frames, False, wcfg),
+            ("internvl2", FAMILY_PROMPT, None, True, get_config("internvl2-26b"))):
+        out["flash"][name] = check_family_flash(device, c, B, S, Skv, causal=causal,
+                                                label=name.replace("_", " "))
+
+    for arch, layers in ENCDEC_CPU_CHECK_LAYERS.items():
+        c = get_config(arch)
+        extra = frontend_stub(c, CPU_CHECK_BATCH, "cpu", 1, patches=VLM_CPU_CHECK_PATCHES)
+        sampled_card_vs_cpu(device, arch, layers=layers, extra=extra)
+        torch.cuda.empty_cache()
+    return out
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3808,6 +4131,9 @@ def main() -> int:
     ens_sparse_launches = phase_ensemble_sparse_full_width(device, ENS_SPARSE_ROUNDS,
                                                            sparse_launches["rates"])
     lap("16d")
+    mesh_launches = phase_mesh(device, ens_launches.pop("snapshot"),
+                               ens_sparse_launches.pop("snapshot"))
+    lap("19")
     ens_data_launches = phase_ensemble_data_full_width(device, ENS_DATA_ROUNDS,
                                                        data_launches["rate_b"])
     ens_fault_launches = phase_ensemble_faults_full_width(device, ENS_FAULT_ROUNDS,
@@ -3823,6 +4149,8 @@ def main() -> int:
     lap("8")
     families = phase_serve_families(device)
     lap("18")
+    encdec = phase_serve_encdec_vlm(device)
+    lap("20")
     for name, row in rows.items():
         row["launches"] = (sparse_launches[name] if name == "fused_assign" else
                            serve_launches[name] if name == "flash_attention" else launches[name])
@@ -3849,6 +4177,10 @@ def main() -> int:
                              ("faults", ens_fault_launches)):
             if name in counts:
                 row[f"launches_ensemble_{part}"] = counts[name]
+        # the mesh paths' own counts (phase 19): the 1-rank mesh's dense and sparse lanes
+        for part in ("dense", "sparse"):
+            if name in mesh_launches[part]:
+                row[f"launches_mesh_{part}"] = mesh_launches[part][name]
         # the calibration paths' own counts (phase 17), the backward's passes
         for part, counts in (("fig3", cal_fig3), ("platform", cal_platform),
                              ("wlcg", cal_wlcg)):
@@ -3866,6 +4198,14 @@ def main() -> int:
         name: {"run": st["launches"]["flash_attention"], "prefill": st["flash_prefill"]}
         for name, st in fam.items()}
     rows["flash_attention"]["families"] = families["flash"]
+    # the encoder-decoder and VLM families (phase 20): flash launches a
+    # prefill and a decode step, and the kernel at each new attention shape
+    rows["flash_attention"]["launches_families"].update({
+        name: {"run": st["launches"]["flash_attention"], "prefill": st["flash_prefill"],
+               "decode_step": st["flash_decode"]} for name, st in encdec["launches"].items()})
+    rows["flash_attention"]["families"].update(encdec["flash"])
+    if "scaling" in mesh_launches:
+        rows["assign"]["mesh_scaling"] = mesh_launches["scaling"]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

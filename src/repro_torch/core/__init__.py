@@ -162,6 +162,7 @@ from .workload import (  # noqa: F401
     flaky_grid,
     flaky_sites,
     from_records,
+    lm_job_records,
     lossy_links,
     maintenance_calendar,
     replica_loss_calendar,

@@ -1162,15 +1162,12 @@ def simulate_many(scenarios, policy, rng: torch.Tensor, *, subsystems: tuple = (
                                   subsystems=subsystems, device=device, **kw)
 
 
-def simulate_ensemble(jobs0: JobsState, sites0: SiteState, policy, rng: torch.Tensor, *,
-                      speed_candidates: torch.Tensor, availability=None, workflow=None,
-                      data_policy=None, network=None, replicas=None, transfers=None,
-                      faults=None, subsystems=(), device="cuda", **kw) -> SimResult:
-    """One workload on K per-site speed vectors ``speed_candidates f32[K, S]``
-    (the calibration inner loop): lane ``i`` is ``simulate`` on
-    ``sites0._replace(speed=speed_candidates[i])`` under ``split(rng,
-    K)[i]``.  The subsystem keywords are ``simulate``'s; each state is
-    shared by every lane (copied to each); ``kw`` as for ``simulate_many``."""
+def ensemble_scenario(jobs0: JobsState, sites0: SiteState, speed_candidates: torch.Tensor, *,
+                      availability=None, workflow=None, data_policy=None, network=None,
+                      replicas=None, transfers=None, faults=None, subsystems=()):
+    """``(scenario, subsystems)``: one workload on K per-site speed vectors
+    as a stacked K-lane ``Scenario``, every subsystem state (``simulate``'s
+    keywords) copied to each lane."""
     subs, ext0 = resolve_subsystems(
         availability=availability, workflow=workflow, data_policy=data_policy, network=network,
         replicas=replicas, transfers=transfers, faults=faults, subsystems=subsystems,
@@ -1185,6 +1182,22 @@ def simulate_ensemble(jobs0: JobsState, sites0: SiteState, policy, rng: torch.Te
         sites=_tree_map(lanes, sites0)._replace(speed=speed_candidates.float()),
         ext=_tree_map(lanes, ext0),
     )
+    return scn, subs
+
+
+def simulate_ensemble(jobs0: JobsState, sites0: SiteState, policy, rng: torch.Tensor, *,
+                      speed_candidates: torch.Tensor, availability=None, workflow=None,
+                      data_policy=None, network=None, replicas=None, transfers=None,
+                      faults=None, subsystems=(), device="cuda", **kw) -> SimResult:
+    """One workload on K per-site speed vectors ``speed_candidates f32[K, S]``
+    (the calibration inner loop): lane ``i`` is ``simulate`` on
+    ``sites0._replace(speed=speed_candidates[i])`` under ``split(rng,
+    K)[i]``.  The subsystem keywords are ``simulate``'s; each state is
+    shared by every lane (copied to each); ``kw`` as for ``simulate_many``."""
+    scn, subs = ensemble_scenario(
+        jobs0, sites0, speed_candidates, availability=availability, workflow=workflow,
+        data_policy=data_policy, network=network, replicas=replicas, transfers=transfers,
+        faults=faults, subsystems=subsystems)
     return simulate_many(scn, policy, rng, subsystems=subs, device=device, **kw)
 
 

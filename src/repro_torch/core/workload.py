@@ -301,3 +301,34 @@ def from_records(records, *, capacity: int | None = None, device="cuda") -> Jobs
         capacity=capacity,
         device=device,
     )
+
+
+def lm_job_records(cells: list[dict], *, jobs_per_cell: int = 8, seed: int = 0) -> dict:
+    """Turn roofline-derived (arch x shape) cells into a grid workload: the
+    LM workload layer's link into the simulator (feed the records to
+    ``from_records``).
+
+    Each cell dict carries ``flops`` per step and ``steps`` (default 100),
+    and optionally ``cores`` (8), ``memory_gb`` (16), ``bytes_in`` (else
+    ``bytes``, else 0) and ``bytes_out`` (1e9).  A job's work is its step
+    FLOPs x steps in units of 1e12 FLOP (a speed-10 site does 10 TFLOP/s a
+    core); arrivals are exponential gaps of mean 60 s from ``seed``.
+    Returns a dict of numpy columns, as the JAX package's does."""
+    rng = np.random.default_rng(seed)
+    rows = {k: [] for k in _FIELDS}
+    jid = 0
+    t = 0.0
+    for cell in cells:
+        for _ in range(jobs_per_cell):
+            steps = cell.get("steps", 100)
+            rows["job_id"].append(jid)
+            rows["arrival"].append(t)
+            rows["work"].append(cell["flops"] * steps / 1e12)
+            rows["cores"].append(int(cell.get("cores", 8)))
+            rows["memory"].append(float(cell.get("memory_gb", 16.0)))
+            rows["bytes_in"].append(float(cell.get("bytes_in", cell.get("bytes", 0.0))))
+            rows["bytes_out"].append(float(cell.get("bytes_out", 1e9)))
+            rows["priority"].append(1.0)
+            jid += 1
+            t += float(rng.exponential(60.0))
+    return {k: np.asarray(v) for k, v in rows.items()}

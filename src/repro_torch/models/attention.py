@@ -1,8 +1,11 @@
-"""GQA attention block: full-sequence forward, prefill (cache fill), decode.
+"""GQA attention block: full-sequence forward, prefill (cache fill), decode,
+and the encoder-decoder's bidirectional and cross attention.
 
-Causal prefill and forward attention run the hand-written flash kernel for
-CUDA tensors and the plain ``chunked_attention``/``qblock_attention`` for CPU
-tensors.  Unlike the JAX package, the KV cache is written in place.
+Prefill, forward, encoder and cross attention run the hand-written flash
+kernel for CUDA tensors (``causal=False`` for the encoder and the
+cross-attention, whose Sq may be 1 against Skv frames) and the plain
+``chunked_attention``/``qblock_attention`` for CPU tensors.  Unlike the JAX
+package, the KV cache is written in place.
 """
 from __future__ import annotations
 
@@ -55,6 +58,13 @@ def _causal_attn(q, k, v, cfg: ModelConfig):
     return chunked_attention(q, k, v, causal=True, window=cfg.window, chunk=cfg.attn_chunk)
 
 
+def _full_attn(q, k, v, cfg: ModelConfig):
+    """Attention without a mask: every query sees every key."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, causal=False)
+    return chunked_attention(q, k, v, causal=False, window=0, chunk=cfg.attn_chunk)
+
+
 def _merge_heads(o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     B, _, S, _ = o.shape
     return o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.d_head)
@@ -70,6 +80,34 @@ def attention_train(p, x: torch.Tensor, cfg: ModelConfig, *, positions=None,
         q = apply_rope(q, pos, theta=cfg.rope_theta)
         k = apply_rope(k, pos, theta=cfg.rope_theta)
     return _merge_heads(_causal_attn(q, k, v, cfg), cfg) @ p["wo"]
+
+
+def attention_bidir(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Encoder self-attention (whisper encoder): no mask, no rope."""
+    q, k, v = _project_qkv(p, x, cfg)
+    return _merge_heads(_full_attn(q, k, v, cfg), cfg) @ p["wo"]
+
+
+def cross_attention(p, x: torch.Tensor, kv, cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (a ``[B, Hkv, T,
+    dh]`` pair), no mask: x [B, S, d] with S the prompt or one decode token."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.view(B, S, cfg.n_heads, cfg.d_head).transpose(1, 2)
+    k, v = kv
+    return _merge_heads(_full_attn(q, k, v, cfg), cfg) @ p["wo"]
+
+
+def encode_cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The encoder states' cross-attention K/V, each ``[B, Hkv, T, dh]``."""
+    B, T, _ = enc_out.shape
+    k, v = enc_out @ p["wk"], enc_out @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.view(B, T, cfg.n_kv_heads, cfg.d_head).transpose(1, 2),
+            v.view(B, T, cfg.n_kv_heads, cfg.d_head).transpose(1, 2))
 
 
 # ------------------------------------------------------------- serving -----

@@ -1,8 +1,10 @@
 """Weights carried across from the JAX package.
 
-``lm_params_from_numpy`` takes the pytree of ``repro.models`` ``init`` as
-numpy arrays (``jax.tree.map(np.asarray, params)``) and builds the port's
-``LM`` module from it, so both implementations run the same weights.
+``lm_params_from_numpy`` (decoder-only families, the VLM included) and
+``encdec_params_from_numpy`` take the pytree of ``repro.models`` ``init`` as
+numpy arrays (``jax.tree.map(np.asarray, params)``) and build the port's
+``LM`` or ``EncDec`` module from it, so both implementations run the same
+weights.  ``params_from_numpy`` picks by the config's family.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from torch import nn
 
 from ..core.types import resolve_device
 from .config import ModelConfig
+from .encdec import EncDec
 from .transformer import LM, Block, plan_segments
 
 
@@ -48,3 +51,27 @@ def lm_params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> LM:
               for ki, kind in enumerate(seg.pattern)]
     head = None if cfg.tie_embeddings else _param(tree["lm_head"], device)
     return LM(_param(tree["embed"], device), layers, _param(tree["final_norm"], device), head)
+
+
+def encdec_params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> EncDec:
+    """The JAX encoder-decoder pytree (numpy leaves) as the port's
+    ``EncDec``: the stacked ``enc``/``dec`` layer axes become the layers of
+    two ``nn.ModuleList``s."""
+    device = resolve_device(device)
+
+    def norm(p) -> nn.ParameterDict:
+        return nn.ParameterDict({k: _param(v, device) for k, v in p.items()})
+
+    return EncDec(
+        _param(tree["embed"], device), _param(tree["pos_dec"], device),
+        [_block(tree["enc"], "enc", r, device) for r in range(cfg.n_enc_layers)],
+        [_block(tree["dec"], "dec", r, device) for r in range(cfg.n_dec_layers)],
+        norm(tree["enc_norm"]), norm(tree["dec_norm"]))
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda"):
+    """``encdec_params_from_numpy`` for the encoder-decoder, else
+    ``lm_params_from_numpy``."""
+    if cfg.family == "encdec":
+        return encdec_params_from_numpy(tree, cfg, device)
+    return lm_params_from_numpy(tree, cfg, device)

@@ -1,4 +1,4 @@
-"""Shared primitive layers: norms, rotary embeddings, linear init.
+"""Shared primitive layers: norms (RMS and layer), rotary embeddings, linear init.
 
 Weights keep the JAX package's layout (``x @ w`` with ``w [d_in, d_out]``),
 so they carry across unchanged.  Initial weights are drawn from an explicit
@@ -28,6 +28,16 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5) -> torch.Ten
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 with weight and bias, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:

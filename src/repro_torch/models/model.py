@@ -1,4 +1,4 @@
-"""Model facade: one API over the ported architecture families.
+"""Model facade: one API over every architecture family.
 
     m = build_model(cfg)                 # device="cuda" unless told otherwise
     params = m.init(seed)
@@ -7,9 +7,10 @@
     logits, cache = m.prefill(params, batch, cache)
     logits, cache = m.decode(params, token, cache)
 
-``batch`` is a dict holding ``tokens [B, S]``.  The port serves the dense,
-MoE, SSM and hybrid families; the encoder-decoder (whisper) and VLM
-families raise ``NotImplementedError``.
+``batch`` is a dict: ``tokens [B, S]`` always; ``frames [B, T, d]`` for the
+encoder-decoder (the audio stub's frame embeddings, T = ``cfg.n_frames``);
+``patch_embeds [B, P, d]`` for the VLM (the vision stub's output, spliced
+over the first P positions; optional).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Callable, NamedTuple
 from torch import nn
 
 from ..core.types import resolve_device
-from . import transformer
+from . import encdec, transformer
 from .config import ModelConfig
 
 
@@ -32,14 +33,24 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    transformer.plan_segments(cfg)  # raises for the families not ported yet
     device = resolve_device(device)
+    if cfg.family == "encdec":
+        return Model(
+            cfg=cfg,
+            init=lambda rng: encdec.init_params(rng, cfg, device),
+            forward=lambda p, b: encdec.forward(p, cfg, b["tokens"], b["frames"]),
+            init_cache=lambda bs, ml: encdec.init_cache(cfg, bs, ml, device),
+            prefill=lambda p, b, c: encdec.prefill(p, cfg, b["tokens"], c, b["frames"]),
+            decode=lambda p, tok, c: encdec.decode_step(p, cfg, tok, c),
+        )
+    transformer.plan_segments(cfg)  # raises for an unknown family
     return Model(
         cfg=cfg,
         init=lambda rng: transformer.init_params(rng, cfg, device),
-        forward=lambda p, b: transformer.forward(p, cfg, b["tokens"]),
+        forward=lambda p, b: transformer.forward(p, cfg, b["tokens"], b.get("patch_embeds")),
         init_cache=lambda bs, ml: transformer.init_cache(cfg, bs, ml, device),
-        prefill=lambda p, b, c: transformer.prefill(p, cfg, b["tokens"], c),
+        prefill=lambda p, b, c: transformer.prefill(p, cfg, b["tokens"], c,
+                                                    b.get("patch_embeds")),
         decode=lambda p, tok, c: transformer.decode_step(p, cfg, tok, c),
     )
 

@@ -1,4 +1,6 @@
-"""Decoder-only LM stack: the dense, MoE, SSM and hybrid families.
+"""Decoder-only LM stack: the dense, MoE, SSM, hybrid and VLM families (the
+VLM backbone is the dense stack, with patch embeddings spliced over the
+first token positions).
 
 Layers are organised in *segments*, as in the JAX package: a block pattern
 (e.g. ``("rec", "rec", "att")``) repeated ``repeats`` times.  The JAX package
@@ -39,7 +41,7 @@ class Segment(NamedTuple):
 
 
 def plan_segments(cfg: ModelConfig) -> list[Segment]:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return [Segment(("att",), cfg.n_layers)]
     if cfg.family == "moe":
         return [Segment(("moe",), cfg.n_layers)]
@@ -49,9 +51,8 @@ def plan_segments(cfg: ModelConfig) -> list[Segment]:
         pat = tuple(cfg.block_pattern)
         reps, rem = divmod(cfg.n_layers, len(pat))
         return [Segment(pat, reps)] + ([Segment(pat[:rem], 1)] if rem else [])
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 16); the port "
-        "serves the dense, moe, ssm and hybrid families")
+    raise ValueError(f"family {cfg.family!r} has no decoder-only stack (the encoder-decoder "
+                     "runs in models/encdec.py)")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -192,8 +193,15 @@ def init_params(rng, cfg: ModelConfig, device="cuda") -> LM:
     )
 
 
-def _embed(params: LM, tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens]
+def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+           patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings; a VLM's ``patch_embeds [B, P, d]`` (the vision
+    stub's output) replace the first P positions."""
+    x = params.embed[tokens]
+    if cfg.family == "vlm" and patch_embeds is not None:
+        P = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, P:]], dim=1)
+    return x
 
 
 def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -201,11 +209,12 @@ def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return (x @ head.T).float()
 
 
-def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor):
+def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+            patch_embeds: torch.Tensor | None = None):
     """Teacher-forced full-sequence forward -> (logits f32[B,S,V], aux).
     ``aux`` holds the MoE losses summed over the layers, zero without MoE
     layers."""
-    x = _embed(params, tokens)
+    x = _embed(params, cfg, tokens, patch_embeds)
     aux = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
     for layer in params.layers:
         x, layer_aux = block_train(layer, x, cfg)
@@ -255,9 +264,11 @@ def _layer_caches(cfg: ModelConfig, cache: dict) -> list[dict]:
 
 
 @torch.no_grad()
-def prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor, cache: dict):
-    """Consume the prompt, fill the cache, return last-position logits."""
-    x = _embed(params, tokens)
+def prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
+            patch_embeds: torch.Tensor | None = None):
+    """Consume the prompt (a VLM's patches spliced over its first
+    positions), fill the cache, return last-position logits."""
+    x = _embed(params, cfg, tokens, patch_embeds)
     for layer, layer_cache in zip(params.layers, _layer_caches(cfg, cache)):
         x, _ = block_prefill(layer, x, cfg, layer_cache, 0)
     x = rmsnorm(x, params.final_norm, eps=cfg.norm_eps)
@@ -268,7 +279,7 @@ def prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor, cache: dict):
 @torch.no_grad()
 def decode_step(params: LM, cfg: ModelConfig, token: torch.Tensor, cache: dict):
     """token i32[B, 1] -> (logits f32[B, 1, V], the cache updated in place)."""
-    x = _embed(params, token)
+    x = _embed(params, cfg, token)
     kv_len = cache["len"]
     for layer, layer_cache in zip(params.layers, _layer_caches(cfg, cache)):
         x, _ = block_decode(layer, x, cfg, layer_cache, kv_len)

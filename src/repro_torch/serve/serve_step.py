@@ -10,7 +10,8 @@ from ..models.model import Model
 
 def make_prefill_step(model: Model):
     def prefill_step(params, batch, cache):
-        """batch tokens [B, S_prompt] -> (next-token logits [B,1,V], cache)."""
+        """batch tokens [B, S_prompt] (and the encoder-decoder's ``frames`` or a
+        VLM's ``patch_embeds``) -> (next-token logits [B,1,V], cache)."""
         return model.prefill(params, batch, cache)
 
     return prefill_step

@@ -17,6 +17,7 @@ from repro.kernels.assign.assign import assign_pallas  # noqa: E402
 from repro.kernels.assign.ops import make_capacity_assign as jax_make_capacity_assign  # noqa: E402
 from repro.kernels.assign.ref import assign_ref as jax_assign_ref  # noqa: E402
 from repro_torch.kernels.assign import assign, assign_ref, make_capacity_assign  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 ASSIGN_CASES = [
     # (N, E, k, block_n)

@@ -38,6 +38,7 @@ from repro_torch.core.convert import (  # noqa: E402
     platform_problem_from_numpy,
 )
 from repro_torch.core.scan import exp_f32, log1p_f32, log_f32  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 RTOL = 1e-6   # geomean and mape: XLA's reduction order on most shapes only
 

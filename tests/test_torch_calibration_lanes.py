@@ -5,7 +5,8 @@
 and ``repro``'s ``make_population_objective`` on the same z, plainly and
 with availability and the data subsystem, as ``tests/test_calibration_lanes.py``
 holds the JAX package's.  ``distributed.simulate_population(mesh=None)`` is
-``simulate_many``; a mesh raises.
+``simulate_many``, and a mesh (1 rank in process, 2 spawned ranks for
+``calibrate_platform``) gives the same lanes.
 
 Exact: every lane's loss against the port's solo run; against ``repro``
 rtol 1e-6 (the mape's sum).  The problems are ``repro``'s, carried across.
@@ -21,9 +22,11 @@ import repro.core.calibration as RC  # noqa: E402
 from repro.core.availability import make_availability as jax_make_availability  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 import repro_torch.core.calibration as TC  # noqa: E402
-from repro_torch.core.distributed import simulate_population  # noqa: E402
+from repro_torch.core.distributed import run_ranks, simulate_population  # noqa: E402
 
 from test_torch_calibration import carry_platform  # noqa: E402
+import torch_mesh_ranks as M  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 ROUNDS = 6000
 
@@ -107,7 +110,11 @@ def test_closed_form_population_equals_scalar_objective(data_problem):
     assert bt.trace_count() == 1   # one call; the solo calls do not go through it
 
 
-def test_simulate_population_is_simulate_many_and_refuses_a_mesh():
+def test_simulate_population_is_simulate_many_and_refuses_a_mesh(tmp_path):
+    """``simulate_population`` and the engine population objective give the
+    same lanes with ``mesh=None`` (``simulate_many``) and on a 1-rank gloo
+    mesh (``simulate_many_sharded``).  (A mesh was refused before the port
+    had one; the name is kept.)"""
     sites = T.atlas_like_platform(4, seed=1, device="cpu")
     scens = [T.Scenario(T.synthetic_panda_jobs(30 + 5 * i, seed=i, duration=600.0, device="cpu"),
                         sites._replace(speed=sites.speed * (0.8 + 0.1 * i))) for i in range(3)]
@@ -117,10 +124,33 @@ def test_simulate_population_is_simulate_many_and_refuses_a_mesh():
     for f in a.jobs._fields:
         assert torch.equal(getattr(a.jobs, f), getattr(b.jobs, f)), f
     assert torch.equal(a.rounds, b.rounds)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        simulate_population(scens, policy, T.PRNGKey(3), mesh=object(), device="cpu")
-    rp, _ = RC.make_synthetic_platform_problem(n_jobs=20, n_sites=3, seed=2, trace="closed_form",
-                                               wan_frac=0.0)
-    bt = TC.make_population_objective(carry_platform(rp), objective="engine", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        bt(bt.z0[None])
+    rp, _ = RC.make_synthetic_platform_problem(n_jobs=20, n_sites=3, seed=2, trace="engine",
+                                               wan_frac=0.5)
+    tp = carry_platform(rp)
+    bt = TC.make_population_objective(tp, objective="engine", max_rounds=ROUNDS)
+    noise = np.random.default_rng(4).standard_normal((3, bt.z0.shape[0])).astype(np.float32)
+    zs = bt.z0[None] + 0.3 * torch.from_numpy(noise)
+    with M.one_rank_mesh(tmp_path) as mesh:
+        c = simulate_population(scens, policy, T.PRNGKey(3), mesh=mesh, max_rounds=400,
+                                device="cpu")
+        bm = TC.make_population_objective(tp, objective="engine", mesh=mesh, max_rounds=ROUNDS)
+        lanes_mesh = bm(zs, T.PRNGKey(9))
+    assert sorted(M.flat(a)) == sorted(M.flat(c))
+    for k, v in M.flat(a).items():
+        torch.testing.assert_close(M.flat(c)[k], v, rtol=0, atol=0, equal_nan=True, msg=k)
+    assert torch.equal(lanes_mesh, bt(zs, T.PRNGKey(9)))
+
+
+def test_calibrate_platform_over_two_ranks_equals_one_process(tmp_path):
+    """SPSA on the engine objective over a spawned 2-rank gloo mesh: every
+    rank scores the gathered population and takes the one-process steps."""
+    TC_run = TC.calibrate_platform(M.calibration_problem(), **M.CALIBRATE_KW)
+    run_ranks(M.calibrate_rank, 2, (str(tmp_path),), device_type="cpu")
+    want = M.flat(TC_run)
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            torch.testing.assert_close(got[k], v, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"rank {r}: {k}")
+    assert float(TC_run.err) <= float(TC_run.err0)

@@ -25,6 +25,7 @@ import repro_torch.core.network as TN  # noqa: E402
 import repro_torch.core.replicas as TR  # noqa: E402
 from repro_torch.core.rng import PRNGKey  # noqa: E402
 from test_golden_trace import combo_kwargs, matrix_scenario  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 ACCUMULATORS = {"bytes_moved", "disk_used", "site_disk", "site_net_in", "bytes_done",
                 "bytes_enq", "bytes_cancel"}

@@ -18,6 +18,7 @@ from repro.core.policies import with_capacity_assign as jax_with_capacity_assign
 from repro.kernels.assign.ops import make_capacity_assign as jax_make_capacity_assign  # noqa: E402
 from repro_torch.core.rng import PRNGKey  # noqa: E402
 from repro_torch.kernels.assign import make_capacity_assign  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 JOB_FIELDS = ("state", "site", "retries", "will_fail", "t_assign", "t_start", "t_finish")
 SITE_FIELDS = ("free_cores", "free_memory", "n_assigned", "n_finished", "n_failed")

@@ -28,6 +28,7 @@ from repro.kernels.assign.ops import make_capacity_assign as jax_make_capacity_a
 from repro_torch.core.rng import PRNGKey, split  # noqa: E402
 from repro_torch.kernels.assign import assign_ref, make_capacity_assign  # noqa: E402
 from repro_torch.kernels.segment_sum import segment_sum  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 
 def _np_state(state):

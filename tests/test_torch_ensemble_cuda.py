@@ -230,3 +230,27 @@ def test_data_transfer_fault_lanes_equal_solo_runs_on_the_card(cuda_device):
     for i, s in enumerate(scens):
         solo = T.simulate(s.jobs, s.sites, pol, keys[i], log_rows=32, device=dev, **solo_kw[i])
         _assert_lane_is_solo(res, i, solo)
+
+
+@pytest.mark.cuda
+def test_lanes_over_two_cards_equal_one_card(cuda_device, tmp_path):
+    """``simulate_many_sharded`` over a spawned 2-rank NCCL mesh, one card a
+    rank, each rank with capacity dispatch for its own lanes: every rank's
+    gathered result equals one ``simulate_many`` of all lanes on cuda:0
+    (K = 3 pads rank 1's block with a repeat of lane 2)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import torch_mesh_ranks as M
+    from repro_torch.core.distributed import run_ranks
+
+    K = 3
+    run_ranks(M.card_lanes_rank, 2, (str(tmp_path), K), device_type="cuda")
+    stacked = T.stack_scenarios(M.card_lanes(K, cuda_device))
+    want = M.flat(T.simulate_many(stacked, M.card_policy(stacked, list(range(K))),
+                                  T.PRNGKey(3), max_rounds=300, device=cuda_device))
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            torch.testing.assert_close(got[k], v.cpu(), rtol=0, atol=0, equal_nan=True,
+                                       msg=f"rank {r}: {k}")

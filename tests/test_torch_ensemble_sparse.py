@@ -30,6 +30,7 @@ from repro_torch.kernels.assign import (  # noqa: E402
 )
 from test_torch_ensemble import _assert_same, _flat, _lane, ragged  # noqa: E402
 from test_torch_fused_assign import _random_case  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 SIZES = [30, 41, 36]
 

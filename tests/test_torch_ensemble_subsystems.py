@@ -27,6 +27,7 @@ from test_ensemble_lanes import combo_scenarios  # noqa: E402
 from test_faults import quint_scenarios  # noqa: E402
 from test_torch_ensemble import _flat, _lane  # noqa: E402
 from test_transfers import quad_scenarios  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 ACCUMULATORS = {"bytes_moved", "disk_used", "site_disk", "site_net_in", "net_acc",
                 "bytes_done", "bytes_enq", "bytes_cancel", "time_lost"}

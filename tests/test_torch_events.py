@@ -22,6 +22,7 @@ import repro_torch.core.events as TE  # noqa: E402
 import repro_torch.core.monitor as TM  # noqa: E402
 from repro_torch.core.rng import PRNGKey  # noqa: E402
 from test_golden_trace import combo_kwargs, matrix_scenario  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 SITE_NAMES = ["CERN-PROD", "BNL-ATLAS", "TRIUMF", "RAL"]
 

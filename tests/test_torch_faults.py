@@ -40,6 +40,7 @@ import repro_torch.core.transfers as TT  # noqa: E402
 from repro_torch.core.rng import PRNGKey  # noqa: E402
 from test_golden_trace import combo_kwargs, matrix_scenario  # noqa: E402
 from test_torch_data import _check_group, _np_state, _pols, _port_kw, assert_same_run  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 FAULT_ACCUMULATORS = {"time_lost", "bytes_cancel", "disk_used"}
 SITE_NAMES = ["CERN-PROD", "BNL-ATLAS", "TRIUMF", "RAL"]

@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     qblock_attention,
 )
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 FLASH_CASES = [
     # (B, Hq, Hkv, S, D, window, dtype): tests/test_kernels.py's FLASH_CASES

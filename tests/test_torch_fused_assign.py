@@ -21,6 +21,7 @@ from repro_torch.kernels.assign import (  # noqa: E402
     fused_assign_ref,
     fused_topk_assign,
 )
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 CASES = [
     # (N, E, K, block_n)

@@ -412,6 +412,12 @@ FLASH_CASES = [
     (2, 4, 2, 200, 200, 128, False, 0, torch.bfloat16),
     (1, 4, 2, 1000, 1000, 64, True, 0, torch.bfloat16),
     (1, 4, 1, 700, 900, 64, True, 200, torch.bfloat16),
+    # whisper-small at D = 64 on the wgmma path, no causality, 1500 frames (not
+    # a multiple of the key tile): the encoder, and the cross-attention of a
+    # 32-token prompt and of one decode token
+    (1, 12, 12, 1500, 1500, 64, False, 0, torch.bfloat16),
+    (1, 12, 12, 32, 1500, 64, False, 0, torch.bfloat16),
+    (1, 12, 12, 1, 1500, 64, False, 0, torch.bfloat16),
 ]
 
 

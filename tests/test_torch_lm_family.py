@@ -43,6 +43,15 @@ def free_jax_executables():
     gc.collect()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def clear_jax_caches_per_module():
+    """``free_jax_executables`` once a module, for the port's other test
+    modules that call JAX (each imports it by name): drop the programs JAX
+    compiled for the module when it ends (ROADMAP Queue 3 E)."""
+    yield
+    jax.clear_caches()
+
+
 def tokens(cfg, seed=3, length=S):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, length)).astype(np.int32)
 

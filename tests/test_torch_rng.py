@@ -7,6 +7,7 @@ import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro_torch.core import rng  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 SEEDS = [0, 1, 42, 2**31 - 1, -5]
 

@@ -9,6 +9,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core.scan import cumsum_f32, fma_f32, segment_sum_f32  # noqa: E402
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 
 @pytest.mark.parametrize("n", [1, 16, 17, 60, 4097, 100_000])

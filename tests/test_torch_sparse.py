@@ -22,6 +22,7 @@ from repro.kernels.assign.ops import (  # noqa: E402
 from repro_torch.core.rng import PRNGKey  # noqa: E402
 from repro_torch.kernels.assign import make_capacity_assign, make_fused_capacity_assign  # noqa: E402
 from test_torch_engine import _assert_same_run, _np_state, _run_both, _scenario  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 
 def _to_torch(jobs, sites):

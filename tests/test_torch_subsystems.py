@@ -31,6 +31,7 @@ from repro_torch.core.engine import _site_sum as torch_site_sum  # noqa: E402
 from repro_torch.core.rng import PRNGKey  # noqa: E402
 from repro_torch.kernels.assign import make_capacity_assign  # noqa: E402
 from test_golden_trace import combo_kwargs, matrix_scenario  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 JOB_FIELDS = ("state", "site", "retries", "will_fail", "t_assign", "t_start", "t_finish",
               "preempted")

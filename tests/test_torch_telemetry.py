@@ -34,6 +34,7 @@ from repro_torch.core.rng import PRNGKey  # noqa: E402
 from test_golden_trace import combo_kwargs, matrix_scenario  # noqa: E402
 from test_torch_data import _check_group, _np_state  # noqa: E402
 from test_torch_faults import _run, _to_port, assert_same_faults  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SITE_NAMES = ["CERN-PROD", "BNL-ATLAS", "TRIUMF", "RAL"]

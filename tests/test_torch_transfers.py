@@ -29,6 +29,7 @@ import repro_torch.core.monitor as TM  # noqa: E402
 import repro_torch.core.transfers as TT  # noqa: E402
 from test_golden_trace import combo_kwargs, matrix_scenario  # noqa: E402
 from test_torch_data import _np_state, _pols, _port_kw, _run_pair, assert_same_run  # noqa: E402
+from test_torch_lm_family import clear_jax_caches_per_module  # noqa: E402, F401
 
 SITE_NAMES = ["CERN-PROD", "BNL-ATLAS", "TRIUMF", "RAL"]
 

@@ -1,0 +1,128 @@
+"""Rank functions for the port's spawned mesh tests (``run_ranks``).
+
+This module imports neither ``jax`` nor ``repro``, so a spawned rank starts
+in the time it takes to import torch and the port.  Each function builds
+its inputs with the port's own functions (every rank the same), runs the
+entry point on its rank of the mesh, and saves every tensor of the result by
+its path to ``<out>/rank<r>.pt``.  The tests compare those files with a
+one-process run.
+"""
+from __future__ import annotations
+
+import pathlib
+
+import torch
+
+import repro_torch.core as T
+import repro_torch.core.calibration as TC
+from repro_torch.core.distributed import (
+    lane_block,
+    local_mesh,
+    mesh_device,
+    simulate_ensemble_distributed,
+    simulate_many_sharded,
+)
+from repro_torch.core.rng import PRNGKey
+
+
+def flat(tree, prefix: str = "") -> dict:
+    """Every tensor leaf of a result by its path (other leaves dropped)."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple) and hasattr(tree, "_asdict"):
+        items = tree._asdict().items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(flat(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def one_rank_mesh(tmp_path):
+    """A 1-rank gloo ``"cpu"`` mesh named ``("data",)`` in this process
+    (``file://`` rendezvous in ``tmp_path``), destroyed on exit."""
+    return local_mesh("cpu", init_method=f"file://{tmp_path}/rendezvous")
+
+
+def ragged_lanes(K: int, n_sites: int = 4):
+    """K ragged lanes: sites at speed x (0.8 + 0.1 i), 30 + 7 i jobs."""
+    sites = T.atlas_like_platform(n_sites, seed=1, device="cpu")
+    return [T.Scenario(T.synthetic_panda_jobs(30 + 7 * i, seed=20 + i, duration=600.0,
+                                              device="cpu"),
+                       sites._replace(speed=sites.speed * (0.8 + 0.1 * i)))
+            for i in range(K)]
+
+
+def _save(mesh, out, tree) -> None:
+    rank = mesh.get_local_rank("data")
+    torch.save({k: v.cpu() for k, v in flat(tree).items()},
+               pathlib.Path(out) / f"rank{rank}.pt")
+
+
+def lanes_rank(mesh, out: str, K: int, lane_mode: str, seed: int) -> None:
+    res = simulate_many_sharded(ragged_lanes(K), T.get_policy("panda_dispatch"),
+                                PRNGKey(seed), mesh, lane_mode=lane_mode, log_rows=8)
+    _save(mesh, out, res)
+
+
+def calibration_problem():
+    """A 60-job, 3-site engine-trace problem over speeds and WAN links."""
+    problem, _ = TC.make_synthetic_platform_problem(60, 3, seed=2, include=("speed", "bw"),
+                                                    trace="engine", device="cpu")
+    return problem
+
+
+CALIBRATE_KW = dict(method="spsa", objective="engine", include=("speed", "bw"), n_iters=3,
+                    seed=1, max_rounds=400, spsa_dirs=2)
+
+
+def calibrate_rank(mesh, out: str) -> None:
+    fit = TC.calibrate_platform(calibration_problem(), mesh=mesh, **CALIBRATE_KW)
+    _save(mesh, out, fit)
+
+
+def failing_rank(mesh, out: str) -> None:
+    """Rank 1's block raises (its lanes carry a wrong subsystem tuple); the
+    other ranks must raise too rather than wait."""
+    scen = ragged_lanes(4)
+    subs = (T.availability_subsystem(),) if mesh.get_local_rank("data") == 1 else ()
+    simulate_many_sharded(scen, T.get_policy("panda_dispatch"), PRNGKey(0), mesh,
+                          subsystems=subs)
+
+
+def uneven_ensemble_rank(mesh, out: str) -> None:
+    """Three speed candidates over the mesh: raises on two ranks."""
+    sites = T.atlas_like_platform(4, seed=1, device="cpu")
+    jobs = T.synthetic_panda_jobs(20, seed=0, duration=600.0, device="cpu")
+    simulate_ensemble_distributed(jobs, sites, T.get_policy("panda_dispatch"), PRNGKey(0),
+                                  sites.speed[None].repeat(3, 1), mesh)
+
+
+def card_lanes_rank(mesh, out: str, K: int) -> None:
+    """K lanes at S = 50 on this rank's card, ``panda_dispatch`` with
+    capacity dispatch for this rank's lanes (its own policy)."""
+    dev = mesh_device(mesh)
+    stacked = T.stack_scenarios(card_lanes(K, dev))
+    _save(mesh, out, simulate_many_sharded(stacked, card_policy(stacked, lane_block(K, mesh)),
+                                           PRNGKey(3), mesh, max_rounds=300))
+
+
+def card_lanes(K: int, device):
+    sites = T.atlas_like_platform(50, seed=1, fail_rate=0.02, device=device)
+    return [T.Scenario(T.synthetic_panda_jobs(300 + 60 * i, seed=10 + i, duration=3600.0,
+                                              device=device),
+                       sites._replace(speed=sites.speed * (0.7 + 0.1 * i)))
+            for i in range(K)]
+
+
+def card_policy(stacked, lanes):
+    """Capacity dispatch over the cores of ``lanes`` of ``stacked``."""
+    from repro_torch.kernels.assign import make_capacity_assign
+
+    cores = stacked.jobs.cores[torch.tensor(lanes, device=stacked.jobs.cores.device)]
+    return T.with_capacity_assign(T.get_policy("panda_dispatch"), make_capacity_assign(cores))
