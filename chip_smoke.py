@@ -222,6 +222,27 @@ check does not hold:
    causal; then a sampled ``generate`` card = CPU at full width, depth cut
    to ENCDEC_CPU_CHECK_LAYERS (internvl2 with 8 patches in 16-token prompts).
 
+21. training (run after phase 20): (a) granite-moe-1b-a400m at full width and
+   depth, bf16, seed-0 weights, ``make_train_step`` on ``TokenPipeline``
+   batches of 8 x 4096 tokens in 2 microbatches with remat and AdamW
+   (warmup cut to 1 step), 6 steps, the counters set to 0 just before:
+   tokens/s of steps 2-6, the loss each step (it must fall), peak memory,
+   the busy share of one more step, launches a step of the flash forward
+   and backward, assign and gate backward kernels (one backward a layer a
+   microbatch); a second run of 2 steps from seed 0 with the same losses
+   and parameter checksum bit for bit; 2 steps each with 8-bit moments and
+   with int8 gradient compression at TRAIN_VARIANT_LAYERS layers; (b) the
+   flash backward kernel against its plain version (2^-6 of each row's
+   largest gradient) at granite's ``[4, 16, 4096, 64]`` on 8 kv heads,
+   deepseek's ``[1, 32, 4096, 128]``, recurrentgemma's ``[1, 10, 4096,
+   256]`` on 1 (window 2048) and whisper's encoder ``[4, 12, 1500, 64]``
+   (non-causal), timed beside the plain version and SDPA's backward with
+   the same mask; the gate backward (1e-6 of each row's largest) at
+   granite's ``[32, 512, 32]`` and kimi's ``[32, 512, 384]`` routers, k =
+   8; bad inputs raise; (c) every family's smoke config in f32: the loss
+   and every gradient on the card (both backward kernels) against the
+   port on the CPU.
+
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero without
@@ -4064,6 +4085,433 @@ def phase_serve_encdec_vlm(device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 21: training (make_train_step on granite-moe at full width and depth)
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite-moe-1b-a400m"
+# train_4k's sequence length; its 256-sequence global batch cut to 8 for one
+# card, in 2 microbatches of 4 x 4096 tokens
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 8, 2
+TRAIN_STEPS, TRAIN_REPEAT, TRAIN_VARIANT_STEPS = 6, 2, 2
+TRAIN_VARIANT_LAYERS = 4         # depth cut of the 8-bit and compressed runs (24 -> 4)
+TRAIN_OPT = dict(warmup_steps=1)   # AdamW's defaults, warmup cut to 1 step for a 6-step run
+FLASH_BWD_KERNELS = ("flash_bwd_preprocess_kernel", "flash_bwd_dkdv_kernel",
+                     "flash_bwd_dq_kernel")
+FLASH_BWD_CASES = [  # (label, B, Hq, Hkv, S, Skv, D, causal, window): each family's training attention
+    ("granite", 4, 16, 8, 4096, 4096, 64, True, 0),
+    ("deepseek", 1, 32, 32, 4096, 4096, 128, True, 0),
+    ("recurrentgemma", 1, 10, 1, 4096, 4096, 256, True, 2048),
+    ("whisper_encoder", 4, 12, 12, 1500, 1500, 64, False, 0),
+]
+GATE_BWD_CASES = [("granite", 32, 512, 32, 8), ("kimi", 32, 512, 384, 8)]  # (label, G, T, E, k)
+TRAIN_FAMILIES = ["deepseek-7b", "granite-moe-1b-a400m", "kimi-k2-1t-a32b", "mamba2-130m",
+                  "recurrentgemma-2b", "whisper-small", "internvl2-26b"]
+
+
+def row_error(got, want) -> float:
+    """The largest error of a row over that row's largest magnitude (at least
+    1e-2 of the tensor's largest: a row whose gradient is zero in exact
+    arithmetic, such as the first causal row's dq, holds rounding only)."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    scale = want.abs().amax(-1).clamp_min(1e-2 * float(want.abs().max()) + 1e-30)
+    return float(((got - want).abs().amax(-1) / scale).max())
+
+
+def phase_flash_backward(device) -> dict:
+    """Phase 21(b), flash: the backward kernel against its plain version at
+    each family's training attention, timed beside the plain version and
+    SDPA's backward with the same mask; bad inputs raise."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention_bwd_cuda import (
+        flash_attention_backward_cuda,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+
+    out = {}
+    for label, B, Hq, Hkv, S, Skv, D, causal, window in FLASH_BWD_CASES:
+        q, k, v = flash_inputs(B, Hq, Hkv, S, Skv, D, "bfloat16", S + D, device)
+        do = torch.from_numpy(np.random.default_rng(S + D + 1).standard_normal(
+            tuple(q.shape), dtype=np.float32)).to(device=device, dtype=q.dtype)
+        o = attention_ref(q, k, v, causal=causal, window=window)
+        got = flash_attention_backward_cuda(q, k, v, o, do, causal=causal, window=window)
+        again = flash_attention_backward_cuda(q, k, v, o, do, causal=causal, window=window)
+        want = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+        torch.cuda.synchronize()
+        errs = {n: row_error(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash backward {label}: two calls differ")
+        check(max(errs.values()) <= 2.0 ** -6, f"flash backward {label}: row errors "
+                                               f"{json.dumps(errs)} above 2^-6")
+        del want, again
+        call = lambda: flash_attention_backward_cuda(q, k, v, o, do, causal=causal,  # noqa: E731
+                                                     window=window)
+        call_ms = cuda_ms(call, iters=5)
+        parts = device_ms(call, FLASH_BWD_KERNELS, iters=3, call_ms=call_ms, per_call=1)
+        dev_ms = sum(parts.values())
+        plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                                     window=window), iters=2, warmup=1)
+        mask = None
+        if window > 0:
+            pos = torch.arange(S, device=device)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        # SDPA on K/V repeated to the query heads, as phase 18 times it
+        leaves = [t.detach().requires_grad_(True) for t in
+                  (q, k.repeat_interleave(Hq // Hkv, 1), v.repeat_interleave(Hq // Hkv, 1))]
+        sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                              is_causal=causal and mask is None)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(sdpa, leaves, do, retain_graph=True),
+                             iters=5)
+        ops = 4 * B * Hq * D * attention_live_pairs(S, Skv, causal, window)
+        nbytes = q.element_size() * (3 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * do.numel())
+        t_ops, t_bytes = 2.5 * ops / PEAK_BF16_OPS_PER_S, nbytes / PEAK_HBM_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        out[label] = dict(shape=[B, Hq, Hkv, S, Skv, D], causal=causal, window=window,
+                          row_err=errs, max_abs_err=abs_err, ms=dev_ms, call_ms=call_ms,
+                          kernels_ms=parts, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by="operations" if t_ops >= t_bytes else "bytes",
+                          flop=2.5 * ops)
+        print(f"[train-flash-bwd] {label} [{B}, {Hq}, {S}, {D}] on {Hkv} kv heads causal={causal} "
+              f"window={window} bf16: row errors dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
+              f"{errs['dv']:.2e} (tol 2^-6), max abs err {abs_err:.3e}; device {dev_ms:.4f} ms "
+              f"({' + '.join(f'{v:.4f}' for v in parts.values())}), {call_ms:.4f} ms a call; "
+              f"plain {plain_ms:.4f} ms; SDPA backward {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"(2.5 x {ops:.4e} FLOP at 989 TFLOP/s; {nbytes} B); "
+              f"{2.5 * ops / dev_ms / 1e9:.2f} TFLOP/s")
+        del q, k, v, o, do, got, leaves, sdpa
+        torch.cuda.empty_cache()
+    q, k, v = flash_inputs(1, 2, 2, 64, 64, 64, "float32", 0, device)
+    o = attention_ref(q, k, v)
+    for bad, kind in (((q.half(), k.half(), v.half(), o.half(), o.half()), TypeError),
+                      ((q.cpu(), k, v, o, o), ValueError)):
+        try:
+            flash_attention_backward_cuda(*bad)
+        except kind:
+            continue
+        raise SmokeFailure(f"the flash backward took a bad input ({kind.__name__} expected)")
+    print("[train-flash-bwd] a half-precision input and a CPU tensor raise")
+    return out
+
+
+def phase_gate_backward(device) -> dict:
+    """Phase 21(b), gate: the gate backward kernel against its plain version at
+    granite's and kimi's router shapes, timed; bad inputs raise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.assign.gate_backward_cuda import gate_backward_cuda
+    from repro_torch.kernels.assign.ref import gate_backward_ref
+
+    out = {}
+    for label, G, T, E, k in GATE_BWD_CASES:
+        rng = np.random.default_rng(E)
+        scores = torch.from_numpy(rng.normal(size=(G, T, E)).astype(np.float32)).to(device)
+        idx = torch.from_numpy(np.argsort(-rng.random((G, T, E)), -1)[..., :k].astype(np.int32))
+        idx = idx.to(device)
+        dgate = torch.from_numpy(rng.normal(size=(G, T, k)).astype(np.float32)).to(device)
+        got = gate_backward_cuda(scores, idx, dgate)
+        want = gate_backward_ref(scores, idx, dgate)
+        err = row_error(got, want)
+        abs_err = float((got - want).abs().max())
+        check(torch.equal(got, gate_backward_cuda(scores, idx, dgate)),
+              f"gate backward {label}: two calls differ")
+        check(err <= 1e-6, f"gate backward {label}: row error {err:.3e} > 1e-6")
+        call = lambda: gate_backward_cuda(scores, idx, dgate)  # noqa: E731
+        call_ms = cuda_ms(call, iters=50)
+        dev_ms = device_ms(call, ("gate_backward_kernel",), iters=20, call_ms=call_ms,
+                           per_call=1)["gate_backward_kernel"]
+        plain_ms = cuda_ms(lambda: gate_backward_ref(scores, idx, dgate), iters=20)
+        nbytes = 4 * (2 * scores.numel() + idx.numel() + dgate.numel())
+        bound_ms = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
+        out[label] = dict(shape=[G, T, E], k=k, max_abs_err=abs_err, row_err=err, ms=dev_ms,
+                          call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                          library_ms=None)
+        print(f"[train-gate-bwd] {label} [{G}, {T}, {E}] k={k}: row error {err:.2e} (tol 1e-6), "
+              f"max abs err {abs_err:.3e}; device {dev_ms:.4f} ms, {call_ms:.4f} ms a call; plain "
+              f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms (bytes: {nbytes} B at 3.35 TB/s); no "
+              "single PyTorch call computes it")
+    for bad, kind in (((scores.double(), idx, dgate), TypeError),
+                      ((scores.cpu(), idx, dgate), ValueError)):
+        try:
+            gate_backward_cuda(*bad)
+        except kind:
+            continue
+        raise SmokeFailure(f"the gate backward took a bad input ({kind.__name__} expected)")
+    print("[train-gate-bwd] an f64 input and a CPU tensor raise")
+    return out
+
+
+def train_counters():
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import gate_backward_cuda as gate_mod
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda as bwd_mod
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as flash_mod
+
+    return {"flash_attention": flash_mod, "flash_attention_backward": bwd_mod,
+            "assign": assign_mod, "assign_gate_backward": gate_mod}
+
+
+def params_checksum(params) -> tuple:
+    """(integer sum of every parameter's bf16 bit patterns, f64 sum of the values)."""
+    import torch
+
+    bits = sum(int(p.detach().view(torch.int16).sum(dtype=torch.int64)) for p in params.parameters())
+    return bits, float(sum(p.detach().double().sum() for p in params.parameters()))
+
+
+def train_granite(device, steps: int, *, label: str, profile_step: bool = False,
+                  layers: int | None = None, **kw) -> dict:
+    """``steps`` train steps of granite-moe at full width (and depth, unless
+    ``layers`` cuts it) from seed-0 weights on TokenPipeline batches;
+    per-step CUDA-event ms, losses, the parameters' checksum after step 2."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import build_model, param_count
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    model = build_model(cfg, device=device)
+    init_kw = {k: v for k, v in kw.items() if k in ("compress", "opt_8bit")}
+    state = init_train_state(model, 0, **init_kw)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH), device=device)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), microbatches=TRAIN_MICRO, **kw)
+    counters = train_counters()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters.values():
+        mod.launches = 0
+    marks, metrics, checksum = [], [], None
+    for i in range(steps):
+        batch = pipe.batch_at(i)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, met = step(state, batch)
+        end.record()
+        marks.append((start, end))
+        metrics.append(met)
+        if i == 1:
+            checksum = params_checksum(state.params)
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [s.elapsed_time(e) for s, e in marks]
+    losses = [float(m["loss"]) for m in metrics]
+    out = dict(label=label, step_ms=step_ms, losses=losses, peak_gb=peak_gb, launches=launches,
+               checksum=checksum, params=param_count(state.params),
+               drop=[float(m["moe_drop_frac"]) for m in metrics],
+               grad_norm=[float(m["grad_norm"]) for m in metrics])
+    if profile_step:
+        out["profile"] = profile_train_step(lambda: step(state, pipe.batch_at(steps)))
+    del state, model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(run) -> dict:
+    """The device busy share of one train step (``torch.profiler``: the
+    kernels' device time over the step's wall time) and its top kernels.
+    Device activity only: the step launches ~30000 kernels, and the host
+    side's events would cost more to read back than the step takes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if dev_ms == 0.0:
+        print("[train-profile] the profiler saw no device time: busy share not measured")
+        return {}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    print(f"[train-profile] one step: wall {wall_ms:.1f} ms (profiled), device busy "
+          f"{dev_ms:.1f} ms = {100 * dev_ms / wall_ms:.1f}%, {sum(e.count for e in kernels)} kernels")
+    for e in top[:12]:
+        print(f"[train-profile]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  "
+              f"{e.key[:90]}")
+    by = {}
+    for name in ("flash_bwd_", "flash_fwd_kernel", "assign_", "gate_backward_kernel"):
+        by[name] = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+    print(f"[train-profile] device ms by kernel family: {json.dumps(by)}")
+    return dict(wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms, by_kernel=by)
+
+
+def phase_train_granite(device) -> dict:
+    """Phase 21(a): granite-moe at full width and depth, bf16, seed-0 weights,
+    TRAIN_STEPS steps of 2 microbatches of 4 x 4096 tokens with remat, the
+    counters set to 0 just before; tokens/s of steps 2 to 6, losses (step 6
+    below step 1), peak memory, launches a step, the busy share of one more
+    step; a second run of TRAIN_REPEAT steps from the same seed with the same
+    losses and parameter checksum bit for bit; then TRAIN_VARIANT_STEPS steps
+    each with 8-bit moments and with int8 gradient compression, at full
+    width and TRAIN_VARIANT_LAYERS layers."""
+    t0 = time.perf_counter()
+    main = train_granite(device, TRAIN_STEPS, label="adamw", profile_step=True)
+    print(f"[train] the main run and its profiled step took {time.perf_counter() - t0:.1f}s")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rate = tokens * (TRAIN_STEPS - 1) / (sum(main["step_ms"][1:]) / 1e3)
+    per_step = {k: v / TRAIN_STEPS for k, v in main["launches"].items()}
+    print(f"[train] {TRAIN_ARCH}: {main['params']} parameters, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens a step in {TRAIN_MICRO} microbatches, remat, AdamW {json.dumps(TRAIN_OPT)}; "
+          f"step ms {[round(t, 1) for t in main['step_ms']]}; steps 2-{TRAIN_STEPS}: "
+          f"{rate:.1f} tokens/s; losses {main['losses']}; grad norms "
+          f"{[round(g, 4) for g in main['grad_norm']]}; dropped share {main['drop'][0]:.4f}; "
+          f"peak {main['peak_gb']:.2f} GB; launches a step {json.dumps(per_step)}")
+    check(all(math.isfinite(x) for x in main["losses"]), "a non-finite training loss")
+    check(main["losses"][-1] < main["losses"][0], f"the loss did not fall: {main['losses']}")
+    check(all(main["launches"][k] > 0 for k in main["launches"]),
+          f"a kernel of the training path was not launched: {json.dumps(main['launches'])}")
+    check(per_step["flash_attention_backward"] == 24 * TRAIN_MICRO and
+          per_step["assign_gate_backward"] == 24 * TRAIN_MICRO,
+          f"backward launches a step {json.dumps(per_step)}, not one a layer a microbatch")
+    again = train_granite(device, TRAIN_REPEAT, label="repeat")
+    check(again["losses"] == main["losses"][:TRAIN_REPEAT] and again["checksum"] == main["checksum"],
+          f"a second run from the same seed differs: losses {again['losses']} against "
+          f"{main['losses'][:TRAIN_REPEAT]}, checksum {again['checksum']} against "
+          f"{main['checksum']}")
+    print(f"[train] a second run of {TRAIN_REPEAT} steps from seed 0: the same losses and the "
+          f"same parameter checksum {main['checksum']} bit for bit")
+    variants = {}
+    cut = train_granite(device, 1, label="cut", layers=TRAIN_VARIANT_LAYERS)
+    for name, kw in (("opt_8bit", dict(opt_8bit=True)), ("compress", dict(compress=True))):
+        run = train_granite(device, TRAIN_VARIANT_STEPS, label=name, layers=TRAIN_VARIANT_LAYERS,
+                            **kw)
+        check(math.isfinite(run["losses"][0]) and run["losses"][0] == cut["losses"][0],
+              f"{name}: the first step's loss {run['losses'][0]} is not the plain AdamW run's "
+              f"{cut['losses'][0]} at {TRAIN_VARIANT_LAYERS} layers")
+        check(run["launches"]["flash_attention_backward"] > 0 and
+              run["launches"]["assign_gate_backward"] > 0, f"{name}: no backward launch")
+        variants[name] = dict(losses=run["losses"], step_ms=run["step_ms"], peak_gb=run["peak_gb"],
+                              grad_norm=run["grad_norm"])
+        print(f"[train] {name} at {TRAIN_VARIANT_LAYERS} layers: losses {run['losses']}, grad norms "
+              f"{[round(g, 4) for g in run['grad_norm']]}, step ms "
+              f"{[round(t, 1) for t in run['step_ms']]}, peak {run['peak_gb']:.2f} GB")
+    main["tokens_per_s"] = rate
+    main["per_step"] = per_step
+    main["variants"] = variants
+    return main
+
+
+def phase_train_card_vs_cpu(device) -> dict:
+    """Phase 21(c): every family's smoke config in f32, loss and gradients on
+    the card (the flash kernel and its backward on each attention, the assign
+    kernel and the gate backward on each router) against the port on the
+    CPU: the loss within rtol 1e-5, each gradient within 1e-4 of its
+    tensor's largest, plus 1e-7."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import trainable
+
+    counters = train_counters()
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = get_smoke(arch).replace(dtype="float32")
+        rng = np.random.default_rng(3)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48))
+                                            .astype(np.int32))}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.n_frames, cfg.d_model), dtype=np.float32))
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.n_patches, cfg.d_model), dtype=np.float32))
+        results = {}
+        cpu_params = build_model(cfg, device="cpu").init(0)
+        card_params = copy.deepcopy(cpu_params).to(device)
+        for dev, params in (("cpu", cpu_params), (device, card_params)):
+            model = build_model(cfg, device=dev)
+            named = trainable(params)
+            before = {k: m.launches for k, m in counters.items()}
+            loss, _ = model.loss(params, {k: v.to(dev) for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, list(named.values()))
+            results[str(dev)] = (float(loss.detach()), {n: g.detach().cpu() for n, g in
+                                                       zip(named, grads)},
+                                 {k: m.launches - before[k] for k, m in counters.items()})
+        (loss_c, grads_c, _), (loss_g, grads_g, launched) = results["cpu"], results[str(device)]
+        # the largest error over its tolerance, 1e-4 of the tensor's largest plus 1e-7
+        worst = max(float((grads_g[n] - g).abs().max() / (1e-4 * g.abs().max() + 1e-7))
+                    for n, g in grads_c.items())
+        ok = worst <= 1.0
+        check(abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), f"{arch}: card loss {loss_g} against "
+                                                         f"the CPU's {loss_c}")
+        check(ok, f"{arch}: a card gradient is off the CPU's by more than 1e-4 of its largest "
+                  f"(worst {worst:.3e})")
+        attn = cfg.family != "ssm"
+        check(launched["flash_attention_backward"] > 0 if attn else True,
+              f"{arch}: the flash backward kernel did not run")
+        check(launched["assign_gate_backward"] > 0 if cfg.family == "moe" else True,
+              f"{arch}: the gate backward kernel did not run")
+        out[arch] = dict(loss_card=loss_g, loss_cpu=loss_c, worst_grad_err=worst,
+                         launches=launched)
+        print(f"[train-families] {arch} f32 smoke: loss card {loss_g:.7f} cpu {loss_c:.7f}; the "
+              f"worst gradient error is {worst:.3f} of its tolerance; launches "
+              f"{json.dumps(launched)}")
+    return out
+
+
+def phase_train(device) -> dict:
+    """Phase 21: training.  Returns the kernel rows of the two backward kernels."""
+    import torch
+
+    t0 = time.perf_counter()
+    laps = []
+
+    def lap(name):
+        laps.append(f"{name} {time.perf_counter() - t0:.1f}s")
+
+    flash = phase_flash_backward(device)
+    lap("21(b) flash")
+    gate = phase_gate_backward(device)
+    lap("21(b) gate")
+    torch.cuda.empty_cache()
+    main = phase_train_granite(device)
+    lap("21(a)")
+    families = phase_train_card_vs_cpu(device)
+    lap("21(c)")
+    print(f"[train] phase 21 took {time.perf_counter() - t0:.1f}s ({', '.join(laps)})")
+    g = flash["granite"]
+    flash_row = dict(
+        name="flash_attention_backward", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/ops.py:34", launches=main["launches"][
+            "flash_attention_backward"], max_abs_err=g["max_abs_err"], ms=g["ms"],
+        plain_ms=g["plain_ms"], bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+        library_ms=g["library_ms"], shapes=flash, launches_per_step=main["per_step"],
+    )
+    r = gate["granite"]
+    gate_row = dict(
+        name="assign_gate_backward", route="cuda",
+        source="src/repro_torch/kernels/assign/csrc/gate_backward.cu",
+        replaces="src/repro/kernels/assign/ref.py:35", launches=main["launches"][
+            "assign_gate_backward"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+        shapes=gate,
+    )
+    train = dict(tokens_per_s=main["tokens_per_s"], losses=main["losses"], peak_gb=main["peak_gb"],
+                 step_ms=main["step_ms"], profile=main.get("profile"), variants=main["variants"],
+                 families=families, launches=main["launches"])
+    return dict(flash_attention_backward=flash_row, assign_gate_backward=gate_row, train=train)
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4151,6 +4599,8 @@ def main() -> int:
     lap("18")
     encdec = phase_serve_encdec_vlm(device)
     lap("20")
+    train = phase_train(device)
+    lap("21")
     for name, row in rows.items():
         row["launches"] = (sparse_launches[name] if name == "fused_assign" else
                            serve_launches[name] if name == "flash_attention" else launches[name])
@@ -4206,6 +4656,13 @@ def main() -> int:
     rows["flash_attention"]["families"].update(encdec["flash"])
     if "scaling" in mesh_launches:
         rows["assign"]["mesh_scaling"] = mesh_launches["scaling"]
+    # the training path (phase 21): the forward kernels' launches in 6 steps,
+    # and the two backward kernels' rows
+    rows["flash_attention"]["launches_train"] = train["train"]["launches"]["flash_attention"]
+    rows["assign"]["launches_train"] = train["train"]["launches"]["assign"]
+    rows["flash_attention_backward"] = train["flash_attention_backward"]
+    rows["assign_gate_backward"] = train["assign_gate_backward"]
+    rows["flash_attention_backward"]["train"] = train["train"]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

@@ -28,6 +28,8 @@ SOURCES = {
     "fused": _PKG / "kernels" / "assign" / "csrc" / "fused.cu",
     "segment_sum": _PKG / "kernels" / "segment_sum" / "csrc" / "segment_sum.cu",
     "flash_attention": _PKG / "kernels" / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_bwd": _PKG / "kernels" / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
+    "gate_backward": _PKG / "kernels" / "assign" / "csrc" / "gate_backward.cu",
 }
 
 FLAGS = (

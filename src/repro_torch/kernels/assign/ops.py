@@ -1,6 +1,8 @@
 """The assignment kernels as simulator dispatch combinators, dense
 (``make_capacity_assign``) and sparse top-k (``make_fused_capacity_assign``),
-and as the MoE router (``moe_route``)."""
+and as the MoE router (``moe_route``), whose gates carry a gradient to the
+router's scores (``_AssignGate``: the gate backward kernel for CUDA tensors,
+its plain version for CPU tensors)."""
 from __future__ import annotations
 
 import torch
@@ -8,18 +10,55 @@ import torch
 from .assign_cuda import assign_cuda
 from .fused_cuda import fused_assign_cuda
 from .fused_ref import fused_assign_ref
-from .ref import assign_ref
+from .gate_backward_cuda import gate_backward_cuda
+from .ref import assign_ref, gate_backward_ref
+
+
+def _assign(scores, sizes, caps, k, block_n):
+    if scores.is_cuda:
+        return assign_cuda(scores.contiguous(), sizes.contiguous(), caps.contiguous(),
+                           k=k, block_n=block_n)
+    return assign_ref(scores, sizes, caps, k=k, block_n=block_n)
+
+
+def gate_backward(scores, idx, dgate):
+    """The scores' gradient of ``assign``'s ``gate`` output given its
+    gradient ``dgate``: the Hopper kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if scores.is_cuda:
+        return gate_backward_cuda(scores.float().contiguous(), idx.int().contiguous(),
+                                  dgate.float().contiguous())
+    return gate_backward_ref(scores, idx, dgate)
+
+
+class _AssignGate(torch.autograd.Function):
+    """``assign`` with a gradient from ``gate`` to ``scores``; the picks,
+    admits and positions are integers or do not depend on the scores
+    smoothly, so they carry none."""
+
+    @staticmethod
+    def forward(ctx, scores, sizes, caps, k, block_n):
+        idx, gate, admit, pos = _assign(scores, sizes, caps, k, block_n)
+        ctx.save_for_backward(scores, idx)
+        ctx.mark_non_differentiable(idx, admit, pos)
+        return idx, gate, admit, pos
+
+    @staticmethod
+    def backward(ctx, _didx, dgate, _dadmit, _dpos):
+        scores, idx = ctx.saved_tensors
+        return gate_backward(scores, idx, dgate), None, None, None, None
 
 
 def assign(scores, sizes, caps, *, k: int = 1, block_n: int = 256):
     """Capacity-constrained greedy assignment (see ref.py for semantics), one
     problem ``[N, E]`` or K of them ``[K, N, E]``: the Hopper kernel for CUDA
     tensors (one set of launches for all K), the plain version for CPU
-    tensors."""
-    if scores.is_cuda:
-        return assign_cuda(scores.contiguous(), sizes.contiguous(), caps.contiguous(),
-                           k=k, block_n=block_n)
-    return assign_ref(scores, sizes, caps, k=k, block_n=block_n)
+    tensors.  With grad mode on and ``scores`` requiring grad, ``gate``
+    carries a gradient to ``scores`` through the gate backward kernel (or its
+    plain version)."""
+    if torch.is_grad_enabled() and scores.requires_grad:
+        return _AssignGate.apply(scores, sizes, caps, k, block_n)
+    return _assign(scores, sizes, caps, k, block_n)
 
 
 def _sizes_and_caps(jobs_cores, queued, sites):
@@ -110,6 +149,14 @@ def _route(assign_fn, router_logits, k, capacity, block_n):
     caps = torch.full((*lanes, E), float(capacity), dtype=torch.float32, device=dev)
     idx, gate, keep, pos = assign_fn(router_logits.float(), sizes, caps, k=k, block_n=block_n)
     combine = gate * keep
-    norm = combine.sum(-1, keepdim=True).clamp_min(1e-9)
-    combine = combine / norm * gate.sum(-1, keepdim=True).clamp(0.0, 1.0)
+    # jnp.maximum and jnp.clip (minimum of maximum): at a bound the gradient
+    # splits between the two sides, 0.5 each, where torch.clamp passes all of it
+    norm = torch.maximum(combine.sum(-1, keepdim=True), _scalar(1e-9, combine))
+    total = gate.sum(-1, keepdim=True)
+    combine = combine / norm * torch.minimum(torch.maximum(total, _scalar(0.0, total)),
+                                             _scalar(1.0, total))
     return idx, combine, pos.int(), keep
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(value, dtype=like.dtype, device=like.device)

@@ -78,3 +78,26 @@ def assign_ref(scores, sizes, caps, *, k: int = 1, block_n: int = 256):
         out.append((torch.where(ok, idx, -1), gate * ok, admit, pos * ok))
     idx, gate, admit, pos = (torch.stack(c, -1) for c in zip(*out))
     return idx.int(), gate, admit, pos
+
+
+def gate_backward_ref(scores, idx, dgate):
+    """Plain version of the gate backward kernel (``csrc/gate_backward.cu``):
+    the scores' gradient ``f32[..., N, E]`` of ``assign_ref``'s ``gate``
+    output, given the picks ``idx [..., N, k]`` (-1 where infeasible) and the
+    gates' gradient ``dgate [..., N, k]``.  With ``g`` the row softmax over
+    the feasible bins, ``G`` the gradients folded onto their picked bins in
+    slot order and ``dot = sum(G * g)``, it is ``g * (G - dot)`` on the
+    feasible bins and 0 elsewhere; an infeasible pick, and a row without a
+    feasible bin, add nothing.  In f32 (f64 for f64 scores)."""
+    scores = scores.to(torch.promote_types(scores.dtype, torch.float32))
+    feas = scores > NEG_INF / 2
+    m = torch.where(feas, scores, float("-inf")).amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(feas, torch.exp(torch.where(feas, scores, m) - m), 0.0)
+    g = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    iota = torch.arange(scores.shape[-1], device=scores.device)
+    G = torch.zeros_like(scores)
+    for j in range(idx.shape[-1]):
+        G = G + (iota == idx[..., j:j + 1].long()) * dgate[..., j:j + 1].to(scores.dtype)
+    dot = (G * g).sum(-1, keepdim=True)
+    return torch.where(feas, g * (G - dot), 0.0)

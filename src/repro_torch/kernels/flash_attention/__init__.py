@@ -4,6 +4,7 @@ from .ops import (  # noqa: F401
     chunked_attention,
     decode_attention,
     flash_attention,
+    flash_attention_backward,
     qblock_attention,
 )
-from .ref import attention_ref  # noqa: F401
+from .ref import attention_bwd_ref, attention_ref  # noqa: F401

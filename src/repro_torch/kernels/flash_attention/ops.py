@@ -1,7 +1,10 @@
 """Attention entry points.
 
 ``flash_attention`` runs the Hopper kernel for CUDA tensors and its plain
-version ``attention_ref`` for CPU tensors.  ``chunked_attention`` and
+version ``attention_ref`` for CPU tensors; with grad mode on and an input
+that requires grad it runs them as ``_FlashAttention``, whose backward is the
+Hopper backward kernel for CUDA tensors (``flash_attention_backward``) and
+its plain version ``attention_bwd_ref`` for CPU tensors.  ``chunked_attention`` and
 ``qblock_attention`` are the same online-softmax math in plain PyTorch, over
 KV chunks (and q blocks with tile skipping); the models run them on the CPU.
 ``decode_attention`` is the one-token step against a KV cache.
@@ -10,16 +13,55 @@ from __future__ import annotations
 
 import torch
 
+from .flash_attention_bwd_cuda import flash_attention_backward_cuda
 from .flash_attention_cuda import flash_attention_cuda
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref
+
+
+def _forward(q, k, v, causal, window, scale):
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
+    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def flash_attention_backward(q, k, v, o, do, *, causal=True, window=0, scale=None):
+    """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v, ...)`` given ``do``:
+    the Hopper backward kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    if q.is_cuda:
+        return flash_attention_backward_cuda(q, k, v, o, do, causal=causal, window=window,
+                                             scale=scale)
+    return attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, scale=scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, unchanged, and its backward kernel.  Saves q, k, v
+    and the output; the backward recomputes the softmax from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o = _forward(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.opts = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, scale = ctx.opts
+        dq, dk, dv = flash_attention_backward(q, k, v, o, do, causal=causal, window=window,
+                                              scale=scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     """Causal / sliding-window GQA attention (see ref.py for semantics): the
-    Hopper kernel for CUDA tensors, the plain version for CPU tensors."""
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
-    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    Hopper kernel for CUDA tensors, the plain version for CPU tensors.  With
+    grad mode on and an input that requires grad, the backward kernel (or
+    its plain version) gives the gradient; otherwise nothing is saved."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale)
 
 
 def _online_softmax_step(carry, qf, kci, vci, mask, G):

@@ -6,6 +6,10 @@ Decoder: causal self-attention, cross-attention over the encoder states and
 a GELU MLP, with learned positions (no rope).  Every block has LayerNorms
 with a bias.
 
+``loss_fn`` trains it: ``forward`` and ``encode`` run with autograd, and
+under ``cfg.remat`` each decoder layer runs under ``torch.utils.checkpoint``,
+as the JAX package wraps the decoder's scanned body in ``jax.checkpoint``.
+
 The cache holds ``len``, the decoder's self K/V ``k``/``v`` ``[L, B, Hkv,
 max_len, dh]`` and each layer's cross K/V ``cross_k``/``cross_v`` ``[L, B,
 Hkv, n_frames, dh]``, which ``prefill`` computes once from the encoder
@@ -30,7 +34,7 @@ from .config import ModelConfig
 from .layers import embed_init, layernorm
 from .mlp import init_mlp, mlp_forward
 from .moe import AUX_KEYS
-from .transformer import Block, _generator
+from .transformer import Block, _generator, remat
 
 POS_ROWS = 4096  # learned decoder positions; later positions reuse the last
 
@@ -78,7 +82,6 @@ def init_params(rng, cfg: ModelConfig, device="cuda") -> EncDec:
                   _ln_init(d, dtype, dev), _ln_init(d, dtype, dev))
 
 
-@torch.no_grad()
 def encode(params: EncDec, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames [B, T, d] (the stub frontend's output) -> encoder states."""
     x = frames.to(getattr(torch, cfg.dtype))
@@ -98,23 +101,27 @@ def _logits(params: EncDec, x: torch.Tensor) -> torch.Tensor:
     return (x @ params.embed.T).float()
 
 
-@torch.no_grad()
+def _decoder_layer(p: Block, x: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig):
+    x = x + attention_train(p.self_attn, _ln(x, p.ln1, cfg.norm_eps), cfg, rope=False)
+    kv = encode_cross_kv(p.cross_attn, enc, cfg)
+    x = x + cross_attention(p.cross_attn, _ln(x, p.ln2, cfg.norm_eps), kv, cfg)
+    return x + mlp_forward(p.mlp, _ln(x, p.ln3, cfg.norm_eps), cfg)
+
+
 def forward(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor, frames: torch.Tensor):
     """Teacher-forced: encode ``frames``, decode ``tokens`` -> (logits
     f32[B, S, V], aux), aux the MoE keys at zero."""
     enc = encode(params, cfg, frames)
     x = _decoder_embed(params, tokens, 0)
     for p in params.dec:
-        x = x + attention_train(p.self_attn, _ln(x, p.ln1, cfg.norm_eps), cfg, rope=False)
-        kv = encode_cross_kv(p.cross_attn, enc, cfg)
-        x = x + cross_attention(p.cross_attn, _ln(x, p.ln2, cfg.norm_eps), kv, cfg)
-        x = x + mlp_forward(p.mlp, _ln(x, p.ln3, cfg.norm_eps), cfg)
+        x = remat(_decoder_layer, cfg, p, x, enc, cfg)
     x = _ln(x, params.dec_norm, cfg.norm_eps)
     return _logits(params, x), {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
 
 
 def loss_fn(params: EncDec, cfg: ModelConfig, batch: dict):
-    """Next-token cross-entropy of ``forward`` -> (loss, metrics)."""
+    """Next-token cross-entropy of ``forward`` -> (loss, metrics), with a
+    gradient."""
     logits, aux = forward(params, cfg, batch["tokens"], batch["frames"])
     targets = batch["tokens"][:, 1:].long()
     logits = logits[:, :-1]

@@ -3,6 +3,7 @@
     m = build_model(cfg)                 # device="cuda" unless told otherwise
     params = m.init(seed)
     logits, aux = m.forward(params, batch)
+    loss, metrics = m.loss(params, batch)     # differentiable: see train/
     cache = m.init_cache(batch_size, max_len)
     logits, cache = m.prefill(params, batch, cache)
     logits, cache = m.decode(params, token, cache)
@@ -27,6 +28,7 @@ class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable
     forward: Callable
+    loss: Callable
     init_cache: Callable
     prefill: Callable
     decode: Callable
@@ -39,6 +41,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
             cfg=cfg,
             init=lambda rng: encdec.init_params(rng, cfg, device),
             forward=lambda p, b: encdec.forward(p, cfg, b["tokens"], b["frames"]),
+            loss=lambda p, b: encdec.loss_fn(p, cfg, b),
             init_cache=lambda bs, ml: encdec.init_cache(cfg, bs, ml, device),
             prefill=lambda p, b, c: encdec.prefill(p, cfg, b["tokens"], c, b["frames"]),
             decode=lambda p, tok, c: encdec.decode_step(p, cfg, tok, c),
@@ -48,6 +51,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         cfg=cfg,
         init=lambda rng: transformer.init_params(rng, cfg, device),
         forward=lambda p, b: transformer.forward(p, cfg, b["tokens"], b.get("patch_embeds")),
+        loss=lambda p, b: transformer.loss_fn(p, cfg, b),
         init_cache=lambda bs, ml: transformer.init_cache(cfg, bs, ml, device),
         prefill=lambda p, b, c: transformer.prefill(p, cfg, b["tokens"], c,
                                                     b.get("patch_embeds")),

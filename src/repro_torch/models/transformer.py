@@ -8,6 +8,12 @@ stacks each segment's parameters and runs them with ``lax.scan``; here every
 layer is a ``Block`` module in an ``nn.ModuleList``, in the reference's scan
 order (segment, then repeat, then pattern slot), and runs in a Python loop.
 
+Training (``loss_fn``) runs the same forward with autograd; under
+``cfg.remat`` each block runs under ``torch.utils.checkpoint``, as the JAX
+package wraps each scanned group in ``jax.checkpoint``, so its activations are
+recomputed in the backward pass (the flash and assign kernels run again there,
+with the same bits).
+
 The cache holds one stacked tensor per kind of state, each layer writing its
 own slice in place: ``k``/``v`` ``[n_att, B, Hkv, max_len, dh]`` for the
 attention layers (``att`` and ``moe``), ``ssm_conv``/``ssm_state`` for the
@@ -19,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (
     attention_decode,
@@ -196,7 +203,10 @@ def init_params(rng, cfg: ModelConfig, device="cuda") -> LM:
 def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
            patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Token embeddings; a VLM's ``patch_embeds [B, P, d]`` (the vision
-    stub's output) replace the first P positions."""
+    stub's output) replace the first P positions.  On the card the gather's
+    backward (``index_put_`` with accumulation) sorts the ids and adds each
+    row's gradients in that order, without float atomics, so it has the same
+    bits on every run."""
     x = params.embed[tokens]
     if cfg.family == "vlm" and patch_embeds is not None:
         P = patch_embeds.shape[1]
@@ -217,11 +227,40 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens, patch_embeds)
     aux = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
     for layer in params.layers:
-        x, layer_aux = block_train(layer, x, cfg)
+        x, layer_aux = remat(block_train, cfg, layer, x, cfg)
         if layer_aux is not None:
             aux = {k: aux[k] + layer_aux[k] for k in AUX_KEYS}
     x = rmsnorm(x, params.final_norm, eps=cfg.norm_eps)
     return _logits(params, cfg, x), aux
+
+
+def remat(fn, cfg: ModelConfig, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``cfg.remat`` is set and autograd records: the block keeps only its
+    inputs, and the backward pass runs it again."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: dict):
+    """Next-token cross-entropy over ``loss_mask`` (all positions without
+    one) plus the MoE aux losses, ``0.01 * moe_lb_loss + 1e-3 * moe_z_loss``
+    -> (loss, metrics).  ``batch``: ``tokens``, ``loss_mask``?,
+    ``patch_embeds``? (VLM)."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, cfg, tokens, batch.get("patch_embeds"))
+    logits = logits[:, :-1]
+    targets = tokens[:, 1:].long()
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(targets.shape, dtype=torch.float32, device=logits.device)
+            if mask is None else mask[:, 1:].float())
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    loss = nll.sum() / torch.maximum(mask.sum(), torch.ones((), device=mask.device))
+    total = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+    return total, dict(aux, nll=loss)
 
 
 # ---------------------------------------------------------------- serving ---
