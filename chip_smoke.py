@@ -54,9 +54,14 @@ check does not hold:
    six shapes, a non-causal ragged one, a right-aligned one (Skv > S), one
    each for the mma.sync and bf16 CUDA-core paths, seven for the wgmma/TMA
    path (ragged tails, right-aligned q, a window, GQA 40/8, non-causal,
-   D = 64) and the deepseek-7b prefill shape, where it is timed beside its
-   plain version and ``scaled_dot_product_attention`` and the profiler must
-   show ``flash_fwd_kernel_wgmma`` and no other flash kernel;
+   D = 64), four for it at D = 256 (ragged 64-key tiles, right-aligned q,
+   a window on one KV head, non-causal), rows that keep no key (S > Skv
+   under causality) on three paths, and the deepseek-7b prefill shape; each
+   also with its log-sum-exp (within 1e-4 of the plain one's, +inf where a
+   row keeps no key) and the same output bits as without it; the prefill
+   shape is timed beside its plain version and
+   ``scaled_dot_product_attention`` and the profiler must show
+   ``flash_fwd_kernel_wgmma`` and no other flash kernel;
 8. serve deepseek-7b at full width (bf16, random weights from seed 0):
    ``generate`` over 4 prompts of 4096 tokens with 32 new tokens, twice,
    launch counters set to 0 just before the first run; require 30 flash
@@ -239,7 +244,9 @@ check does not hold:
    (non-causal), timed beside the plain version and SDPA's backward with
    the same mask; the gate backward (1e-6 of each row's largest) at
    granite's ``[32, 512, 32]`` and kimi's ``[32, 512, 384]`` routers, k =
-   8; bad inputs raise; (c) every family's smoke config in f32: the loss
+   8; bad inputs raise; (b) takes o and the log-sum-exp from the forward
+   kernel (the LSE within 1e-4 of the plain one's) and requires the wgmma
+   kernels; (c) every family's smoke config in f32: the loss
    and every gradient on the card (both backward kernels) against the
    port on the CPU.
 
@@ -888,8 +895,19 @@ FLASH_CASES = [  # (B, Hq, Hkv, S, Skv, D, causal, window, dtype)
     (2, 4, 2, 200, 200, 128, False, 0, "bfloat16"),
     (1, 4, 2, 1000, 1000, 64, True, 0, "bfloat16"),
     (1, 4, 1, 700, 900, 64, True, 200, "bfloat16"),
+    # the wgmma/TMA path at D = 256 (64-key tiles): ragged tiles, right-aligned
+    # q, recurrentgemma's window on one KV head, no causality
+    (1, 4, 2, 300, 300, 256, True, 0, "bfloat16"),
+    (2, 4, 2, 100, 333, 256, True, 0, "bfloat16"),
+    (1, 10, 1, 1000, 1000, 256, True, 200, "bfloat16"),
+    (1, 4, 4, 200, 200, 256, False, 0, "bfloat16"),
+    # more queries than keys under causality: the first rows keep no key
+    (1, 2, 2, 100, 60, 64, True, 0, "bfloat16"),
+    (1, 2, 1, 80, 50, 32, True, 0, "bfloat16"),
+    (1, 2, 1, 80, 50, 32, True, 0, "float32"),
     (4, 32, 32, 4096, 4096, 128, True, 0, "bfloat16"),  # deepseek-7b prefill (phase 8)
 ]
+FLASH_LSE_TOL = 1e-4  # the log-sum-exp against the plain one's (f32 row sums in another order)
 FLASH_KERNEL = "flash_fwd_kernel_wgmma"  # the serving shape's kernel (profiler name)
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "deepseek-7b", 4, 4096, 32
 
@@ -925,19 +943,29 @@ def phase_flash_kernel(device) -> dict:
     worst = {}
     for B, Hq, Hkv, S, Skv, D, causal, window, dtype in FLASH_CASES:
         q, k, v = flash_inputs(B, Hq, Hkv, S, Skv, D, dtype, B * 131 + S, device)
-        want = attention_ref(q, k, v, causal=causal, window=window)
+        want, want_lse = attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
         got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        with_lse, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         tol = 2e-2 if dtype == "bfloat16" else 2e-5
+        label = f"flash {B, Hq, Hkv, S, Skv, D} causal={causal} window={window} {dtype}"
         check(got.dtype == want.dtype and got.shape == want.shape,
-              f"flash {B, Hq, Hkv, S, Skv, D}: dtype or shape differs from the plain version")
-        check(err <= tol, f"flash {B, Hq, Hkv, S, Skv, D} causal={causal} window={window} "
-                          f"{dtype}: max_abs_err {err:.3e} > {tol}")
+              f"{label}: dtype or shape differs from the plain version")
+        check(err <= tol, f"{label}: max_abs_err {err:.3e} > {tol}")
+        check(torch.equal(with_lse, got), f"{label}: the log-sum-exp store changed the output")
+        empty = torch.isinf(want_lse)
+        check(torch.equal(torch.isinf(lse), empty) and bool((lse[empty] > 0).all()),
+              f"{label}: rows that keep no key must have log-sum-exp +inf")
+        lse_err = float((lse[~empty] - want_lse[~empty]).abs().max()) if bool((~empty).any()) \
+            else 0.0
+        check(lse_err <= FLASH_LSE_TOL, f"{label}: log-sum-exp error {lse_err:.3e}")
         worst[dtype] = max(worst.get(dtype, 0.0), err)
         print(f"[flash] B={B} Hq={Hq} Hkv={Hkv} S={S} Skv={Skv} D={D} causal={causal} "
-              f"window={window} {dtype}: max_abs_err={err:.3e} (tol {tol})")
-        del q, k, v, want, got
+              f"window={window} {dtype}: max_abs_err={err:.3e} (tol {tol}); log-sum-exp "
+              f"{lse_err:.3e} (tol {FLASH_LSE_TOL}), {int(empty.sum())} rows without a key")
+        del q, k, v, want, got, with_lse, lse, want_lse
 
     B, Hq, Hkv, S, Skv, D, causal, window, dtype = FLASH_CASES[-1]
     q, k, v = flash_inputs(B, Hq, Hkv, S, Skv, D, dtype, 0, device)
@@ -1415,7 +1443,7 @@ def check_family_flash(device, cfg, B: int, S: int, Skv: int | None = None,
     check(rel <= FLASH_REL_TOL, f"{label}: flash differs from the plain version by {rel:.3e} "
                                 f"of a row's largest output (max_abs_err {err:.3e})")
     del got, want, diff
-    wgmma = cfg.dtype == "bfloat16" and D in (64, 128)
+    wgmma = cfg.dtype == "bfloat16" and D in (64, 128, 256)
     kernel = FLASH_KERNEL if wgmma else "flash_fwd_kernel<"
     others = tuple(n for n in ("flash_fwd_kernel_wgmma", "flash_fwd_kernel_mma", "flash_fwd_kernel<")
                    if n != kernel)
@@ -4096,8 +4124,12 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 8, 2
 TRAIN_STEPS, TRAIN_REPEAT, TRAIN_VARIANT_STEPS = 6, 2, 2
 TRAIN_VARIANT_LAYERS = 4         # depth cut of the 8-bit and compressed runs (24 -> 4)
 TRAIN_OPT = dict(warmup_steps=1)   # AdamW's defaults, warmup cut to 1 step for a 6-step run
-FLASH_BWD_KERNELS = ("flash_bwd_preprocess_kernel", "flash_bwd_dkdv_kernel",
-                     "flash_bwd_dq_kernel")
+# bf16 at D = 64, 128 and 256 (every case below) runs the wgmma/TMA kernels;
+# the dK/dV name also matches its D = 256 form, flash_bwd_dkdv_kernel_wgmma_split
+FLASH_BWD_KERNELS = ("flash_bwd_preprocess_kernel", "flash_bwd_dkdv_kernel_wgmma",
+                     "flash_bwd_dq_kernel_wgmma")
+FLASH_BWD_OTHER = ("flash_bwd_dkdv_kernel<", "flash_bwd_dq_kernel<", "flash_bwd_dkdv_kernel_mma",
+                   "flash_bwd_dq_kernel_mma")
 FLASH_BWD_CASES = [  # (label, B, Hq, Hkv, S, Skv, D, causal, window): each family's training attention
     ("granite", 4, 16, 8, 4096, 4096, 64, True, 0),
     ("deepseek", 1, 32, 32, 4096, 4096, 128, True, 0),
@@ -4120,8 +4152,9 @@ def row_error(got, want) -> float:
 
 def phase_flash_backward(device) -> dict:
     """Phase 21(b), flash: the backward kernel against its plain version at
-    each family's training attention, timed beside the plain version and
-    SDPA's backward with the same mask; bad inputs raise."""
+    each family's training attention, on the output and log-sum-exp of the
+    forward kernel (the LSE held to the plain one's), timed beside the plain
+    version and SDPA's backward with the same mask; bad inputs raise."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -4129,6 +4162,7 @@ def phase_flash_backward(device) -> dict:
     from repro_torch.kernels.flash_attention.flash_attention_bwd_cuda import (
         flash_attention_backward_cuda,
     )
+    from repro_torch.kernels.flash_attention.flash_attention_cuda import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 
     out = {}
@@ -4136,10 +4170,15 @@ def phase_flash_backward(device) -> dict:
         q, k, v = flash_inputs(B, Hq, Hkv, S, Skv, D, "bfloat16", S + D, device)
         do = torch.from_numpy(np.random.default_rng(S + D + 1).standard_normal(
             tuple(q.shape), dtype=np.float32)).to(device=device, dtype=q.dtype)
-        o = attention_ref(q, k, v, causal=causal, window=window)
-        got = flash_attention_backward_cuda(q, k, v, o, do, causal=causal, window=window)
-        again = flash_attention_backward_cuda(q, k, v, o, do, causal=causal, window=window)
-        want = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
+        want_lse = attention_ref(q, k, v, causal=causal, window=window, return_lse=True)[1]
+        lse_err = float((lse - want_lse).abs().max())
+        check(lse_err <= FLASH_LSE_TOL, f"flash backward {label}: the forward's log-sum-exp "
+                                        f"differs from the plain one's by {lse_err:.3e}")
+        del want_lse
+        got = flash_attention_backward_cuda(q, k, v, o, do, lse, causal=causal, window=window)
+        again = flash_attention_backward_cuda(q, k, v, o, do, lse, causal=causal, window=window)
+        want = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, lse=lse)
         torch.cuda.synchronize()
         errs = {n: row_error(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
         abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
@@ -4148,13 +4187,15 @@ def phase_flash_backward(device) -> dict:
         check(max(errs.values()) <= 2.0 ** -6, f"flash backward {label}: row errors "
                                                f"{json.dumps(errs)} above 2^-6")
         del want, again
-        call = lambda: flash_attention_backward_cuda(q, k, v, o, do, causal=causal,  # noqa: E731
-                                                     window=window)
+        call = lambda: flash_attention_backward_cuda(q, k, v, o, do, lse,  # noqa: E731
+                                                     causal=causal, window=window)
         call_ms = cuda_ms(call, iters=5)
-        parts = device_ms(call, FLASH_BWD_KERNELS, iters=3, call_ms=call_ms, per_call=1)
+        parts = device_ms(call, FLASH_BWD_KERNELS, iters=3, call_ms=call_ms, per_call=1,
+                          forbid=FLASH_BWD_OTHER)
         dev_ms = sum(parts.values())
         plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                                     window=window), iters=2, warmup=1)
+                                                     window=window, lse=lse),
+                           iters=2, warmup=1)
         mask = None
         if window > 0:
             pos = torch.arange(S, device=device)
@@ -4171,29 +4212,32 @@ def phase_flash_backward(device) -> dict:
         t_ops, t_bytes = 2.5 * ops / PEAK_BF16_OPS_PER_S, nbytes / PEAK_HBM_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         out[label] = dict(shape=[B, Hq, Hkv, S, Skv, D], causal=causal, window=window,
-                          row_err=errs, max_abs_err=abs_err, ms=dev_ms, call_ms=call_ms,
+                          row_err=errs, max_abs_err=abs_err, lse_err=lse_err, ms=dev_ms,
+                          call_ms=call_ms,
                           kernels_ms=parts, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by="operations" if t_ops >= t_bytes else "bytes",
                           flop=2.5 * ops)
         print(f"[train-flash-bwd] {label} [{B}, {Hq}, {S}, {D}] on {Hkv} kv heads causal={causal} "
               f"window={window} bf16: row errors dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
-              f"{errs['dv']:.2e} (tol 2^-6), max abs err {abs_err:.3e}; device {dev_ms:.4f} ms "
+              f"{errs['dv']:.2e} (tol 2^-6), max abs err {abs_err:.3e}; the forward kernel's "
+              f"log-sum-exp within {lse_err:.2e} of the plain one's; device {dev_ms:.4f} ms "
               f"({' + '.join(f'{v:.4f}' for v in parts.values())}), {call_ms:.4f} ms a call; "
               f"plain {plain_ms:.4f} ms; SDPA backward {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
               f"(2.5 x {ops:.4e} FLOP at 989 TFLOP/s; {nbytes} B); "
               f"{2.5 * ops / dev_ms / 1e9:.2f} TFLOP/s")
-        del q, k, v, o, do, got, leaves, sdpa
+        del q, k, v, o, lse, do, got, leaves, sdpa
         torch.cuda.empty_cache()
     q, k, v = flash_inputs(1, 2, 2, 64, 64, 64, "float32", 0, device)
-    o = attention_ref(q, k, v)
-    for bad, kind in (((q.half(), k.half(), v.half(), o.half(), o.half()), TypeError),
-                      ((q.cpu(), k, v, o, o), ValueError)):
+    o, lse = attention_ref(q, k, v, return_lse=True)
+    for bad, kind in (((q.half(), k.half(), v.half(), o.half(), o.half(), lse), TypeError),
+                      ((q.cpu(), k, v, o, o, lse), ValueError),
+                      ((q, k, v, o, o, lse[:, :, :10]), ValueError)):
         try:
             flash_attention_backward_cuda(*bad)
         except kind:
             continue
         raise SmokeFailure(f"the flash backward took a bad input ({kind.__name__} expected)")
-    print("[train-flash-bwd] a half-precision input and a CPU tensor raise")
+    print("[train-flash-bwd] a half-precision input, a CPU tensor and a short log-sum-exp raise")
     return out
 
 

@@ -3,6 +3,7 @@
 against another checkout's, on one GPU, in turns (other, this, this, other).
 
     python3 scripts/compare_kernels.py --other DIR [--rounds N]
+    python3 scripts/compare_kernels.py --other DIR --flash
 
 ``DIR`` is the root of another checkout of this repository (for example the
 parent commit, unpacked with ``git archive``); its ``src/repro_torch`` is
@@ -21,7 +22,13 @@ J=100000, S=300 on a uniform id mix and on one where 95% of rows carry the
 padding id, f32 ``[J]`` and i32 ``[J, 3]``.  With ``--rounds N`` it also
 runs N dense and N sparse rounds of the full-width engine scenario with
 each version and reports rounds/s, and the kernels a round of each over
-PROFILE_ROUNDS profiled rounds.  It writes its numbers to
+PROFILE_ROUNDS profiled rounds.  With ``--flash`` it compares the flash
+attention kernels instead: the forward's output bit for bit between the two
+versions on every route (``FLASH_SAME``; a route that either version runs on
+another kernel is left out), then the forward's time at each family's
+prefill attention (``FLASH_FWD``) and the backward's at phase 21(b)'s shapes
+(``chip_smoke.FLASH_BWD_CASES``), a call between CUDA events and device
+time split by kernel, in turns.  It writes its numbers to
 ``chiprun_out/compare_kernels.json`` and needs a CUDA device.
 """
 from __future__ import annotations
@@ -64,7 +71,105 @@ def load_version(pkg_name: str):
         fused_ref=sub("kernels.assign.fused_ref").fused_assign_ref,
         core=sub("core"),
         kernels_assign=sub("kernels.assign"),
+        flash=sub("kernels.flash_attention.flash_attention_cuda"),
+        flash_bwd=sub("kernels.flash_attention.flash_attention_bwd_cuda"),
     )
+
+
+# (label, B, Hq, Hkv, S, Skv, D, causal, window, dtype): one case a forward
+# route whose kernel both versions share (wgmma at D = 64 and 128, mma.sync,
+# the f32 CUDA cores, bf16 at D = 192), ragged and right-aligned
+FLASH_SAME = [
+    ("wgmma D=64", 1, 4, 1, 700, 900, 64, True, 200, "bfloat16"),
+    ("wgmma D=128", 2, 4, 2, 300, 1000, 128, True, 0, "bfloat16"),
+    ("whisper encoder", 1, 12, 12, 1500, 1500, 64, False, 0, "bfloat16"),
+    ("mma.sync D=96", 1, 2, 2, 100, 100, 96, False, 0, "bfloat16"),
+    ("f32 D=128", 1, 4, 1, 384, 384, 128, True, 0, "float32"),
+    ("bf16 D=192", 1, 4, 2, 130, 200, 192, True, 64, "bfloat16"),
+]
+# each family's prefill attention (phases 18 and 20): the forward's times
+FLASH_FWD = [
+    ("granite", 4, 16, 8, 4096, 4096, 64, True, 0),
+    ("deepseek", 4, 32, 32, 4096, 4096, 128, True, 0),
+    ("internvl2", 4, 48, 8, 4096, 4096, 128, True, 0),
+    ("recurrentgemma", 4, 10, 1, 4096, 4096, 256, True, 2048),
+]
+
+
+def flash_forward(v: dict, q, k, v_, causal, window, lse=False):
+    return v["flash"].flash_attention_cuda(q, k, v_, causal=causal, window=window,
+                                           **({"return_lse": True} if lse else {}))
+
+
+def flash_backward(v: dict, q, k, v_, o, lse, do, causal, window):
+    """The version's backward: given the forward's log-sum-exp where its
+    wrapper takes one, else without it."""
+    import inspect
+
+    fn = v["flash_bwd"].flash_attention_backward_cuda
+    args = (q, k, v_, o, do, lse) if "lse" in inspect.signature(fn).parameters else \
+        (q, k, v_, o, do)
+    return fn(*args, causal=causal, window=window)
+
+
+def flash_outputs(v: dict, device) -> dict:
+    """The forward's output of each FLASH_SAME case, on the CPU."""
+    from chip_smoke import flash_inputs
+
+    out = {}
+    for label, B, Hq, Hkv, S, Skv, D, causal, window, dtype in FLASH_SAME:
+        q, k, v_ = flash_inputs(B, Hq, Hkv, S, Skv, D, dtype, B * 131 + S, device)
+        out[label] = flash_forward(v, q, k, v_, causal, window).cpu()
+    return out
+
+
+def time_flash(v: dict, label: str, device, out: dict) -> None:
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import FLASH_BWD_CASES, cuda_ms, flash_inputs
+
+    has_lse = "return_lse" in inspect.signature(v["flash"].flash_attention_cuda).parameters
+    for name, B, Hq, Hkv, S, Skv, D, causal, window in FLASH_FWD:
+        q, k, v_ = flash_inputs(B, Hq, Hkv, S, Skv, D, "bfloat16", 18 + D, device)
+        call = cuda_ms(lambda: flash_forward(v, q, k, v_, causal, window), iters=10)
+        parts = {}
+        dev, per_call = profile_call(lambda: flash_forward(v, q, k, v_, causal, window), 10,
+                                     parts)
+        row = dict(version=label, cuda_ms=call, device_ms=dev, kernels_per_call=per_call,
+                   parts=parts)
+        if has_lse:   # the training forward: the same launch writes the log-sum-exp
+            row["with_lse_cuda_ms"] = cuda_ms(
+                lambda: flash_forward(v, q, k, v_, causal, window, lse=True), iters=10)
+        out.setdefault(f"flash forward {name}", []).append(row)
+        print(f"[compare] {label} flash forward {name} [{B}, {Hq}, {S}, {D}] on {Hkv} kv heads: "
+              f"{call:.4f} ms a call (CUDA events), {dev:.4f} ms device time "
+              f"({', '.join(f'{k} {t:.4f}' for k, t in parts.items())})"
+              + (f", {row['with_lse_cuda_ms']:.4f} ms a call with the log-sum-exp"
+                 if has_lse else ""))
+        del q, k, v_
+    for name, B, Hq, Hkv, S, Skv, D, causal, window in FLASH_BWD_CASES:
+        q, k, v_ = flash_inputs(B, Hq, Hkv, S, Skv, D, "bfloat16", S + D, device)
+        do = torch.from_numpy(np.random.default_rng(S + D + 1).standard_normal(
+            tuple(q.shape), dtype=np.float32)).to(device=device, dtype=q.dtype)
+        o, lse = (flash_forward(v, q, k, v_, causal, window, lse=True) if has_lse else
+                  (flash_forward(v, q, k, v_, causal, window), None))
+
+        def fn():
+            return flash_backward(v, q, k, v_, o, lse, do, causal, window)
+        call = cuda_ms(fn, iters=5)
+        parts = {}
+        dev, per_call = profile_call(fn, 3, parts)
+        out.setdefault(f"flash backward {name}", []).append(
+            dict(version=label, cuda_ms=call, device_ms=dev, kernels_per_call=per_call,
+                 parts=parts))
+        print(f"[compare] {label} flash backward {name} [{B}, {Hq}, {S}, {D}] on {Hkv} kv heads: "
+              f"{call:.4f} ms a call (CUDA events), {dev:.4f} ms device time "
+              f"({', '.join(f'{k} {t:.4f}' for k, t in parts.items())})")
+        del q, k, v_, o, lse, do
+        torch.cuda.empty_cache()
 
 
 def profile_call(fn, iters: int, parts: dict | None = None) -> tuple[float, float]:
@@ -216,6 +321,8 @@ def main() -> int:
                     help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=0,
                     help="engine rounds a run for the rounds/s comparison (0: none)")
+    ap.add_argument("--flash", action="store_true",
+                    help="compare the flash attention kernels instead of the engine's")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
@@ -230,10 +337,11 @@ def main() -> int:
     versions = {"other": load_version(import_package(args.other / "src", "other_repro_torch")
                                       .__name__),
                 "this": load_version(import_package(ROOT / "src", "repro_torch").__name__)}
+    sources = ["flash_attention", "flash_attention_bwd"] if args.flash else \
+        ["assign", "fused", "segment_sum"]
     for label, v in versions.items():
-        print(f"[compare] {label} build seconds "
-              f"{v['build'].build(['assign', 'fused', 'segment_sum'])}")
-        for name in ("fused", "assign"):       # ptxas registers and spills, kernel by kernel
+        print(f"[compare] {label} build seconds {v['build'].build(sources)}")
+        for name in sources[:2]:               # ptxas registers and spills, kernel by kernel
             kernel = ""
             for line in v["build"].build_log(name).splitlines():
                 if "Compiling entry function" in line:
@@ -242,7 +350,19 @@ def main() -> int:
                     print(f"[compare] {label} {name} {kernel}: "
                           f"{line.replace('ptxas info    :', '').strip()}")
     out: dict = {"card": gpu_name_and_power()}
-    for label in ("other", "this", "this", "other"):
+    if args.flash:
+        import torch
+
+        same = {label: flash_outputs(v, device) for label, v in versions.items()}
+        for case in same["this"]:
+            equal = torch.equal(same["this"][case], same["other"][case])
+            out.setdefault("flash forward bits equal", {})[case] = equal
+            print(f"[compare] flash forward {case}: output bit for bit the other version's: "
+                  f"{equal}")
+        for label in ("other", "this", "this", "other"):
+            time_flash(versions[label], label, device, out)
+        args.rounds = 0
+    for label in ("other", "this", "this", "other") if not args.flash else ():
         for time_kernel in (time_fused, time_assign, time_segsum):
             time_kernel(versions[label], label, device, out)
     if args.rounds:

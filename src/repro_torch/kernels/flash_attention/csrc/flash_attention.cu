@@ -11,43 +11,53 @@
 // without causality too (the Pallas kernel attends to its zero-padded keys
 // there).
 //
+// The log-sum-exp contract with the backward (flash_attention_bwd.cu): when
+// the caller passes an lse pointer (training), every route also stores each
+// row's log-sum-exp of the scaled, masked scores, m + log(l) in natural-log
+// units, as f32 [B,Hq,S]; a row that keeps no key (causal with S > Skv)
+// gets +inf, so that the backward's exp(s - lse) is 0 there.  It is one
+// store a row in each epilogue: the output keeps the same bits with or
+// without it.  Serving passes no pointer and nothing more is written.
+//
 // Bound: at the serving shape (B=4, H=32, S=Skv=4096, D=128, causal) the two
 // products are 4*B*H*S^2*D/2 = 0.55 TFLOP against 0.54 GB of q, k, v and o,
 // so the work, not the bytes, bounds it: 0.56 ms at the card's 989 TFLOP/s of
-// dense bf16.
+// dense bf16.  recurrentgemma's [4, 10, 4096, 256] with a 2048-key window:
+// 0.26 TFLOP of kept pairs, 0.26 ms.
 //
-// Three kernels, one per path; none uses atomics, so every run gives the
+// Three kernels, one per route; none uses atomics, so every run gives the
 // same bits.  Each CTA owns one (q tile, head, batch), the heaviest causal
 // tiles first.  The TPU grid's sequential KV axis is a loop inside the CTA
 // that carries the running max m, sum l and the accumulator in registers;
 // tiles wholly in the future or behind the window are never visited.
 //
-// flash_fwd_kernel_wgmma (bfloat16, D = 64 or 128: the serving configs):
-// Hopper's asynchronous path.
-//   Tiles: 128 q rows a CTA against KV tiles of 128 keys.  384 threads:
-//   warpgroup 0 is the producer, of which one thread issues the loads;
-//   warpgroups 1 and 2 are consumers of 64 q rows each.
+// flash_fwd_kernel_wgmma (bfloat16, D = 64, 128 or 256: every family's
+// attention): Hopper's asynchronous path.
+//   Tiles: 128 q rows a CTA against KV tiles of 128 keys (64 at D = 256).
+//   384 threads: warpgroup 0 is the producer, of which one thread issues the
+//   loads; warpgroups 1 and 2 are consumers of 64 q rows each.
 //   Loads: the TMA (cp.async.bulk.tensor, 4-D maps over (D, seq, head,
 //   batch) built on the host per call from the tensors' own pointers and
 //   strides, so the transposed projection views are read without a copy)
 //   loads Q once and K and V into rings of 2 stages.  Each stage has a full
 //   barrier (mbarrier transaction bytes) and an empty barrier, which the 8
 //   consumer warps release, for K and for V apart.  A box is 64 columns
-//   (128 bytes) x 128 rows in the 128-byte swizzle, so a D = 128 row is two
-//   boxes.  Rows past S or Skv load as zeros.
-//   Products: S = Q K^T is wgmma m64n128k16 with Q and K from shared memory
-//   (both K-major); O += P V is wgmma m64n{D}k16 with P from registers (the
-//   S accumulator of 16 keys is the A fragment of one k-step) and V from
-//   shared memory in the transpose-B (MN-major) form.  P is split into bf16
-//   hi and lo halves as below, so P V runs twice: 1.5x the tensor work of
-//   the useful 4*S*Skv*D FLOP a head (the bound counts only the useful).
+//   (128 bytes) x the tile's rows in the 128-byte swizzle, so a row of D is
+//   D/64 boxes.  Rows past S or Skv load as zeros.
+//   Products: S = Q K^T is wgmma m64n128k16 (m64n64k16 at D = 256) with Q
+//   and K from shared memory (both K-major); O += P V is wgmma m64n{D}k16
+//   (two m64n128k16 at D = 256) with P from registers (the S accumulator of
+//   16 keys is the A fragment of one k-step) and V from shared memory in the
+//   transpose-B (MN-major) form.  P is split into bf16 hi and lo halves as
+//   below, so P V runs twice: 1.5x the tensor work of the useful 4*S*Skv*D
+//   FLOP a head (the bound counts only the useful).
 //   Schedule: a consumer issues Q K^T of tile j and P V of tile j - 1 as one
 //   block, waits for it, then runs tile j's softmax.  The two consumers take
 //   turns through named barriers (ping-pong), so one's softmax on the CUDA
 //   cores runs while the other's block keeps the tensor cores busy.  Within
 //   a warpgroup the softmax does not overlap its own products (that would
-//   keep 64 words of P live through the softmax and spill), and the output
-//   goes from registers to global memory (no TMA store).
+//   keep the next tile's P live through the softmax and spill), and the
+//   output goes from registers to global memory (no TMA store).
 //   Softmax: f32, the product scaled after Q K^T by scale * log2(e), and
 //   exponentials in base 2 (one MUFU ex2.approx each, relative error
 //   ~2^-22, far below the ~2^-17 at which P enters P V).  Only tiles that cut
@@ -55,14 +65,17 @@
 //   apply a mask; the ~94% of visited tiles wholly inside skip it.
 //   Registers: setmaxnreg gives the producer warpgroup 24 registers and each
 //   consumer 240 (128 x 24 + 256 x 240 = 64,512 of the SM's 65,536): a
-//   consumer holds 64 f32 scores, D/2 f32 outputs and 64 bf16x2 words of P.
-//   One CTA an SM (161 KB of shared memory at D = 128).
-//   cuTensorMapEncodeTiled is fetched through cudaGetDriverEntryPoint, so the
-//   library links no libcuda and the build flags stay those of every source.
-//   At the serving shape the work bounds it (below): the tensor cores' time
-//   for 1.5x the useful FLOP is 0.83 ms; the f32 softmax and the split of P
-//   on the CUDA cores, which the ping-pong hides only in part, and each
-//   CTA's unoverlapped first and last blocks keep it above that.
+//   consumer holds BK/2 f32 scores, D/2 f32 outputs and BK/2 bf16x2 words of
+//   P.  At D = 256 the output alone is 128 registers, which is why the key
+//   tile drops to 64 there: 128 + 32 + 32 leave room for the rest.
+//   Shared memory: one CTA an SM, 81 KB at D = 64, 161 KB at D = 128, 193 KB
+//   at D = 256 (Q 64 KB, two stages of 64-key K and V tiles 128 KB).
+//   cuTensorMapEncodeTiled is fetched through cudaGetDriverEntryPoint
+//   (hopper.cuh), so the library links no libcuda and the build flags stay
+//   those of every source.  At the serving shape the work bounds it: the
+//   tensor cores' time for 1.5x the useful FLOP is 0.83 ms; the f32 softmax
+//   and the split of P on the CUDA cores, which the ping-pong hides only in
+//   part, and each CTA's unoverlapped first and last blocks keep it above that.
 //
 // flash_fwd_kernel_mma (bfloat16, D = 16, 32 or 96): 64 q rows a CTA, 4
 // warps of 16 rows each, the products on the tensor cores with mma.sync
@@ -77,20 +90,22 @@
 // the P V tensor work.  q, k and v rows must start on 16 bytes (the wrapper
 // copies a tensor that does not).
 //
-// flash_fwd_kernel (float32, and bfloat16 with D > 128): every product in f32
-// on the CUDA cores (bf16 widened when staged), so its ceiling is the card's
-// 67 TFLOP/s of f32 FMA.  256 threads; thread (rg, cg) owns rows 4rg..4rg+3,
-// score columns 4cg..4cg+3 and D/16 output columns; a row's 16 threads are
-// one half-warp, so row max and sum are shuffle reductions.  K is staged
-// transposed (kt[d][col]) for Q K^T, then V (v[col][d]) in the same buffer;
-// q is scaled in f32 before the product, as in the TPU kernel.
+// flash_fwd_kernel (float32 at every D, and bfloat16 at D = 192): every
+// product in f32 on the CUDA cores (bf16 widened when staged), so its
+// ceiling is the card's 67 TFLOP/s of f32 FMA.  256 threads; thread (rg, cg)
+// owns rows 4rg..4rg+3, score columns 4cg..4cg+3 and D/16 output columns; a
+// row's 16 threads are one half-warp, so row max and sum are shuffle
+// reductions.  K is staged transposed (kt[d][col]) for Q K^T, then V
+// (v[col][d]) in the same buffer; q is scaled in f32 before the product, as
+// in the TPU kernel.
 //
 // Shared memory is dynamic (above the 48 KB static limit), after
-// cudaFuncSetAttribute: 161 KB for the wgmma kernel at D = 128, at most
-// 39 KB for the mma.sync one, 87 KB for the f32 one at D = 128.
+// cudaFuncSetAttribute: at most 39 KB for the mma.sync kernel, 87 KB for the
+// f32 one at D = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -107,6 +122,12 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// The log-sum-exp of a row from its max m and sum l of exp(s - m), natural
+// units; +inf for a row that keeps no key, so that exp(s - lse) is 0.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : INFINITY;
+}
 
 template <int D>
 struct Smem {
@@ -130,8 +151,8 @@ __device__ __forceinline__ int out_col(int j, int cg) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int hq, int group, int s_len, int skv,
-                 long long q_sb, long long q_sh, long long q_ss,
+                 T* __restrict__ o, float* __restrict__ lse, int hq, int group, int s_len,
+                 int skv, long long q_sb, long long q_sh, long long q_ss,
                  long long k_sb, long long k_sh, long long k_ss,
                  long long v_sb, long long v_sh, long long v_ss,
                  float scale, int causal, int window) {
@@ -271,22 +292,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
 
-  T* ob = o + (static_cast<long long>(b) * hq + h) * s_len * D;
+  const long long row_base = (static_cast<long long>(b) * hq + h) * s_len + q0;
+  T* ob = o + row_base * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg * 4 + i;
     if (r >= rows) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = ob + static_cast<long long>(q0 + r) * D;
+    T* orow = ob + static_cast<long long>(r) * D;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) store(orow + out_col<D>(j, cg), acc[i][j] / den);
+    if (lse != nullptr && cg == 0) lse[row_base + r] = row_lse(m[i], l[i]);
   }
 }
 
 template <typename T, int D>
-cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o, int batch, int hq,
-                         int hkv, int s_len, int skv, const long long* st, float scale, int causal,
-                         int window, cudaStream_t stream) {
+cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int batch, int hq, int hkv, int s_len, int skv, const long long* st,
+                         float scale, int causal, int window, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, D>;
   const int bytes = static_cast<int>(Smem<D>::kBytes);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -294,27 +317,36 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o, i
   const dim3 grid((s_len + kBlockQ - 1) / kBlockQ, hq, batch);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), hq, hq / hkv, s_len, skv, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], scale, causal, window);
+      static_cast<T*>(o), lse, hq, hq / hkv, s_len, skv, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], scale, causal, window);
   return cudaGetLastError();
 }
 
+// f32 at every D; bf16 only at D = 192, where no tensor-core kernel reaches,
+// so no other bf16 instantiation is compiled
 template <typename T>
-cudaError_t launch_head_dim(int d, const void* q, const void* k, const void* v, void* o, int batch,
-                            int hq, int hkv, int s_len, int skv, const long long* st, float scale,
-                            int causal, int window, cudaStream_t stream) {
-#define FLASH_CASE(DIM)                                                                      \
-  case DIM:                                                                                  \
-    return launch_typed<T, DIM>(q, k, v, o, batch, hq, hkv, s_len, skv, st, scale, causal, \
+cudaError_t launch_head_dim(int d, const void* q, const void* k, const void* v, void* o,
+                            float* lse, int batch, int hq, int hkv, int s_len, int skv,
+                            const long long* st, float scale, int causal, int window,
+                            cudaStream_t stream) {
+#define FLASH_CASE(DIM)                                                                        \
+  case DIM:                                                                                    \
+    return launch_typed<T, DIM>(q, k, v, o, lse, batch, hq, hkv, s_len, skv, st, scale, causal, \
                                 window, stream);
+  if constexpr (sizeof(T) == sizeof(float)) {
+    switch (d) {
+      FLASH_CASE(16)
+      FLASH_CASE(32)
+      FLASH_CASE(64)
+      FLASH_CASE(96)
+      FLASH_CASE(128)
+      FLASH_CASE(256)
+      default:
+        break;
+    }
+  }
   switch (d) {
-    FLASH_CASE(16)
-    FLASH_CASE(32)
-    FLASH_CASE(64)
-    FLASH_CASE(96)
-    FLASH_CASE(128)
     FLASH_CASE(192)
-    FLASH_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
@@ -379,8 +411,8 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int hq,
-                     int group, int s_len, int skv, long long q_sb, long long q_sh,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int hq, int group, int s_len, int skv, long long q_sb, long long q_sh,
                      long long q_ss, long long k_sb, long long k_sh, long long k_ss,
                      long long v_sb, long long v_sh, long long v_ss, float scale, int causal,
                      int window) {
@@ -510,7 +542,8 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     }
   }
 
-  __nv_bfloat16* ob = o + (static_cast<long long>(b) * hq + h) * s_len * D;
+  const long long row_base = (static_cast<long long>(b) * hq + h) * s_len + q0;
+  __nv_bfloat16* ob = o + row_base * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -518,19 +551,20 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     const int r = r0 + 8 * i;
     if (r >= rows) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = ob + static_cast<long long>(q0 + r) * D + 2 * t;
+    __nv_bfloat16* orow = ob + static_cast<long long>(r) * D + 2 * t;
 #pragma unroll
     for (int j = 0; j < kDTiles; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
           __floats2bfloat162_rn(acc[j][2 * i] / den, acc[j][2 * i + 1] / den);
     }
+    if (lse != nullptr && t == 0) lse[row_base + r] = row_lse(m[i], l[i]);
   }
 }
 
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int batch, int hq,
-                       int hkv, int s_len, int skv, const long long* st, float scale, int causal,
-                       int window, cudaStream_t stream) {
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int batch, int hq, int hkv, int s_len, int skv, const long long* st,
+                       float scale, int causal, int window, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel_mma<D>;
   const int bytes = static_cast<int>(MmaSmem<D>::kBytes);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -538,21 +572,21 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid((s_len + kBlockQ - 1) / kBlockQ, hq, batch);
   kernel<<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), hq, hq / hkv, s_len,
-      skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, window);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, hq, hq / hkv,
+      s_len, skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, window);
   return cudaGetLastError();
 }
 
 bool uses_mma(int dtype, int d) { return dtype == 1 && (d == 16 || d == 32 || d == 96); }
 
 cudaError_t launch_mma_head_dim(int d, const void* q, const void* k, const void* v, void* o,
-                                int batch, int hq, int hkv, int s_len, int skv,
+                                float* lse, int batch, int hq, int hkv, int s_len, int skv,
                                 const long long* st, float scale, int causal, int window,
                                 cudaStream_t stream) {
-#define FLASH_MMA_CASE(DIM)                                                                  \
-  case DIM:                                                                                  \
-    return launch_mma<DIM>(q, k, v, o, batch, hq, hkv, s_len, skv, st, scale, causal, window, \
-                           stream);
+#define FLASH_MMA_CASE(DIM)                                                                   \
+  case DIM:                                                                                   \
+    return launch_mma<DIM>(q, k, v, o, lse, batch, hq, hkv, s_len, skv, st, scale, causal,    \
+                           window, stream);
   switch (d) {
     FLASH_MMA_CASE(16)
     FLASH_MMA_CASE(32)
@@ -567,18 +601,27 @@ cudaError_t launch_mma_head_dim(int d, const void* q, const void* k, const void*
 // ------------------------------------- Hopper tensor-core (bf16, wgmma) ---
 
 constexpr int kWgBlockQ = 128;       // q rows a CTA: two consumer warpgroups of 64
-constexpr int kWgBlockK = 128;       // keys a KV tile
 constexpr int kWgThreads = 384;      // producer warpgroup + two consumer warpgroups
 constexpr int kWgStages = 2;         // K/V ring depth
-constexpr int kBoxBytes = 128 * 128; // one TMA box: 128 rows of 64 bf16 (128 bytes), 16 KB
+constexpr float kLn2 = 0.6931471805599453f;
 
+// The tiles of the wgmma kernel at head dimension D.  A tile of R rows is
+// stored as D/64 column blocks of R rows x 128 bytes (one TMA box each, in
+// the 128-byte swizzle), so a column block of Q is 16 KB and one of a K or V
+// tile kBK * 128 bytes.
 template <int D>
 struct WgSmem {
-  static constexpr int kTile = (D / 64) * kBoxBytes;  // 128 rows x D, as D/64 boxes
+  static constexpr int kBK = D == 256 ? 64 : 128;   // keys a KV tile
+  static constexpr int kS = kBK / 2;                // f32 scores a consumer thread holds
+  static constexpr int kPSteps = kBK / 16;          // k-steps of P V
+  static constexpr int kQBlock = kWgBlockQ * 128;
+  static constexpr int kKvBlock = kBK * 128;
+  static constexpr int kQTile = (D / 64) * kQBlock;
+  static constexpr int kKvTile = (D / 64) * kKvBlock;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile;
-  static constexpr int kV = kK + kWgStages * kTile;
-  static constexpr int kBar = kV + kWgStages * kTile;
+  static constexpr int kK = kQ + kQTile;
+  static constexpr int kV = kK + kWgStages * kKvTile;
+  static constexpr int kBar = kV + kWgStages * kKvTile;
   static constexpr int kBars = 1 + 4 * kWgStages;  // q_full, k_full[], v_full[], k_empty[], v_empty[]
   static constexpr size_t kBytes = kBar + 8 * kBars + 1024;  // + room to align the base
 };
@@ -593,12 +636,12 @@ __device__ __forceinline__ float ex2(float x) {
 
 // Scale the scores of one KV tile and take each row's max; with kMask, also
 // mask them (bit j of `live` says whether score j is kept).
-template <bool kMask>
-__device__ __forceinline__ void scale_and_max(float (&s)[64], uint64_t& live, float (&mx)[2],
+template <bool kMask, int N>
+__device__ __forceinline__ void scale_and_max(float (&s)[N], uint64_t& live, float (&mx)[2],
                                               float scale, int pos0, int col0, int skv,
                                               int causal, int window) {
 #pragma unroll
-  for (int j = 0; j < 64; ++j) {
+  for (int j = 0; j < N; ++j) {
     if constexpr (kMask) {
       const int row = pos0 + 8 * ((j >> 1) & 1);
       const int col = col0 + (j >> 2) * 8 + (j & 1);
@@ -612,11 +655,11 @@ __device__ __forceinline__ void scale_and_max(float (&s)[64], uint64_t& live, fl
   }
 }
 
-template <bool kMask>
-__device__ __forceinline__ void exp_and_sum(float (&s)[64], uint64_t live, const float (&m)[2],
+template <bool kMask, int N>
+__device__ __forceinline__ void exp_and_sum(float (&s)[N], uint64_t live, const float (&m)[2],
                                             float (&l)[2]) {
 #pragma unroll
-  for (int j = 0; j < 64; ++j) {
+  for (int j = 0; j < N; ++j) {
     const int i = (j >> 1) & 1;
     if constexpr (kMask) {
       s[j] = (live >> j) & 1u ? ex2(s[j] - m[i]) : 0.f;
@@ -631,7 +674,8 @@ __device__ __forceinline__ void exp_and_sum(float (&s)[64], uint64_t live, const
 // whole, mask) the scores, update the row max m and this thread's share of
 // the row sum l, and leave p = exp(s - m) in s; alpha rescales the output.
 // The scale carries log2(e), so m is in base 2 and p = 2^(s - m).
-__device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2], float (&l)[2],
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N], float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], bool whole, float scale,
                                                int pos0, int col0, int skv, int causal,
                                                int window) {
@@ -660,10 +704,11 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2], fl
 
 // P as bf16 hi and lo halves in the A fragment layout: the accumulator of
 // keys 16kk..16kk+15 is k-step kk's A fragment.
-__device__ __forceinline__ void split_p(const float (&s)[64], uint32_t (&ph)[8][4],
-                                        uint32_t (&pl)[8][4]) {
+template <int K>
+__device__ __forceinline__ void split_p(const float (&s)[8 * K], uint32_t (&ph)[K][4],
+                                        uint32_t (&pl)[K][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < K; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       split_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);
@@ -671,41 +716,65 @@ __device__ __forceinline__ void split_p(const float (&s)[64], uint32_t (&ph)[8][
   }
 }
 
-__device__ __forceinline__ void fence_p(uint32_t (&ph)[8][4], uint32_t (&pl)[8][4]) {
+template <int K>
+__device__ __forceinline__ void fence_p(uint32_t (&ph)[K][4], uint32_t (&pl)[K][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < K; ++kk) {
     hopper::fence_regs(ph[kk]);
     hopper::fence_regs(pl[kk]);
   }
 }
 
 // S = Q K^T of one warpgroup's 64 rows: D/16 k-steps, a k-step 32 bytes into
-// a 128-byte swizzled row, the second 64 columns of D one box (16 KB) on.
+// a 128-byte swizzled row, each further 64 columns of D one column block on.
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr, uint32_t k_addr) {
+__device__ __forceinline__ void issue_qk(float (&s)[WgSmem<D>::kS], uint32_t q_addr,
+                                         uint32_t k_addr) {
+  using L = WgSmem<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    hopper::wgmma_m64n128k16_ss(s, hopper::make_desc(q_addr + off, 16, 1024),
-                                hopper::make_desc(k_addr + off, 16, 1024), kk > 0);
+    const uint64_t dq = hopper::make_desc(q_addr + (kk / 4) * L::kQBlock + (kk % 4) * 32, 16, 1024);
+    const uint64_t dk = hopper::make_desc(k_addr + (kk / 4) * L::kKvBlock + (kk % 4) * 32, 16, 1024);
+    if constexpr (L::kBK == 128) {
+      hopper::wgmma_m64n128k16_ss(s, dq, dk, kk > 0);
+    } else {
+      hopper::wgmma_m64n64k16_ss(s, dq, dk, kk > 0);
+    }
+  }
+}
+
+// acc[64 x N] += A B with A the register fragment `a` (16 of the reduced
+// index) and B from shared memory, MN-major (the transpose-B form): N = 64,
+// 128, or 256 as two products of 128 columns.  `b_addr` is the k-step's first
+// row, `block` the bytes between B's 64-column blocks.
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&acc)[N / 2], const uint32_t (&a)[4],
+                                       uint32_t b_addr, uint32_t block) {
+  if constexpr (N == 64) {
+    hopper::wgmma_m64n64k16_rs(acc, a, hopper::make_desc(b_addr, block, 1024));
+  } else if constexpr (N == 128) {
+    hopper::wgmma_m64n128k16_rs(acc, a, hopper::make_desc(b_addr, block, 1024));
+  } else {
+    static_assert(N == 256, "mma_rs takes N = 64, 128 or 256");
+    hopper::wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(&acc[0]), a,
+                                hopper::make_desc(b_addr, block, 1024));
+    hopper::wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(&acc[64]), a,
+                                hopper::make_desc(b_addr + 2 * block, block, 1024));
   }
 }
 
 // O += P V, P as hi and lo halves: V is [keys, D], MN-major for the
-// product; a k-step is 16 keys (2 KB), the second 64 columns of D one box on.
+// product; a k-step is 16 keys (2 KB).
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&ph)[8][4],
-                                         const uint32_t (&pl)[8][4], uint32_t v_addr) {
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&ph)[WgSmem<D>::kPSteps][4],
+                                         const uint32_t (&pl)[WgSmem<D>::kPSteps][4],
+                                         uint32_t v_addr) {
+  using L = WgSmem<D>;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint64_t dv = hopper::make_desc(v_addr + kk * 16 * 128, kBoxBytes, 1024);
-    if constexpr (D == 128) {
-      hopper::wgmma_m64n128k16_rs(acc, ph[kk], dv);
-      hopper::wgmma_m64n128k16_rs(acc, pl[kk], dv);
-    } else {
-      hopper::wgmma_m64n64k16_rs(acc, ph[kk], dv);
-      hopper::wgmma_m64n64k16_rs(acc, pl[kk], dv);
-    }
+  for (int kk = 0; kk < L::kPSteps; ++kk) {
+    mma_rs<D>(acc, ph[kk], v_addr + kk * 16 * 128, L::kKvBlock);
+    mma_rs<D>(acc, pl[kk], v_addr + kk * 16 * 128, L::kKvBlock);
   }
 }
 
@@ -714,10 +783,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                       int hq, int group, int s_len, int skv, float scale, int causal,
-                       int window) {
+                       float* __restrict__ lse, int hq, int group, int s_len, int skv,
+                       float scale, int causal, int window) {
   using L = WgSmem<D>;
   constexpr int kBoxes = D / 64;
+  constexpr int kBK = L::kBK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -735,9 +805,9 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
   const int rows = min(kWgBlockQ, s_len - q0);
   const int q_lo = q0 + (skv - s_len);  // absolute position of the tile's first row
   const int q_hi = q_lo + rows - 1;
-  int kt_end = (skv + kWgBlockK - 1) / kWgBlockK;
-  if (causal) kt_end = q_hi >= 0 ? min(kt_end, q_hi / kWgBlockK + 1) : 0;
-  const int kt_begin = window > 0 ? max(0, q_lo - window + 1) / kWgBlockK : 0;
+  int kt_end = (skv + kBK - 1) / kBK;
+  if (causal) kt_end = q_hi >= 0 ? min(kt_end, q_hi / kBK + 1) : 0;
+  const int kt_begin = window > 0 ? max(0, q_lo - window + 1) / kBK : 0;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
@@ -756,23 +826,23 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       const int hk = h / group;
-      hopper::mbar_arrive_expect_tx(q_full, L::kTile);
+      hopper::mbar_arrive_expect_tx(q_full, L::kQTile);
       for (int c = 0; c < kBoxes; ++c)
-        hopper::tma_load_4d(smem + L::kQ + c * kBoxBytes, &tq, q_full, c * 64, q0, h, b);
+        hopper::tma_load_4d(smem + L::kQ + c * L::kQBlock, &tq, q_full, c * 64, q0, h, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k0 = kt * kWgBlockK;
-        unsigned char* ks = smem + L::kK + stage * L::kTile;
-        unsigned char* vs = smem + L::kV + stage * L::kTile;
+        const int k0 = kt * kBK;
+        unsigned char* ks = smem + L::kK + stage * L::kKvTile;
+        unsigned char* vs = smem + L::kV + stage * L::kKvTile;
         hopper::mbar_wait(k_empty + stage, phase ^ 1u);  // the first round passes at once
-        hopper::mbar_arrive_expect_tx(k_full + stage, L::kTile);
+        hopper::mbar_arrive_expect_tx(k_full + stage, L::kKvTile);
         for (int c = 0; c < kBoxes; ++c)
-          hopper::tma_load_4d(ks + c * kBoxBytes, &tk, k_full + stage, c * 64, k0, hk, b);
+          hopper::tma_load_4d(ks + c * L::kKvBlock, &tk, k_full + stage, c * 64, k0, hk, b);
         hopper::mbar_wait(v_empty + stage, phase ^ 1u);
-        hopper::mbar_arrive_expect_tx(v_full + stage, L::kTile);
+        hopper::mbar_arrive_expect_tx(v_full + stage, L::kKvTile);
         for (int c = 0; c < kBoxes; ++c)
-          hopper::tma_load_4d(vs + c * kBoxBytes, &tv, v_full + stage, c * 64, k0, hk, b);
+          hopper::tma_load_4d(vs + c * L::kKvBlock, &tv, v_full + stage, c * 64, k0, hk, b);
         if (++stage == kWgStages) {
           stage = 0;
           phase ^= 1u;
@@ -791,24 +861,24 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     const int r0 = cw * 64 + warp * 16 + g;         // this thread's tile rows r0 and r0 + 8
     const int pos0 = q_lo + r0;
     const int wg_lo = q_lo + cw * 64, wg_hi = wg_lo + 63;
-    // this warpgroup's 64 rows start 64 rows (8 KB, a whole number of swizzle atoms) into a box
+    // this warpgroup's 64 rows start 64 rows (8 KB, a whole number of swizzle atoms) into a block
     const uint32_t q_addr = hopper::smem_addr(smem + L::kQ) + cw * 64 * 128;
 
     float acc[D / 2];
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
-    float s[64];
-    uint32_t ph[8][4], pl[8][4];
+    float s[L::kS];
+    uint32_t ph[L::kPSteps][4], pl[L::kPSteps][4];
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's share of the row sum
     float alpha[2];
     const float scale_log2 = scale * 1.4426950408889634f;  // exponentials in base 2
     auto stage_addr = [&](int base, int st) {
-      return hopper::smem_addr(smem + base + st * L::kTile);
+      return hopper::smem_addr(smem + base + st * L::kKvTile);
     };
     // only tiles that cut the causal diagonal, the window's edge or the end
     // of the KV are masked
     auto whole = [&](int k0) {
-      return k0 + kWgBlockK <= skv && (!causal || k0 + kWgBlockK - 1 <= wg_lo) &&
+      return k0 + kBK <= skv && (!causal || k0 + kBK - 1 <= wg_lo) &&
              (window <= 0 || k0 > wg_hi - window);
     };
 
@@ -848,7 +918,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         if (pv) hopper::mbar_arrive(v_empty + prev);
       }
       if (qk) {
-        const int k0 = (kt_begin + j) * kWgBlockK;
+        const int k0 = (kt_begin + j) * kBK;
         online_softmax(s, m, l, alpha, whole(k0), scale_log2, pos0, k0 + 2 * t, skv, causal,
                        window);
 #pragma unroll
@@ -857,7 +927,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       }
     }
 
-    __nv_bfloat16* ob = o + (static_cast<long long>(b) * hq + h) * s_len * D;
+    const long long row_base = (static_cast<long long>(b) * hq + h) * s_len + q0;
+    __nv_bfloat16* ob = o + row_base * D;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -865,90 +936,40 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       const int r = r0 + 8 * i;
       if (r >= rows) continue;
       const float den = fmaxf(l[i], 1e-30f);
-      __nv_bfloat16* orow = ob + static_cast<long long>(q0 + r) * D + 2 * t;
+      __nv_bfloat16* orow = ob + static_cast<long long>(r) * D + 2 * t;
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
         *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) = __floats2bfloat162_rn(
             acc[dt * 4 + 2 * i] / den, acc[dt * 4 + 2 * i + 1] / den);
       }
+      // m is in base 2: lse = (m + log2 l) ln 2; a row that keeps no key gets +inf
+      if (lse != nullptr && t == 0)
+        lse[row_base + r] = l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : INFINITY;
     }
   }
-}
-
-// cuTensorMapEncodeTiled is a driver-API call: fetch it through the runtime
-// so that the library needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// Error codes of flash_attention_launch above every cudaError_t: a tensor map
-// that the driver refused (kTensorMapError + its CUresult), or no
-// cuTensorMapEncodeTiled at all.
-constexpr int kTensorMapError = 100000;
-constexpr int kNoEncoder = 200000;
-
-// A [batch, heads, seq, D] bf16 tensor with the given element strides (last
-// dimension contiguous) as a 4-D map (D, seq, heads, batch) whose box is 64
-// columns x 128 rows, written to shared memory with the 128-byte swizzle.
-// Rows past `seq` read as zeros.
-int encode_map(CUtensorMap* map, const void* ptr, int d, int seq, int heads, int batch,
-               long long s_b, long long s_h, long long s_s) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kNoEncoder;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_s) * 2,
-                                 static_cast<cuuint64_t>(s_h) * 2,
-                                 static_cast<cuuint64_t>(s_b) * 2};
-  const cuuint32_t box[4] = {64, 128, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(res);
 }
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int hq, int hkv,
-                 int s_len, int skv, const long long* st, float scale, int causal, int window,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                 int hq, int hkv, int s_len, int skv, const long long* st, float scale,
+                 int causal, int window, cudaStream_t stream) {
+  using L = WgSmem<D>;
   CUtensorMap tq, tk, tv;
-  int rc = encode_map(&tq, q, D, s_len, hq, batch, st[0], st[1], st[2]);
-  if (rc == 0) rc = encode_map(&tk, k, D, skv, hkv, batch, st[3], st[4], st[5]);
-  if (rc == 0) rc = encode_map(&tv, v, D, skv, hkv, batch, st[6], st[7], st[8]);
+  int rc = hopper::encode_map(&tq, q, D, s_len, hq, batch, st[0], st[1], st[2], kWgBlockQ);
+  if (rc == 0) rc = hopper::encode_map(&tk, k, D, skv, hkv, batch, st[3], st[4], st[5], L::kBK);
+  if (rc == 0) rc = hopper::encode_map(&tv, v, D, skv, hkv, batch, st[6], st[7], st[8], L::kBK);
   if (rc != 0) return rc;
   auto kernel = flash_fwd_kernel_wgmma<D>;
-  const int bytes = static_cast<int>(WgSmem<D>::kBytes);
+  const int bytes = static_cast<int>(L::kBytes);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s_len + kWgBlockQ - 1) / kWgBlockQ, hq, batch);
-  kernel<<<grid, kWgThreads, bytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), hq,
-                                              hq / hkv, s_len, skv, scale, causal, window);
+  kernel<<<grid, kWgThreads, bytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
+                                              hq, hq / hkv, s_len, skv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool uses_wgmma(int dtype, int d) { return dtype == 1 && (d == 64 || d == 128); }
+bool uses_wgmma(int dtype, int d) { return dtype == 1 && (d == 64 || d == 128 || d == 256); }
 
 }  // namespace
 
@@ -968,37 +989,49 @@ extern "C" int flash_attention_row_align(int dtype, int d) {
 // Dynamic shared memory, in bytes, of a CTA of the wgmma kernel at head
 // dimension d; 0 where bf16 at d does not run it.
 extern "C" int flash_attention_wgmma_smem_bytes(int d) {
-  return d == 128 ? static_cast<int>(WgSmem<128>::kBytes)
-         : d == 64 ? static_cast<int>(WgSmem<64>::kBytes)
-                   : 0;
+  return d == 256   ? static_cast<int>(WgSmem<256>::kBytes)
+         : d == 128 ? static_cast<int>(WgSmem<128>::kBytes)
+         : d == 64  ? static_cast<int>(WgSmem<64>::kBytes)
+                    : 0;
 }
 
 // Launch on `stream`.  dtype 0 is float32, 1 is bfloat16 (q, k, v and o alike).
 // strides holds (batch, head, seq) element strides of q, k and v in that order;
 // the last dimension of each is contiguous.  o is a contiguous [B, Hq, S, D].
-// Returns cudaGetLastError() after the launch, or a tensor-map error code
-// (kTensorMapError + CUresult, kNoEncoder) from the wgmma path.
+// lse, when not null, is a contiguous f32 [B, Hq, S] that receives each row's
+// log-sum-exp of the scaled, masked scores (natural log; +inf for a row that
+// keeps no key); with null nothing more is written.  Returns cudaGetLastError()
+// after the launch, or a tensor-map error code (kTensorMapError + CUresult,
+// kNoEncoder) from the wgmma path.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int dtype, int batch, int hq, int hkv, int s_len, int skv,
-                                      int d, const long long* strides, float scale, int causal,
-                                      int window, void* stream) {
+                                      float* lse, int dtype, int batch, int hq, int hkv,
+                                      int s_len, int skv, int d, const long long* strides,
+                                      float scale, int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (batch == 0 || hq == 0 || s_len == 0) return static_cast<int>(cudaSuccess);
   if (hkv <= 0 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (uses_wgmma(dtype, d)) {
-    return d == 128 ? launch_wgmma<128>(q, k, v, o, batch, hq, hkv, s_len, skv, strides, scale,
-                                        causal, window, st)
-                    : launch_wgmma<64>(q, k, v, o, batch, hq, hkv, s_len, skv, strides, scale,
-                                       causal, window, st);
+#define FLASH_WG_CASE(DIM)                                                                    \
+  case DIM:                                                                                   \
+    return launch_wgmma<DIM>(q, k, v, o, lse, batch, hq, hkv, s_len, skv, strides, scale,     \
+                             causal, window, st);
+    switch (d) {
+      FLASH_WG_CASE(64)
+      FLASH_WG_CASE(128)
+      FLASH_WG_CASE(256)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef FLASH_WG_CASE
   }
   cudaError_t err =
       uses_mma(dtype, d)
-      ? launch_mma_head_dim(d, q, k, v, o, batch, hq, hkv, s_len, skv, strides, scale, causal,
-                            window, st)
+      ? launch_mma_head_dim(d, q, k, v, o, lse, batch, hq, hkv, s_len, skv, strides, scale,
+                            causal, window, st)
       : dtype == 0
-      ? launch_head_dim<float>(d, q, k, v, o, batch, hq, hkv, s_len, skv, strides, scale, causal,
-                               window, st)
-      : launch_head_dim<__nv_bfloat16>(d, q, k, v, o, batch, hq, hkv, s_len, skv, strides, scale,
-                                       causal, window, st);
+      ? launch_head_dim<float>(d, q, k, v, o, lse, batch, hq, hkv, s_len, skv, strides, scale,
+                               causal, window, st)
+      : launch_head_dim<__nv_bfloat16>(d, q, k, v, o, lse, batch, hq, hkv, s_len, skv, strides,
+                                       scale, causal, window, st);
   return static_cast<int>(err);
 }

@@ -1,12 +1,14 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernel, in inline
+// Hopper (sm_90a) building blocks of the flash-attention kernels, in inline
 // PTX: mbarriers, TMA tensor loads, wgmma descriptors and products, and the
-// warpgroup register hand-over (setmaxnreg).  Each wrapper is one PTX
-// instruction or one short polling loop; see flash_attention.cu for how the
-// kernel puts them together.
+// warpgroup register hand-over (setmaxnreg); on the host, the TMA tensor maps.
+// Each device wrapper is one PTX instruction or one short polling loop; see
+// flash_attention.cu and flash_attention_bwd.cu for how the kernels put them
+// together.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -68,6 +70,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A 1-D box of `map` starting at element c0; elements past the end read as 0.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2}], [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -168,6 +180,20 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d[64x64] (+)= A[64x16] B[16x64]^T: both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_F32(0)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d[64x128] += A[64x16] B[16x128]: A from registers (the mma.sync m16k16
 // fragment layout, one 16-row slice a warp), B from shared memory MN-major
 // (the transpose-B form).
@@ -202,5 +228,75 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 #undef HOPPER_F32
 #undef HOPPER_D32
 #undef HOPPER_D64
+
+// ------------------------------------------------------ host: tensor maps ---
+
+// cuTensorMapEncodeTiled is a driver-API call: fetch it through the runtime
+// so that a library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// Error codes of the launchers above every cudaError_t: a tensor map that the
+// driver refused (kTensorMapError + its CUresult), or no cuTensorMapEncodeTiled.
+constexpr int kTensorMapError = 100000;
+constexpr int kNoEncoder = 200000;
+
+// A [batch, heads, seq, d] bf16 tensor with the given element strides (last
+// dimension contiguous) as a 4-D map (d, seq, heads, batch) whose box is 64
+// columns x `box_rows` rows, written to shared memory with the 128-byte
+// swizzle.  Rows past `seq` read as zeros.
+inline int encode_map(CUtensorMap* map, const void* ptr, int d, int seq, int heads, int batch,
+                      long long s_b, long long s_h, long long s_s, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_s) * 2,
+                                 static_cast<cuuint64_t>(s_h) * 2,
+                                 static_cast<cuuint64_t>(s_b) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(res);
+}
+
+// n contiguous floats as a 1-D map whose box is `box` elements, unswizzled.
+inline int encode_map_1d(CUtensorMap* map, const float* ptr, long long n, int box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {4};  // unread: a 1-D map has no outer stride
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t unit[1] = {1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr), dims,
+                          strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(res);
+}
 
 }  // namespace hopper

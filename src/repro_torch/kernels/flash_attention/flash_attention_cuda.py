@@ -5,10 +5,11 @@ Replaces the TPU kernel
 point ``flash_attention_pallas``).  At the serving shape (B=4, H=32,
 S=4096, D=128, causal) the kernel does 0.55 TFLOP against 0.54 GB of
 inputs and output, so it is bound by operations.  bfloat16 inputs with
-D = 64 or 128 run on Hopper's TMA, ``wgmma`` and warp-specialised path
+D = 64, 128 or 256 run on Hopper's TMA, ``wgmma`` and warp-specialised path
 (``flash_fwd_kernel_wgmma``); bf16 with D = 16, 32 or 96 on ``mma.sync``;
-float32 inputs, and bf16 with a larger D, in f32 on the CUDA cores.  See the
-source for the tiling.
+float32 inputs, and bf16 at D = 192, in f32 on the CUDA cores.  Every route
+writes each row's log-sum-exp when asked (``return_lse``), which the
+backward kernels read.  See the source for the tiling.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ def _lib():
         lib.flash_attention_wgmma_smem_bytes.argtypes = [i]
         lib.flash_attention_wgmma_smem_bytes.restype = i
         lib.flash_attention_launch.argtypes = [
-            p, p, p, p, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
+            p, p, p, p, p, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
             ctypes.c_float, i, i, p,
         ]
         lib.flash_attention_launch.restype = i
@@ -52,8 +53,8 @@ def _rows_aligned(t: torch.Tensor, align: int) -> bool:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, window: int = 0,
-                         scale: float | None = None) -> torch.Tensor:
+                         causal: bool = True, window: int = 0, scale: float | None = None,
+                         return_lse: bool = False):
     """Launch the kernel; same contract as ``ref.attention_ref``.  Takes
     ``q [B,Hq,S,D]`` and ``k``/``v [B,Hkv,Skv,D]`` of one dtype (float32 or
     bfloat16) on one CUDA device, each with a contiguous last dimension (other
@@ -62,7 +63,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     anything else.  A tensor whose rows do not start where the kernel needs
     (16 bytes on the tensor-core paths, the TMA's rule on the wgmma path) is
     copied first.  Returns a
-    contiguous ``[B,Hq,S,D]`` in q's dtype."""
+    contiguous ``[B,Hq,S,D]`` in q's dtype; with ``return_lse``, also each
+    row's log-sum-exp of the scaled, masked scores as a float32 ``[B,Hq,S]``
+    (natural log, +inf for a row that keeps no key), written by the same
+    launch."""
     global launches
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
@@ -90,10 +94,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                for t in (q, k, v))
     scale = float(scale if scale is not None else D ** -0.5)
     out = torch.empty((B, Hq, S, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) if return_lse else None
     strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in t.stride()[:3]))
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None, _DTYPES[q.dtype],
             B, Hq, Hkv, S, Skv, D, strides, scale, int(causal), int(window),
             _build.stream_handle(q.device),
         )
@@ -105,4 +111,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {rc}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

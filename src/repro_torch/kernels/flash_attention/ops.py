@@ -18,38 +18,41 @@ from .flash_attention_cuda import flash_attention_cuda
 from .ref import attention_bwd_ref, attention_ref
 
 
-def _forward(q, k, v, causal, window, scale):
+def _forward(q, k, v, causal, window, scale, return_lse=False):
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
-    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale,
+                                    return_lse=return_lse)
+    return attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                         return_lse=return_lse)
 
 
-def flash_attention_backward(q, k, v, o, do, *, causal=True, window=0, scale=None):
-    """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v, ...)`` given ``do``:
-    the Hopper backward kernel for CUDA tensors, its plain version for CPU
-    tensors."""
+def flash_attention_backward(q, k, v, o, do, lse, *, causal=True, window=0, scale=None):
+    """``(dq, dk, dv)`` of ``o, lse = flash_attention(q, k, v, ...)`` (the
+    forward's output and log-sum-exp) given ``do``: the Hopper backward
+    kernel for CUDA tensors, its plain version for CPU tensors."""
     if q.is_cuda:
-        return flash_attention_backward_cuda(q, k, v, o, do, causal=causal, window=window,
+        return flash_attention_backward_cuda(q, k, v, o, do, lse, causal=causal, window=window,
                                              scale=scale)
-    return attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, scale=scale)
+    return attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, scale=scale, lse=lse)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, unchanged, and its backward kernel.  Saves q, k, v
-    and the output; the backward recomputes the softmax from them."""
+    """The forward kernel, which also writes each row's log-sum-exp, and its
+    backward kernel.  Saves q, k, v, the output and the log-sum-exp; the
+    backward takes each row's softmax from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        o = _forward(q, k, v, causal, window, scale)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, window, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = (causal, window, scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         causal, window, scale = ctx.opts
-        dq, dk, dv = flash_attention_backward(q, k, v, o, do, causal=causal, window=window,
+        dq, dk, dv = flash_attention_backward(q, k, v, o, do, lse, causal=causal, window=window,
                                               scale=scale)
         return dq, dk, dv, None, None, None
 

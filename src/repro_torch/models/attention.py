@@ -154,7 +154,9 @@ def attention_decode(p, x_t: torch.Tensor, cfg: ModelConfig, cache: dict, kv_len
 
     If the cache buffer is no longer than the attention window, it is a
     *rolling* buffer: writes wrap modulo the buffer and every live entry is
-    in the window.
+    in the window.  Once the window is full, both kinds of cache attend to
+    its keys in position order (the rolling buffer rotated, the full one
+    sliced), so that the two give the same bits.
     """
     L = cache["k"].shape[2]
     rolling = cfg.window > 0 and L <= cfg.window
@@ -166,8 +168,16 @@ def attention_decode(p, x_t: torch.Tensor, cfg: ModelConfig, cache: dict, kv_len
     slot = kv_len % L if rolling else kv_len
     cache["k"][:, :, slot:slot + 1] = k
     cache["v"][:, :, slot:slot + 1] = v
-    if rolling:
-        o = decode_attention(q, cache["k"], cache["v"], kv_len=min(kv_len + 1, L))
+    if rolling and kv_len + 1 >= L:   # every slot live: the oldest key is in slot + 1
+        shift = -((slot + 1) % L)
+        o = decode_attention(q, torch.roll(cache["k"], shift, dims=2),
+                             torch.roll(cache["v"], shift, dims=2), kv_len=L)
+    elif rolling:
+        o = decode_attention(q, cache["k"], cache["v"], kv_len=kv_len + 1)
+    elif cfg.window > 0 and kv_len + 1 >= cfg.window:   # the window's keys only
+        lo = kv_len + 1 - cfg.window
+        o = decode_attention(q, cache["k"][:, :, lo:kv_len + 1], cache["v"][:, :, lo:kv_len + 1],
+                             kv_len=cfg.window)
     else:
         o = decode_attention(q, cache["k"], cache["v"], window=cfg.window, kv_len=kv_len + 1)
     return _merge_heads(o, cfg) @ p["wo"], cache

@@ -418,6 +418,18 @@ FLASH_CASES = [
     (1, 12, 12, 1500, 1500, 64, False, 0, torch.bfloat16),
     (1, 12, 12, 32, 1500, 64, False, 0, torch.bfloat16),
     (1, 12, 12, 1, 1500, 64, False, 0, torch.bfloat16),
+    # the wgmma/TMA path at D = 256 (64-key tiles): ragged tiles, right-aligned
+    # q, recurrentgemma's window on one KV head (Hkv = 1), no causality
+    (1, 4, 2, 300, 300, 256, True, 0, torch.bfloat16),
+    (2, 4, 2, 100, 333, 256, True, 0, torch.bfloat16),
+    (1, 10, 1, 1000, 1000, 256, True, 200, torch.bfloat16),
+    (1, 4, 4, 200, 200, 256, False, 0, torch.bfloat16),
+    # more queries than keys under causality: the first rows keep no key
+    # (output 0, log-sum-exp +inf), on the wgmma, mma.sync and f32 paths
+    (1, 2, 2, 100, 60, 64, True, 0, torch.bfloat16),
+    (1, 2, 2, 90, 40, 256, True, 0, torch.bfloat16),
+    (1, 2, 1, 80, 50, 32, True, 0, torch.bfloat16),
+    (1, 2, 1, 80, 50, 32, True, 0, torch.float32),
 ]
 
 
@@ -435,20 +447,30 @@ def test_flash_kernel_matches_plain(cuda_device, B, Hq, Hkv, S, Skv, D, causal, 
     from repro_torch.kernels.flash_attention import flash_attention_cuda as mod
 
     q, k, v = _flash_inputs(B, Hq, Hkv, S, Skv, D, dtype, B * 131 + S, cuda_device)
-    want = attention_ref(q, k, v, causal=causal, window=window)
+    want, want_lse = attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
     before = mod.launches
     got = mod.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    with_lse, lse = mod.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
     torch.cuda.synchronize()
-    assert mod.launches == before + 1
+    assert mod.launches == before + 2
     assert got.dtype == dtype and got.shape == want.shape
     # bf16: outputs round at 2^-8 and P enters P V with ~16 bits (hi + lo
     # halves); f32: the kernel sums in another order than the plain version
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    # the log-sum-exp is one more store: the output keeps its bits
+    assert torch.equal(with_lse, got)
+    # the LSE's error is the f32 row sum's (another order; ex2.approx on the
+    # wgmma path, relative ~2^-22 a term): 1e-4 absolute at |lse| <= ~20;
+    # +inf where the row keeps no key, as in the plain version
+    assert lse.dtype == torch.float32 and lse.shape == want_lse.shape
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,window", [(128, 0), (64, 100)])
+@pytest.mark.parametrize("D,window", [(128, 0), (64, 100), (256, 128)])
 def test_flash_kernel_reads_projection_views_without_copy(cuda_device, D, window):
     """q, k and v as ``_project_qkv`` gives them (transposed views of one
     [B, S, H*D] projection each) go straight to the TMA: the result equals the

@@ -184,11 +184,12 @@ def _qkv(B, Hq, Hkv, S, Skv, D, seed, dtype=torch.float32):
 def test_attention_backward_plain_matches_autograd(case):
     B, Hq, Hkv, S, Skv, D, causal, window = case
     q, k, v, do = _qkv(B, Hq, Hkv, S, Skv, D, S + D)
-    o = attention_ref(q, k, v, causal=causal, window=window)
-    plain = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    o, lse = attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    plain = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, lse=lse)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     auto = torch.autograd.grad(attention_ref(*leaves, causal=causal, window=window), leaves, do)
-    # flash_attention on CPU tensors that require grad: the plain forward and backward
+    # flash_attention on CPU tensors that require grad: the plain forward, its
+    # log-sum-exp and the plain backward
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     routed = torch.autograd.grad(flash_attention(*leaves, causal=causal, window=window),
                                  leaves, do)

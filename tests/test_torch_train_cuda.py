@@ -7,7 +7,9 @@ imports no JAX:
 Tolerances: the flash backward's dq, dk and dv within 1e-4 (float32) or
 2^-6 (bfloat16) of each row's largest gradient (at least 1e-2 of the
 tensor's largest: the first causal row's dq is zero up to rounding), against
-the plain version ``attention_bwd_ref`` (the kernel sums in another order;
+the plain version ``attention_bwd_ref`` given the same log-sum-exp (the
+kernel sums in another order, and rounds P and dS to bf16 once for the
+products that take them;
 bf16 gradients round at 2^-8), and in float32 within 5e-4 against autograd
 through ``attention_ref`` (``dO V^T - rowsum(dO * O)`` cancels in rows that
 see few keys; ``tests/test_torch_train.py`` holds the plain version to
@@ -56,6 +58,17 @@ BWD_CASES = [
     (1, 2, 2, 70, 130, 96, False, 0, "bfloat16"),     # D = 96, Skv % 64 != 0, right-aligned
     (1, 4, 4, 65, 65, 16, True, 8, "bfloat16"),       # D = 16, a window
     (1, 2, 2, 96, 96, 192, True, 0, "bfloat16"),      # D = 192: the CUDA-core path in bf16
+    # the wgmma/TMA path at each of its widths: ragged 64-row tiles (Skv not a
+    # multiple of 64), right-aligned q (S < Skv), a window; more queries than
+    # keys under causality (the first rows keep no key)
+    (1, 4, 2, 130, 130, 64, True, 0, "bfloat16"),
+    (1, 4, 2, 70, 1000, 64, True, 0, "bfloat16"),
+    (1, 2, 2, 100, 60, 64, True, 0, "bfloat16"),
+    (1, 2, 2, 700, 700, 128, True, 0, "bfloat16"),
+    (1, 4, 1, 100, 130, 128, False, 0, "bfloat16"),
+    (1, 2, 1, 130, 130, 256, True, 0, "bfloat16"),
+    (1, 2, 2, 100, 700, 256, True, 64, "bfloat16"),
+    (2, 4, 4, 200, 200, 256, False, 0, "bfloat16"),
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 
@@ -88,10 +101,10 @@ def row_error(got, want) -> float:
 def test_flash_backward_matches_plain(cuda_device, case):
     B, Hq, Hkv, S, Skv, D, causal, window, dtype = case
     q, k, v, do = _attention_inputs(B, Hq, Hkv, S, Skv, D, dtype, S + D, cuda_device)
-    o = attention_ref(q, k, v, causal=causal, window=window)
-    got = flash_attention_backward_cuda(q, k, v, o, do, causal=causal, window=window)
-    again = flash_attention_backward_cuda(q, k, v, o, do, causal=causal, window=window)
-    plain = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    o, lse = attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    got = flash_attention_backward_cuda(q, k, v, o, do, lse, causal=causal, window=window)
+    again = flash_attention_backward_cuda(q, k, v, o, do, lse, causal=causal, window=window)
+    plain = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, lse=lse)
     leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
     out = attention_ref(*leaves, causal=causal, window=window)
     auto = torch.autograd.grad(out, leaves, do.float())
@@ -134,25 +147,30 @@ def test_flash_backward_copies_unaligned_rows(cuda_device):
     base = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda_device)
     shifted = base[1:].view(q.shape)
     shifted.copy_(q)
-    o = attention_ref(q, k, v)
-    want = flash_attention_backward_cuda(q, k, v, o, do)
-    got = flash_attention_backward_cuda(shifted, k, v, o, do)
+    o, lse = attention_ref(q, k, v, return_lse=True)
+    want = flash_attention_backward_cuda(q, k, v, o, do, lse)
+    got = flash_attention_backward_cuda(shifted, k, v, o, do, lse)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
 def test_flash_backward_raises_on_bad_inputs(cuda_device):
     q, k, v, do = _attention_inputs(1, 2, 2, 64, 64, 64, "float32", 0, cuda_device)
-    o = attention_ref(q, k, v)
+    o, lse = attention_ref(q, k, v, return_lse=True)
     with pytest.raises(TypeError):
-        flash_attention_backward_cuda(q.half(), k.half(), v.half(), o.half(), do.half())
+        flash_attention_backward_cuda(q.half(), k.half(), v.half(), o.half(), do.half(), lse)
     with pytest.raises(ValueError):
-        flash_attention_backward_cuda(q.cpu(), k, v, o, do)
+        flash_attention_backward_cuda(q.cpu(), k, v, o, do, lse)
     with pytest.raises(ValueError):
-        flash_attention_backward_cuda(q, k, v, o[:, :, :10], do)
+        flash_attention_backward_cuda(q, k, v, o[:, :, :10], do, lse)
+    with pytest.raises(ValueError):
+        flash_attention_backward_cuda(q, k, v, o, do, lse[:, :, :10])
+    with pytest.raises(ValueError):
+        flash_attention_backward_cuda(q, k, v, o, do, lse.double())
     q, k, v, do = _attention_inputs(1, 2, 2, 64, 64, 48, "float32", 0, cuda_device)
+    o, lse = attention_ref(q, k, v, return_lse=True)
     with pytest.raises(ValueError):
-        flash_attention_backward_cuda(q, k, v, attention_ref(q, k, v), do)
+        flash_attention_backward_cuda(q, k, v, o, do, lse)
 
 
 def _gate_inputs(lanes, N, E, k, seed, device):
