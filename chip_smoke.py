@@ -188,7 +188,10 @@ check does not hold:
    one ``forward`` at the prompt, and ``moe_route`` on layer 0's router
    logits through the kernel against ``moe_route_ref`` on the card at the
    prefill's ``[32, 512, 32]`` and a decode step's ``[1, 4, 32]`` (idx, slot
-   and keep exact, combine within 1e-6), timed; (b) kimi-k2-1t-a32b at full
+   and keep exact, combine within 1e-6, the same bits on two calls), timed,
+   with the assign kernel's form there (a thread-block cluster a routing
+   group: one launch of ``assign_cluster_kernel``), its tile rows and the
+   kernels it launches; (b) kimi-k2-1t-a32b at full
    width cut to KIMI_LAYERS layer, the same routing check at E = 384; (c)
    mamba2-130m at full width and depth; (d) recurrentgemma-2b at full width
    and depth, then a decode from a rolling cache of ``window`` slots (the
@@ -472,7 +475,12 @@ SEGSUM_CASES = [  # (id mix, J, S, F, dtype, id dtype)
     *[(mix, ENGINE_J, MANY_SEGMENTS, F, dtype, "int32") for mix in ("uniform", "padding95")
       for F in (1, 3) for dtype in ("float32", "int32")],
 ]
+# the assign kernel's launches in its rows form (the engine's shapes), and the
+# kernels of its routing forms (the MoE router's groups): one launch of
+# assign_cluster_kernel a call, or assign_tile_kernel with the base and place
+# launches where a group is too large for one cluster
 ASSIGN_KERNELS = ("assign_rows_kernel", "assign_base_kernel", "assign_place_kernel")
+ROUTE_KERNELS = ("assign_cluster_kernel", "assign_tile_kernel")
 
 
 def segsum_inputs(mix, J, S, F, dtype, id_dtype, seed):
@@ -1170,7 +1178,9 @@ CPU_CHECK_BATCH, CPU_CHECK_PROMPT, CPU_CHECK_NEW = 2, 16, 8
 def check_moe_route(logits, cfg, label: str) -> dict:
     """Hold ``moe_route`` through the kernel against its plain version on
     the card at a router's real logits [G, Tg, E] (idx/slot/keep exact,
-    combine within 1e-6), and time both."""
+    combine within 1e-6, the same bits on two calls), and time both; print
+    the assign kernel's form there, its tile rows and the kernels it
+    launches."""
     import torch
 
     from repro_torch.kernels.assign import assign_cuda as assign_mod
@@ -1180,6 +1190,9 @@ def check_moe_route(logits, cfg, label: str) -> dict:
     G, Tg, E = logits.shape
     k, C = cfg.top_k, moe_capacity(cfg, Tg)
     kw = dict(k=k, capacity=C, block_n=Tg if not cfg.scan_layers else 256)
+    form = assign_mod.plan(G, Tg, E, k, kw["block_n"])
+    check(set(form["kernels"]) <= set(ASSIGN_KERNELS + ROUTE_KERNELS),
+          f"{label}: the route's kernels {form['kernels']} are not the assign kernel's")
     before = assign_mod.launches
     got = moe_route(logits, **kw)
     check(assign_mod.launches == before + 1, f"{label}: moe_route did not launch the kernel once")
@@ -1191,9 +1204,12 @@ def check_moe_route(logits, cfg, label: str) -> dict:
         check(bad == 0, f"{label}: {bad} {name} entries of moe_route differ from the plain version")
     err = float((got[1] - want[1]).abs().max())
     check(err <= 1e-6, f"{label}: combine differs from the plain version by {err:.3e}")
+    check(all(torch.equal(a, b) for a, b in zip(got, moe_route(logits, **kw))),
+          f"{label}: two moe_route calls differ")
     call_ms = cuda_ms(lambda: moe_route(logits, **kw), iters=50)
-    ms = sum(device_ms(lambda: moe_route(logits, **kw), ASSIGN_KERNELS, iters=50,
-                       call_ms=call_ms, per_call=1).values())
+    parts = device_ms(lambda: moe_route(logits, **kw), form["kernels"], iters=50,
+                      call_ms=call_ms, per_call=1)
+    ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: moe_route_ref(logits, **kw), iters=3, warmup=1)
     N = G * Tg
     bytes_moved = N * E * 4 + N * 4 + G * E * 4 + N * k * (4 + 4 + 1 + 4)
@@ -1202,14 +1218,18 @@ def check_moe_route(logits, cfg, label: str) -> dict:
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     kept = float(got[3].float().mean())
+    split = ", ".join(f"{n} {t:.4f}" for n, t in parts.items())
     print(f"[families] {label} moe_route [{G}, {Tg}, {E}] k={k} capacity {C} block_n "
-          f"{kw['block_n']}: kernel = plain (idx/slot/keep exact, combine max_abs_err {err:.3e}), "
-          f"{100 * (1 - kept):.2f}% of slots dropped; assign kernels {ms:.4f} ms of device time, "
-          f"{call_ms:.4f} ms a moe_route call between CUDA events, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4e} ms ({bound_by}: {bytes_moved} B, {ops} operations)")
+          f"{kw['block_n']}: kernel = plain (idx/slot/keep exact, combine max_abs_err {err:.3e}, "
+          f"the same bits on two calls), {100 * (1 - kept):.2f}% of slots dropped; assign's "
+          f"{form['form']} form, {form['tile_rows']}-row tiles, {form['ctas']} CTAs a group, "
+          f"{form['launches']} launch(es) a call ({split}): {ms:.4f} ms of device time, {call_ms:.4f} ms a moe_route call between CUDA events, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4e} ms ({bound_by}: {bytes_moved} B, "
+          f"{ops} operations)")
     return dict(shape=[G, Tg, E], k=k, capacity=C, block_n=kw["block_n"], max_abs_err=err,
                 ms=ms, cuda_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                dropped=1 - kept)
+                dropped=1 - kept, form=form["form"], tile_rows=form["tile_rows"],
+                ctas=form["ctas"], kernels=parts)
 
 
 def capture_router_logits(run):

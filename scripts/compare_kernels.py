@@ -4,6 +4,7 @@ against another checkout's, on one GPU, in turns (other, this, this, other).
 
     python3 scripts/compare_kernels.py --other DIR [--rounds N]
     python3 scripts/compare_kernels.py --other DIR --flash
+    python3 scripts/compare_kernels.py --other DIR --route
 
 ``DIR`` is the root of another checkout of this repository (for example the
 parent commit, unpacked with ``git archive``); its ``src/repro_torch`` is
@@ -28,7 +29,15 @@ versions on every route (``FLASH_SAME``; a route that either version runs on
 another kernel is left out), then the forward's time at each family's
 prefill attention (``FLASH_FWD``) and the backward's at phase 21(b)'s shapes
 (``chip_smoke.FLASH_BWD_CASES``), a call between CUDA events and device
-time split by kernel, in turns.  It writes its numbers to
+time split by kernel, in turns.  With ``--route`` it compares the MoE
+router's kernels instead: ``moe_route`` at granite-moe's and kimi-k2's
+prefill (``[32, 512, E]``) and decode (``[1, 4, E]``) routing shapes, k = 8,
+on seeded logits that favour the later experts (idx/slot/keep exact and
+combine within 1e-6 of each version's plain route first), the gate backward
+at ``chip_smoke.GATE_BWD_CASES`` (within 1e-6 of each row's largest against
+the plain version) and the assignment at the engine shape, each timed a
+call between CUDA events and in device time split by kernel, in turns.
+It writes its numbers to
 ``chiprun_out/compare_kernels.json`` and needs a CUDA device.
 """
 from __future__ import annotations
@@ -73,7 +82,84 @@ def load_version(pkg_name: str):
         kernels_assign=sub("kernels.assign"),
         flash=sub("kernels.flash_attention.flash_attention_cuda"),
         flash_bwd=sub("kernels.flash_attention.flash_attention_bwd_cuda"),
+        gate_bwd=sub("kernels.assign.gate_backward_cuda").gate_backward_cuda,
+        gate_bwd_ref=sub("kernels.assign.ref").gate_backward_ref,
     )
+
+
+# (label, arch, G, Tg): the MoE routes of chip_smoke.py's phase 18
+ROUTES = [
+    ("granite prefill", "granite-moe-1b-a400m", 32, 512),
+    ("granite decode", "granite-moe-1b-a400m", 1, 4),
+    ("kimi prefill", "kimi-k2-1t-a32b", 32, 512),
+    ("kimi decode", "kimi-k2-1t-a32b", 1, 4),
+]
+
+
+def route_inputs(device) -> dict:
+    """Seeded router logits [G, Tg, E] that favour the later experts (so the
+    capacity binds), and each route's arguments."""
+    import torch
+
+    from chip_smoke import GATE_BWD_CASES
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_capacity
+
+    out = {}
+    for label, arch, G, Tg in ROUTES:
+        cfg = get_config(arch)
+        E = cfg.n_experts
+        gen = torch.Generator(device=device).manual_seed(G + E + Tg)
+        logits = torch.randn((G, Tg, E), generator=gen, device=device) * 0.5
+        logits += torch.linspace(0.0, 1.0, E, device=device)
+        out[label] = (logits, dict(k=cfg.top_k, capacity=moe_capacity(cfg, Tg),
+                                   block_n=Tg if not cfg.scan_layers else 256))
+    for label, G, T, E, k in GATE_BWD_CASES:
+        gen = torch.Generator(device=device).manual_seed(E)
+        scores = torch.randn((G, T, E), generator=gen, device=device)
+        idx = torch.argsort(torch.rand((G, T, E), generator=gen, device=device), -1)[..., :k]
+        dgate = torch.randn((G, T, k), generator=gen, device=device)
+        out[f"gate backward {label}"] = (scores, idx.int().contiguous(), dgate)
+    return out
+
+
+def time_route(v: dict, label: str, inputs: dict, out: dict) -> None:
+    import torch
+
+    from chip_smoke import check, cuda_ms, row_error
+
+    A = v["kernels_assign"]
+    for name, _, G, Tg in ROUTES:
+        logits, kw = inputs[name]
+        got, want = A.moe_route(logits, **kw), A.moe_route_ref(logits, **kw)
+        for i in (0, 2, 3):
+            check(torch.equal(got[i], want[i]), f"{label}: {name} route differs from its plain one")
+        err = float((got[1] - want[1]).abs().max())
+        check(err <= 1e-6, f"{label}: {name} combine differs from its plain one by {err:.3e}")
+        call = cuda_ms(lambda: A.moe_route(logits, **kw), iters=200)
+        parts = {}
+        dev, per_call = profile_call(lambda: A.moe_route(logits, **kw), iters=100, parts=parts)
+        assign = {n: t for n, t in parts.items() if "assign_" in n}
+        assign_ms = sum(assign.values())
+        out.setdefault(f"route {name}", []).append(
+            dict(version=label, cuda_ms=call, device_ms=dev, assign_device_ms=assign_ms,
+                 kernels_per_call=per_call, parts=parts))
+        print(f"[compare] {label} route {name} [{G}, {Tg}, {logits.shape[-1]}] k={kw['k']}: "
+              f"{call:.4f} ms a moe_route call (CUDA events), assign kernels {assign_ms:.4f} ms "
+              f"device time ({', '.join(f'{n} {t:.4f}' for n, t in assign.items())}), "
+              f"{dev:.4f} ms device time in {per_call:g} kernels a call")
+    for name in (n for n in inputs if n.startswith("gate backward")):
+        scores, idx, dgate = inputs[name]
+        got = v["gate_bwd"](scores, idx, dgate)
+        err = row_error(got, v["gate_bwd_ref"](scores, idx, dgate))
+        check(err <= 1e-6, f"{label}: {name} row error {err:.3e}")
+        call = cuda_ms(lambda: v["gate_bwd"](scores, idx, dgate), iters=200)
+        dev, per_call = profile_call(lambda: v["gate_bwd"](scores, idx, dgate), iters=100)
+        out.setdefault(name, []).append(dict(version=label, cuda_ms=call, device_ms=dev,
+                                             kernels_per_call=per_call, row_err=err))
+        print(f"[compare] {label} {name} {list(scores.shape)} k={idx.shape[-1]}: {call:.4f} ms a "
+              f"call (CUDA events), {dev:.4f} ms device time, {per_call:g} kernels a call, row "
+              f"error {err:.2e}")
 
 
 # (label, B, Hq, Hkv, S, Skv, D, causal, window, dtype): one case a forward
@@ -323,6 +409,9 @@ def main() -> int:
                     help="engine rounds a run for the rounds/s comparison (0: none)")
     ap.add_argument("--flash", action="store_true",
                     help="compare the flash attention kernels instead of the engine's")
+    ap.add_argument("--route", action="store_true",
+                    help="compare the MoE router's kernels (routes, gate backward) and the "
+                         "engine-shape assignment instead")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
@@ -337,8 +426,8 @@ def main() -> int:
     versions = {"other": load_version(import_package(args.other / "src", "other_repro_torch")
                                       .__name__),
                 "this": load_version(import_package(ROOT / "src", "repro_torch").__name__)}
-    sources = ["flash_attention", "flash_attention_bwd"] if args.flash else \
-        ["assign", "fused", "segment_sum"]
+    sources = (["flash_attention", "flash_attention_bwd"] if args.flash else
+               ["assign", "gate_backward"] if args.route else ["assign", "fused", "segment_sum"])
     for label, v in versions.items():
         print(f"[compare] {label} build seconds {v['build'].build(sources)}")
         for name in sources[:2]:               # ptxas registers and spills, kernel by kernel
@@ -362,7 +451,13 @@ def main() -> int:
         for label in ("other", "this", "this", "other"):
             time_flash(versions[label], label, device, out)
         args.rounds = 0
-    for label in ("other", "this", "this", "other") if not args.flash else ():
+    if args.route:
+        inputs = route_inputs(device)
+        for label in ("other", "this", "this", "other"):
+            time_route(versions[label], label, inputs, out)
+            time_assign(versions[label], label, device, out)
+        args.rounds = 0
+    for label in ("other", "this", "this", "other") if not (args.flash or args.route) else ():
         for time_kernel in (time_fused, time_assign, time_segsum):
             time_kernel(versions[label], label, device, out)
     if args.rounds:

@@ -1,12 +1,15 @@
-"""Wrapper of the Hopper assignment kernel (``csrc/assign.cu``).
+"""Wrapper of the Hopper assignment kernels (``csrc/assign.cu``).
 
 Replaces the TPU kernel ``src/repro/kernels/assign/assign.py:_assign_kernel``
-(entry point ``assign_pallas``).  The kernel reads the ``N x E`` f32 score
-matrix once, so it is bound by device-memory bandwidth: 120 MB at the
-engine's N=100000, E=300.  Three launches: rows (gates, picks and in-tile
-prefixes), a scan of the tile totals, then positions and admits; see the
-source.  With a leading lane axis (``scores [K, N, E]``) the same three
-launches solve K independent problems.
+(entry point ``assign_pallas``).  The source chooses one of three forms by
+shape (:func:`plan` says which): the engine's one large problem (reading the
+``N x E`` f32 scores once bounds it: 120 MB at N=100000, E=300) takes three
+launches (rows, a scan of the tile totals, positions and admits); a problem
+of at most 8 tiles (the MoE router's groups) takes one launch of a
+thread-block cluster a problem; a larger routing problem (k > 1) takes the
+cluster form's tile kernel with the same scan and place launches.  With a
+leading lane axis (``scores [K, N, E]``) the same launches solve K
+independent problems.
 """
 from __future__ import annotations
 
@@ -29,7 +32,31 @@ def _lib():
         lib.assign_launch.restype = i
         lib.assign_scratch_floats.argtypes = [i, i, i, i, i]
         lib.assign_scratch_floats.restype = ctypes.c_longlong
+        lib.assign_plan.argtypes = [i, i, i, i, i, p]
+        lib.assign_plan.restype = None
     return lib
+
+
+FORMS = ("rows", "cluster", "tiles")
+# the kernels each form launches (profiler names hold these)
+FORM_KERNELS = {
+    "rows": ("assign_rows_kernel", "assign_base_kernel", "assign_place_kernel"),
+    "cluster": ("assign_cluster_kernel",),
+    "tiles": ("assign_tile_kernel", "assign_base_kernel", "assign_place_kernel"),
+}
+
+
+def plan(K: int, N: int, E: int, k: int, block_n: int) -> dict:
+    """The form ``assign_cuda`` takes for ``K`` problems of ``[N, E]`` at
+    ``k`` picks and row blocks of ``block_n``, as the source chooses it:
+    ``form``, ``tile_rows``, ``ctas`` (a problem's CTAs: its cluster's size
+    in the cluster form), ``launches`` a call and ``kernels`` (their
+    names).  Builds the library."""
+    out = (ctypes.c_int * 4)()
+    _lib().assign_plan(K, N, E, k, block_n, out)
+    form = FORMS[out[0]]
+    return dict(form=form, tile_rows=out[1], ctas=out[2], launches=out[3],
+                kernels=FORM_KERNELS[form])
 
 
 def assign_cuda(scores: torch.Tensor, sizes: torch.Tensor, caps: torch.Tensor, *,
@@ -68,12 +95,13 @@ def assign_cuda(scores: torch.Tensor, sizes: torch.Tensor, caps: torch.Tensor, *
     floats = _SCRATCH.get((K, N, E, k, block_n))
     if floats is None:
         floats = _SCRATCH[K, N, E, k, block_n] = lib.assign_scratch_floats(K, N, E, k, block_n)
-    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    # the cluster form keeps its tile totals in shared memory: no scratch
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
     with torch.cuda.device(dev):
         rc = lib.assign_launch(
             scores.data_ptr(), sizes.data_ptr(), caps.data_ptr(), K, N, E, k, block_n,
             idx.data_ptr(), gate.data_ptr(), admit.data_ptr(), pos.data_ptr(),
-            scratch.data_ptr(), _build.stream_handle(dev),
+            scratch.data_ptr() if floats else None, _build.stream_handle(dev),
         )
     if rc != 0:
         raise RuntimeError(f"assign kernel launch failed: cudaError {rc}")

@@ -3,7 +3,8 @@
 Replaces no TPU kernel: the JAX package differentiates ``assign_ref``'s
 masked row softmax and its gather at the picks with XLA's autodiff
 (``src/repro/kernels/assign/ref.py:35-39, 68``).  One launch a call, one
-warp a row; its plain version is ``ref.gate_backward_ref``.
+warp a row (a warp walks a run of rows, the next one loading), its values a
+lane matched to E; its plain version is ``ref.gate_backward_ref``.
 """
 from __future__ import annotations
 

@@ -187,8 +187,13 @@ def _gate_inputs(lanes, N, E, k, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes,N,E,k", [((), 64, 8, 1), ((), 100, 7, 2), ((32,), 512, 32, 8),
-                                         ((4,), 128, 384, 8), ((), 50, 512, 3)])
+@pytest.mark.parametrize("lanes,N,E,k", [
+    ((), 64, 8, 1), ((), 100, 7, 2), ((32,), 512, 32, 8), ((4,), 128, 384, 8), ((), 50, 512, 3),
+    # a lane's values matched to E: 1 (E <= 32), 2, the 16-byte forms; rows
+    # not a multiple of a CTA's; k > E (slots past the bins are -1)
+    ((), 37, 1, 1), ((), 50, 1, 3), ((3,), 77, 31, 8), ((), 301, 33, 8), ((2,), 129, 512, 8),
+    ((), 45, 5, 7), ((), 1001, 64, 2), ((5,), 203, 260, 40),
+])
 def test_gate_backward_matches_plain(cuda_device, lanes, N, E, k):
     scores, sizes, caps, idx, dgate = _gate_inputs(lanes, N, E, k, N + E, cuda_device)
     got = gate_backward_cuda(scores, idx, dgate)
@@ -202,6 +207,25 @@ def test_gate_backward_matches_plain(cuda_device, lanes, N, E, k):
     assert row_error(got, want) <= 1e-6
     assert row_error(got, auto) <= 2e-6
     assert bool((got[..., 3, :] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,k", [(7, 8), (100, 8), (384, 8), (384, 40)])
+def test_gate_backward_repeated_and_stray_picks(cuda_device, E, k):
+    """Picks the assignment never makes but the contract takes: one bin in
+    several slots (their gradients add in slot order), -1, and bins past E
+    (they add nothing), on the shuffle path (E <= 64) and the table path."""
+    rng = np.random.default_rng(E + k)
+    scores = torch.from_numpy(rng.normal(size=(3, 50, E)).astype(np.float32)).to(cuda_device)
+    idx = rng.integers(-1, E + 2, size=(3, 50, k)).astype(np.int32)
+    idx[:, :, 1] = idx[:, :, 0]                  # every row repeats a bin
+    idx = torch.from_numpy(idx).to(cuda_device)
+    dgate = torch.from_numpy(rng.normal(size=(3, 50, k)).astype(np.float32)).to(cuda_device)
+    got = gate_backward_cuda(scores, idx, dgate)
+    want = gate_backward_ref(scores, idx, dgate)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gate_backward_cuda(scores, idx, dgate))
+    assert row_error(got, want) <= 1e-6
 
 
 @pytest.mark.cuda
