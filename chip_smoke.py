@@ -253,6 +253,26 @@ check does not hold:
    and every gradient on the card (both backward kernels) against the
    port on the CPU.
 
+22. checkpoints and restart-safe training (run after phase 21):
+   granite-moe-1b-a400m at full width, depth cut to FT_LAYERS, phase 21's
+   configuration; (a) ``ft.train_with_restarts`` for FT_STEPS steps with a
+   checkpoint every FT_EVERY, clean and with a failure injected at step
+   FT_FAIL, each in a fresh directory (the free disk checked first), the
+   counters set to 0 just before: one restart, the replayed losses and the
+   final parameters' checksum equal to the clean run's bit for bit, three checkpoints and no ``.tmp``
+   left, the flash forward and backward, assign and gate backward kernels
+   launched; the bytes a checkpoint, the host copy's ms on the training
+   thread, the writer thread's seconds, restore seconds, step ms with a
+   save in flight and without, both runs' tokens/s; (c) the faulty run's
+   last checkpoint restored with ``shardings=params_shardings(...)`` as
+   DTensors on a 1-rank NCCL ``("data", "model")`` mesh, each leaf bit for
+   bit the checkpoint's (and on N // 2 x 2 spawned ranks with an even N >= 2
+   of cards, each rank's shard its slice); (b) with 8-bit moments and int8
+   error feedback: a step, a save, a restore into a fresh state and a step
+   equal to two steps without, bit for bit; (d) ``python -m repro_torch.ft
+   --small --steps 10 --inject 5``, in a process started beside (c) and
+   (b), exits 0 with ``restarts=1``.
+
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero without
@@ -4576,6 +4596,393 @@ def phase_train(device) -> dict:
     return dict(flash_attention_backward=flash_row, assign_gate_backward=gate_row, train=train)
 
 
+# --------------------------------------------------------------------------
+# phase 22: checkpoints and restart-safe training (checkpoint/, ft/, parallel/)
+# --------------------------------------------------------------------------
+
+FT_LAYERS = 4                  # depth cut of phase 22 (24 -> 4): 264M parameters, 3.2 GB a checkpoint
+FT_STEPS, FT_EVERY, FT_FAIL = 6, 2, 3
+FT_CKPT_BYTES_A_PARAM = 12     # bf16 parameters stored as f32, f32 m and v
+FT_DISK_MARGIN = 1.25
+
+
+def ft_model(device):
+    """granite-moe at full width, FT_LAYERS layers, and phase 21's pipeline."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import build_model
+
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=FT_LAYERS)
+    model = build_model(cfg, device=device)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH), device=device)
+    return cfg, model, pipe
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in pathlib.Path(path).rglob("*") if p.is_file())
+
+
+def ft_run_numbers(label: str, report, wall: float) -> dict:
+    """A run's rates and checkpoint costs from its ``RunReport``."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ms = [t * 1e3 for t in report.step_times]
+    busy = [t for t, f in zip(ms, report.save_in_flight) if f]
+    idle = [t for t, f in zip(ms, report.save_in_flight) if not f][1:]  # the first step warms up
+    out = dict(losses=report.losses, step_ms=ms, restarts=report.restarts,
+               steps_done=report.steps_done,
+               tokens_per_s_steps=tokens * len(ms) / sum(report.step_times),
+               tokens_per_s_run=tokens * report.steps_done / wall, wall_s=wall,
+               step_ms_save_in_flight=statistics.median(busy) if busy else None,
+               step_ms_no_save=statistics.median(idle) if idle else None,
+               save_copy_ms=[s * 1e3 for s in report.save_copy_s],
+               save_wait_ms=[s * 1e3 for s in report.save_wait_s],
+               write_s=report.write_s, restore_s=report.restore_s)
+    print(f"[ft] {label}: {report.steps_done} steps, {report.restarts} restarts, "
+          f"{len(ms)} steps run in {wall:.2f}s; {out['tokens_per_s_steps']:.1f} tokens/s over "
+          f"the steps, {out['tokens_per_s_run']:.1f} over the run (saves and restarts "
+          f"included); step ms {[round(t, 1) for t in ms]} (a save in flight at "
+          f"{[i for i, f in enumerate(report.save_in_flight) if f]}): median "
+          f"{out['step_ms_save_in_flight']} with a save in flight, {out['step_ms_no_save']} "
+          f"without; host copy ms {[round(t, 1) for t in out['save_copy_ms']]} and wait for "
+          f"the last write ms {[round(t, 1) for t in out['save_wait_ms']]} on the training "
+          f"thread; writer thread s {[round(t, 3) for t in report.write_s]}; restore s "
+          f"{[round(t, 3) for t in report.restore_s]}; losses {report.losses}")
+    return out
+
+
+def phase_ft_restart(device, tmp_root) -> dict:
+    """Phase 22(a): a clean ``train_with_restarts`` run and one with a failure
+    injected at FT_FAIL, each FT_STEPS steps with a checkpoint every
+    FT_EVERY, each in its own fresh directory, the counters set to 0 just
+    before the first.  Returns the faulty run's directory, kept for (c)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.ft import FailureInjector, train_with_restarts
+    from repro_torch.models import param_count
+    from repro_torch.train import AdamWConfig
+
+    cfg, model, pipe = ft_model(device)
+    n_params = param_count(model.init(0))
+    torch.cuda.empty_cache()
+    need = 3 * FT_CKPT_BYTES_A_PARAM * n_params * FT_DISK_MARGIN
+    free = shutil.disk_usage(tmp_root).free
+    check(free >= need, f"phase 22 needs {need / 1e9:.1f} GB free under {tmp_root} for three "
+                        f"checkpoints of {n_params} parameters; {free / 1e9:.1f} GB are free, "
+                        f"{(need - free) / 1e9:.1f} GB short")
+    counters = train_counters()
+    runs, dirs, sums = {}, {}, {}
+    torch.cuda.synchronize()
+    for mod in counters.values():
+        mod.launches = 0
+    for label, injector in (("clean", None), ("faulty", FailureInjector(at_steps=(FT_FAIL,)))):
+        dirs[label] = tempfile.mkdtemp(prefix=f"ft_{label}_", dir=tmp_root)
+        t0 = time.perf_counter()
+        report = train_with_restarts(model, pipe, total_steps=FT_STEPS, ckpt_dir=dirs[label],
+                                     ckpt_every=FT_EVERY, opt_cfg=AdamWConfig(**TRAIN_OPT),
+                                     microbatches=TRAIN_MICRO, injector=injector)
+        torch.cuda.synchronize()
+        runs[label] = ft_run_numbers(label, report, time.perf_counter() - t0)
+        names = sorted(p.name for p in pathlib.Path(dirs[label]).iterdir())
+        check(names == [f"step_{s:08d}" for s in range(FT_EVERY, FT_STEPS + 1, FT_EVERY)],
+              f"phase 22 {label}: the checkpoint directory holds {names}")
+        runs[label]["bytes"] = dir_bytes(pathlib.Path(dirs[label]) / f"step_{FT_STEPS:08d}")
+        sums[label] = params_checksum(report.state.params)
+        report.state = None
+        torch.cuda.empty_cache()
+        if label == "clean":   # the disk holds one run's checkpoints at a time
+            shutil.rmtree(dirs["clean"])
+    launches = {name: mod.launches for name, mod in counters.items()}
+    clean, faulty = runs["clean"], runs["faulty"]
+    check(faulty["restarts"] == 1 and faulty["steps_done"] == FT_STEPS,
+          f"phase 22: {faulty['restarts']} restarts, {faulty['steps_done']} steps")
+    replay = clean["losses"][:FT_FAIL] + clean["losses"][FT_FAIL - 1:]
+    check(faulty["losses"] == replay, f"phase 22: the faulty run's losses {faulty['losses']} do "
+                                      f"not replay the clean run's {clean['losses']}")
+    check(all(math.isfinite(x) for x in clean["losses"]), "phase 22: a non-finite loss")
+    check(all(v > 0 for v in launches.values()),
+          f"phase 22: a kernel of the training path was not launched: {json.dumps(launches)}")
+    check(sums["clean"] == sums["faulty"], f"phase 22: the final parameters' checksum "
+                                           f"{sums['faulty']} is not the clean run's "
+                                           f"{sums['clean']}")
+    print(f"[ft] granite-moe {FT_LAYERS} layers ({n_params} parameters): the failure at step "
+          f"{FT_FAIL} restarted once from step {FT_FAIL - 1}'s checkpoint; the replayed losses "
+          f"equal the clean run's bit for bit, the final parameters' checksum {sums['clean']} "
+          f"too; a checkpoint "
+          f"{clean['bytes']} bytes; launches over both runs {json.dumps(launches)}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(clean=clean, faulty=faulty, launches=launches, params=n_params,
+                checksum=sums["clean"], faulty_dir=dirs["faulty"])
+
+
+def phase_ft_quantized_states(device, tmp_root) -> dict:
+    """Phase 22(b): with 8-bit moments and int8 error feedback, one step, a
+    save, a restore into a fresh state, one more step, against the same two
+    steps without the save and restore: the losses, the moments' codes and
+    scales, the carried error and the parameters bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.train import (AdamWConfig, init_train_state, make_train_step,
+                                   train_state_from_tree, train_state_to_tree)
+
+    cfg, model, pipe = ft_model(device)
+    kw = dict(opt_8bit=True, compress=True)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), microbatches=TRAIN_MICRO, **kw)
+    d = tempfile.mkdtemp(prefix="ft_8bit_", dir=tmp_root)
+    try:
+        kept = init_train_state(model, 0, **kw)
+        kept, m0 = step(kept, pipe.batch_at(0))
+        t0 = time.perf_counter()
+        tree = train_state_to_tree(kept, cfg)
+        copy_s = time.perf_counter() - t0
+        save(d, 1, tree)
+        write_s = time.perf_counter() - t0 - copy_s
+        nbytes = dir_bytes(pathlib.Path(d) / "step_00000001")
+        del tree
+        fresh = init_train_state(model, 1, **kw)
+        t0 = time.perf_counter()
+        restored, at = restore(d, train_state_to_tree(fresh, cfg, copy=False))
+        train_state_from_tree(restored, fresh, cfg)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del restored
+        check(at == 1, f"phase 22(b): restored step {at}")
+        batch = pipe.batch_at(1)
+        kept, m_kept = step(kept, batch)
+        fresh, m_fresh = step(fresh, batch)
+        a = _flatten(train_state_to_tree(kept, cfg))
+        b = _flatten(train_state_to_tree(fresh, cfg))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    losses = (float(m_kept["loss"]), float(m_fresh["loss"]))
+    check(losses[0] == losses[1], f"phase 22(b): the loss after the restore {losses[1]} is not "
+                                  f"{losses[0]}")
+    check(not bad, f"phase 22(b): {len(bad)} leaves differ after the restore, e.g. {bad[:4]}")
+    parts = {p: sum(1 for k in a if k.endswith(p)) for p in ("/q", "/scale")}
+    parts["err"] = sum(1 for k in a if k.startswith(".err/"))
+    check(all(parts.values()), f"phase 22(b): the state lacks 8-bit or error leaves {parts}")
+    print(f"[ft] 8-bit moments and error feedback at {FT_LAYERS} layers: step, save, restore "
+          f"into a fresh state, step = two steps without: losses {float(m0['loss'])}, "
+          f"{losses[0]} and all {len(a)} leaves ({parts}) bit for bit; a checkpoint {nbytes} "
+          f"bytes, host copy {copy_s * 1e3:.1f} ms, blocking write {write_s:.3f}s, restore "
+          f"{restore_s:.3f}s")
+    del kept, fresh, model, step, a, b
+    torch.cuda.empty_cache()
+    return dict(losses=[float(m0["loss"]), losses[0]], bytes=nbytes, copy_ms=copy_s * 1e3,
+                write_s=write_s, restore_s=restore_s)
+
+
+def ft_reshard_rank(mesh, out_dir: str, ckpt_dir: str) -> None:
+    """One rank of a spawned NCCL mesh: restore ``ckpt_dir`` with
+    ``shardings=params_shardings(...)`` on a ``("data", "model")`` mesh of
+    (ranks // 2, 2) and hold this rank's shard of every leaf against its
+    slice of the checkpoint's array; writes ``rank<r>.json``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.models import build_model
+
+    n = mesh.size()
+    grid = init_device_mesh("cuda", (n // 2, 2), mesh_dim_names=("data", "model"))
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=FT_LAYERS)
+    report = ft_check_resharded(build_model(cfg, device=D.mesh_device(mesh)), cfg, grid,
+                                ckpt_dir)
+    (pathlib.Path(out_dir) / f"rank{torch.distributed.get_rank()}.json").write_text(
+        json.dumps(report))
+
+
+def ft_spec_slice(spec, shape, sizes: dict, coord: dict) -> tuple:
+    """The block of a leaf a mesh position holds under a spec, as JAX splits
+    it: a dimension over axes (a, b) in |a| * |b| blocks, block
+    i_a * |b| + i_b."""
+    out = []
+    for dim, n in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        idx, parts = 0, 1
+        for a in axes:
+            idx, parts = idx * sizes[a] + coord[a], parts * sizes[a]
+        out.append(slice(idx * n // parts, (idx + 1) * n // parts))
+    return tuple(out)
+
+
+def ft_check_resharded(model, cfg, grid, ckpt_dir: str) -> dict:
+    """Restore the latest checkpoint of ``ckpt_dir`` as DTensors on ``grid``
+    and compare each leaf's local shard with its slice of the npz array."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.parallel import params_shardings
+    from repro_torch.train import init_train_state, train_state_to_tree
+
+    template = train_state_to_tree(init_train_state(model, 1), cfg, copy=False)
+    shardings = params_shardings(template, grid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree, step = restore(ckpt_dir, template, shardings=shardings)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del template
+    names = grid.mesh_dim_names
+    sizes = dict(zip(names, grid.shape))
+    coord = dict(zip(names, grid.get_coordinate()))
+    specs = _flatten(shardings)
+    bad, sharded, n = [], 0, 0
+    with np.load(os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz")) as z:
+        for key, leaf in _flatten(tree).items():
+            want = z[key.replace("/", "__")]
+            want = want[ft_spec_slice(specs[key].spec, want.shape, sizes, coord)]
+            local = leaf.to_local()
+            got = (local.float() if local.dtype == torch.bfloat16 else local).cpu().numpy()
+            if got.shape != want.shape or not np.array_equal(got, want):
+                bad.append(key)
+            sharded += any(p.is_shard() for p in leaf.placements)
+            n += 1
+    return dict(step=step, leaves=n, sharded=sharded, bad=bad, restore_s=seconds,
+                coordinate=list(grid.get_coordinate()))
+
+
+def phase_ft_reshard(device, ckpt_dir: str) -> dict:
+    """Phase 22(c): (a)'s last faulty checkpoint restored with
+    ``shardings=params_shardings(...)`` as DTensors on a 1-rank NCCL
+    ``("data", "model")`` mesh, each leaf bit for bit the checkpoint's array;
+    with an even number N >= 2 of cards, also on N spawned ranks over a
+    (N // 2, 2) mesh, each rank's shard bit for bit its slice."""
+    import tempfile
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import distributed as D
+
+    cfg, model, _ = ft_model(device)
+    with D.local_mesh("cuda") as mesh:
+        grid = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        check(D.mesh_device(mesh) == device, f"the 1-rank mesh runs on {D.mesh_device(mesh)}")
+        one = ft_check_resharded(model, cfg, grid, ckpt_dir)
+    del model
+    torch.cuda.empty_cache()
+    check(not one["bad"] and one["step"] == FT_STEPS,
+          f"phase 22(c): resharded leaves differ from the checkpoint: {one['bad'][:4]}")
+    print(f"[ft] reshard on restore, a 1-rank NCCL (data, model) mesh: all {one['leaves']} "
+          f"leaves as DTensors ({one['sharded']} with a Shard placement), each bit for bit the "
+          f"checkpoint's; restore {one['restore_s']:.3f}s")
+    out = dict(one_rank=one)
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2 or n_cards % 2:
+        print(f"[ft] {n_cards} card: the N-rank reshard needs an even number of cards >= 2")
+        return out
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        D.run_ranks(ft_reshard_rank, n_cards, (tmp, ckpt_dir), device_type="cuda")
+        spawn_s = time.perf_counter() - t0
+        reports = [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
+                   for r in range(n_cards)]
+    for r, rep in enumerate(reports):
+        check(not rep["bad"] and rep["leaves"] == one["leaves"],
+              f"phase 22(c): rank {r}'s shards differ from their slices: {rep['bad'][:4]}")
+    check(sorted(tuple(r["coordinate"]) for r in reports) ==
+          sorted((i, j) for i in range(n_cards // 2) for j in range(2)),
+          "phase 22(c): the ranks do not cover the mesh")
+    print(f"[ft] reshard on restore over {n_cards} ranks, a ({n_cards // 2}, 2) (data, model) "
+          f"NCCL mesh: every rank's shard of all {one['leaves']} leaves bit for bit its slice "
+          f"({reports[0]['sharded']} leaves sharded); restore s "
+          f"{[round(r['restore_s'], 3) for r in reports]}; {spawn_s:.1f}s with the spawn")
+    out["ranks"] = dict(n=n_cards, restore_s=[r["restore_s"] for r in reports], spawn_s=spawn_s)
+    return out
+
+
+def start_ft_entry_point(tmp_root):
+    """Phase 22(d), started: ``python -m repro_torch.ft --small --steps 10
+    --inject 5`` on the card in a process of its own (its start-up, ~25 s,
+    overlaps (c) and (b)).  Returns what ``finish_ft_entry_point`` takes."""
+    import os
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="ft_main_", dir=tmp_root)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.ft", "--small", "--steps", "10",
+                             "--inject", "5", "--ckpt-dir", d], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, d, time.perf_counter()
+
+
+def finish_ft_entry_point(started) -> dict:
+    """Phase 22(d), checked: the process exits 0 and prints ``restarts=1``."""
+    import shutil
+
+    proc, d, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"phase 22(d): python -m repro_torch.ft exited "
+                                f"{proc.returncode}: {err[-2000:]}")
+    check("restarts=1" in out, f"phase 22(d): no restarts=1 in {out[-1000:]}")
+    summary = " | ".join(line for line in out.splitlines() if line.strip())
+    print(f"[ft] python -m repro_torch.ft --small --steps 10 --inject 5 on the card (beside (c) "
+          f"and (b)): exit 0 after {seconds:.1f}s: {summary}")
+    return dict(seconds=seconds)
+
+
+def phase_ft(device) -> dict:
+    """Phase 22: checkpoints and restart-safe training."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    laps = []
+
+    def lap(name):
+        laps.append(f"{name} {time.perf_counter() - t0:.1f}s")
+
+    print(f"[power] {gpu_name_and_power()}")
+    tmp_root = tempfile.gettempdir()
+    restart = phase_ft_restart(device, tmp_root)
+    lap("22(a)")
+    started = start_ft_entry_point(tmp_root)
+    try:
+        try:
+            reshard = phase_ft_reshard(device, restart["faulty_dir"])
+        finally:
+            shutil.rmtree(restart.pop("faulty_dir"), ignore_errors=True)
+        lap("22(c)")
+        quantized = phase_ft_quantized_states(device, tmp_root)
+        lap("22(b)")
+    except BaseException:
+        proc, d, _ = started
+        proc.kill()
+        proc.wait()
+        shutil.rmtree(d, ignore_errors=True)
+        raise
+    entry = finish_ft_entry_point(started)
+    lap("22(d)")
+    print(f"[ft] phase 22 took {time.perf_counter() - t0:.1f}s ({', '.join(laps)})")
+    print(f"[power] {gpu_name_and_power()}")
+    return dict(restart, quantized=quantized, reshard=reshard, entry=entry, laps=laps)
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4665,6 +5072,8 @@ def main() -> int:
     lap("20")
     train = phase_train(device)
     lap("21")
+    ft = phase_ft(device)
+    lap("22")
     for name, row in rows.items():
         row["launches"] = (sparse_launches[name] if name == "fused_assign" else
                            serve_launches[name] if name == "flash_attention" else launches[name])
@@ -4727,6 +5136,10 @@ def main() -> int:
     rows["flash_attention_backward"] = train["flash_attention_backward"]
     rows["assign_gate_backward"] = train["assign_gate_backward"]
     rows["flash_attention_backward"]["train"] = train["train"]
+    # restart-safe training (phase 22): the four kernels' launches over the
+    # clean and the faulty run
+    for name in ("flash_attention", "flash_attention_backward", "assign", "assign_gate_backward"):
+        rows[name]["launches_ft"] = ft["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

@@ -65,6 +65,26 @@ _JOB_PARALLEL = (
 # --------------------------------------------------------------------------
 
 
+_AMBIENT: list = []   # the meshes of the open use_mesh contexts, innermost last
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the ambient mesh inside the block, the mesh that
+    ``parallel.sharding``'s ``constrain_batch``, ``maybe_shard_seq`` and
+    ``gather_fsdp`` constrain to (JAX's ``jax.set_mesh``)."""
+    _AMBIENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.pop()
+
+
+def ambient_mesh():
+    """The mesh of the innermost ``use_mesh``, or None."""
+    return _AMBIENT[-1] if _AMBIENT else None
+
+
 def mesh_device(mesh) -> torch.device:
     """This rank's device: the CPU on a ``"cpu"`` mesh, else
     ``cuda:{LOCAL_RANK}`` (the global rank modulo the host's cards when

@@ -16,4 +16,6 @@ from .train_step import (  # noqa: F401
     make_eval_step,
     make_train_step,
     train_state_from_numpy,
+    train_state_from_tree,
+    train_state_to_tree,
 )

@@ -106,6 +106,116 @@ def train_state_from_numpy(state, cfg: ModelConfig, device="cuda") -> TrainState
                       None if err is None else leaves(err))
 
 
+def _host_buffer(shape: tuple, like: torch.Tensor, copy: bool) -> torch.Tensor:
+    """An uninitialized host tensor of ``like``'s dtype; pinned when a copy
+    from the card will fill it (an asynchronous copy at the link's rate, and
+    the caching host allocator hands the same blocks to the next snapshot)."""
+    return torch.empty(shape, dtype=like.dtype, pin_memory=copy and like.is_cuda)
+
+
+def _stack_to_host(values: dict, paths: dict, copy: bool) -> dict:
+    """``{name: tensor}`` as the JAX tree of host tensors (``paths`` is
+    ``param_paths``): a layer's tensor is copied straight into its row of the
+    stacked leaf, so the device holds no second copy.  The copies from the
+    card are asynchronous: the caller synchronizes."""
+    tree: dict = {}
+    rows: dict = {}
+    for name, (path, r) in paths.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        t = values[name].detach()
+        if r is None:
+            node[path[-1]] = buf = _host_buffer(t.shape, t, copy)
+            if copy:
+                buf.copy_(t, non_blocking=t.is_cuda)
+        else:
+            rows.setdefault(path, []).append((r, t))
+    for path, ts in rows.items():
+        node = tree
+        for key in path[:-1]:
+            node = node[key]
+        t0 = ts[0][1]
+        node[path[-1]] = leaf = _host_buffer((len(ts), *t0.shape), t0, copy)
+        if copy:
+            for r, t in ts:
+                leaf[r].copy_(t, non_blocking=t.is_cuda)
+    return tree
+
+
+def train_state_to_tree(state: TrainState, cfg: ModelConfig, *, copy: bool = True) -> TrainState:
+    """The port's state as the JAX package's ``TrainState`` tree, in host
+    memory: ``params`` (each layer's parameter a row of its stacked leaf, as
+    ``convert.param_paths`` places it), ``opt`` (``m`` and ``v`` in the same
+    layout, 8-bit moments as ``{"q", "scale"}`` pairs, ``count``) and ``err``
+    (or None).  Every leaf is a new host tensor: the tree is a snapshot that
+    later in-place steps do not reach.  ``checkpoint.save`` of it writes the
+    JAX package's keys.  ``copy=False`` leaves the leaves uninitialized: the
+    tree's structure, shapes and dtypes, a template for ``checkpoint.restore``
+    that costs no copy."""
+    paths = param_paths(state.params, cfg)
+
+    def tree(values: dict, part=None):
+        return _stack_to_host({n: v if part is None else v[part] for n, v in values.items()},
+                              paths, copy)
+
+    def moments(values: dict):
+        if _is_8bit(values):
+            return _pair(tree(values, "q"), tree(values, "scale"))
+        return tree(values)
+
+    params = dict(state.params.named_parameters())
+    count = state.opt["count"].detach()
+    host_count = _host_buffer(count.shape, count, copy)
+    if copy:
+        host_count.copy_(count, non_blocking=count.is_cuda)
+    out = TrainState(tree(params), {"m": moments(state.opt["m"]), "v": moments(state.opt["v"]),
+                                    "count": host_count},
+                     None if state.err is None else tree(state.err))
+    device = next(iter(params.values())).device
+    if copy and device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return out
+
+
+def _pair(q: dict, scale: dict) -> dict:
+    """Two trees of one structure as one whose leaves are ``{"q", "scale"}``."""
+    if isinstance(q, dict):
+        return {k: _pair(q[k], scale[k]) for k in q}
+    return {"q": q, "scale": scale}
+
+
+@torch.no_grad()
+def train_state_from_tree(tree, state: TrainState, cfg: ModelConfig) -> TrainState:
+    """Write a tree in the JAX package's layout (``train_state_to_tree``'s, or
+    ``checkpoint.restore``'s of it) into the port's ``state``, in place, each
+    layer's row of a stacked leaf into its tensor; returns ``state``."""
+    paths = param_paths(state.params, cfg)
+
+    def write(values: dict, src: dict, part=None) -> None:
+        for name, (path, r) in paths.items():
+            leaf = src
+            for key in path:
+                leaf = leaf[key]
+            if part is not None:
+                leaf = leaf[part]
+            dst = values[name] if part is None else values[name][part]
+            dst.copy_(leaf if r is None else leaf[r])
+
+    params_tree, opt, err = tree
+    write(dict(state.params.named_parameters()), params_tree)
+    for moment in ("m", "v"):
+        parts = ("q", "scale") if _is_8bit(state.opt[moment]) else (None,)
+        for part in parts:
+            write(state.opt[moment], opt[moment], part)
+    state.opt["count"].copy_(opt["count"])
+    if (state.err is None) != (err is None):
+        raise ValueError("the tree and the state differ in error-feedback state")
+    if err is not None:
+        write(state.err, err)
+    return state
+
+
 def _is_8bit(tree: dict) -> bool:
     """Whether a moment tree's leaves are 8-bit ``{"q", "scale"}`` pairs."""
     node = tree

@@ -126,3 +126,60 @@ def card_policy(stacked, lanes):
 
     cores = stacked.jobs.cores[torch.tensor(lanes, device=stacked.jobs.cores.device)]
     return T.with_capacity_assign(T.get_policy("panda_dispatch"), make_capacity_assign(cores))
+
+
+def restore_sharded_rank(mesh, out: str, ckpt_dir: str, arch: str, opt_8bit: bool,
+                         shape: tuple) -> None:
+    """Restore a checkpoint of ``arch``'s smoke ``TrainState`` with
+    ``shardings=params_shardings(...)`` on a ``("data", "model")`` mesh of
+    ``shape`` over the ranks; save each leaf's local shard, its placements
+    and this rank's mesh coordinate.  Then, under ``use_mesh``, one layer's
+    module-form shardings through ``device_put``, ``gather_fsdp`` and a
+    batch through ``constrain_batch`` and ``maybe_shard_seq``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.distributed import use_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import (NamedSharding, PartitionSpec, batch_shardings,
+                                      constrain_batch, device_put, gather_fsdp, maybe_shard_seq,
+                                      params_shardings)
+    from repro_torch.train import init_train_state, train_state_to_tree
+
+    torch.set_num_threads(1)   # four ranks on the same cores
+    grid = init_device_mesh(mesh.device_type, shape, mesh_dim_names=("data", "model"))
+    cfg = get_smoke(arch)
+    state = init_train_state(build_model(cfg, device="cpu"), 0, opt_8bit=opt_8bit)
+    template = train_state_to_tree(state, cfg)
+    tree, step = restore(ckpt_dir, template, shardings=params_shardings(template, grid))
+    rec = {"coordinate": list(grid.get_coordinate()), "step": step, "leaves": {}}
+    for key, leaf in _flatten(tree).items():
+        rec["leaves"][key] = (leaf.to_local().clone(), [str(p) for p in leaf.placements],
+                              tuple(leaf.shape))
+    layer = {name[len("layers.0."):]: p for name, p in state.params.named_parameters()
+             if name.startswith("layers.0.")}
+    shard = params_shardings(state.params, grid, cfg)
+    dts = {}   # the layer's parameters as DTensors, nested by their dotted names
+    for name, p in layer.items():
+        *outer, last = name.split(".")
+        node = dts
+        for key in outer:
+            node = node.setdefault(key, {})
+        node[last] = device_put(p.detach(), shard["layers.0." + name])
+    tokens = torch.arange(4 * 6 * 8, dtype=torch.float32).reshape(4, 6, 8)
+    batch = device_put(tokens, batch_shardings({"x": tokens}, grid)["x"])
+    rec["plain"] = constrain_batch(tokens) is tokens
+    with use_mesh(grid):
+        gathered = gather_fsdp(dts)
+        seq = maybe_shard_seq(batch)
+        rec["seq"] = ([str(p) for p in seq.placements], seq.to_local().clone())
+        replicated = batch.redistribute(grid, NamedSharding(grid, PartitionSpec()).placements())
+        constrained = constrain_batch(replicated)
+        rec["batch"] = ([str(p) for p in constrained.placements], constrained.to_local().clone())
+        rec["plain_in_mesh"] = constrain_batch(tokens) is tokens
+    rec["layer"] = {key: ([str(p) for p in g.placements], g.to_local().clone(),
+                         g.full_tensor().clone(), [str(p) for p in _flatten(dts)[key].placements])
+                    for key, g in _flatten(gathered).items()}
+    torch.save(rec, pathlib.Path(out) / f"rank{torch.distributed.get_rank()}.pt")
