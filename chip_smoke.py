@@ -950,21 +950,12 @@ def flash_inputs(B, Hq, Hkv, S, Skv, D, dtype, seed, device):
                  .to(device=device, dtype=getattr(torch, dtype)) for sh in shapes)
 
 
-def attention_live_pairs(S, Skv, causal, window) -> int:
-    """(query, key) pairs the mask keeps: the work the data needs."""
-    import numpy as np
-
-    pos = np.arange(S, dtype=np.int64) + (Skv - S)
-    hi = np.minimum(pos, Skv - 1) if causal else np.full(S, Skv - 1)
-    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(S, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def phase_flash_kernel(device) -> dict:
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda as flash_mod
+    from repro_torch.kernels.flash_attention import flash_flops
     from repro_torch.kernels.flash_attention.flash_attention_cuda import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -1009,7 +1000,7 @@ def phase_flash_kernel(device) -> dict:
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=causal), iters=3)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
                          iters=10)
-    ops = 4 * B * Hq * D * attention_live_pairs(S, Skv, causal, window)  # QK^T and PV, 2 per MAC
+    ops = flash_flops(q.shape, k.shape, causal, window)  # the op's registered formula
     bytes_moved = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     t_ops, t_bytes = ops / PEAK_BF16_OPS_PER_S, bytes_moved / PEAK_HBM_BYTES_PER_S
     bound_ms = max(t_ops, t_bytes) * 1e3
@@ -1454,6 +1445,7 @@ def check_family_flash(device, cfg, B: int, S: int, Skv: int | None = None,
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda as flash_mod
+    from repro_torch.kernels.flash_attention import flash_flops
     from repro_torch.kernels.flash_attention.flash_attention_cuda import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -1505,7 +1497,7 @@ def check_family_flash(device, cfg, B: int, S: int, Skv: int | None = None,
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kq, vq,
                                                                     is_causal=causal),
                              iters=iters)
-    ops = 4 * B * Hq * D * attention_live_pairs(S, Skv, causal, W)
+    ops = flash_flops(q.shape, k.shape, causal, W)  # the op's registered formula
     bytes_moved = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     t_ops, t_bytes = ops / PEAK_BF16_OPS_PER_S, bytes_moved / PEAK_HBM_BYTES_PER_S
     bound_ms = max(t_ops, t_bytes) * 1e3
@@ -4199,6 +4191,7 @@ def phase_flash_backward(device) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import flash_flops
     from repro_torch.kernels.flash_attention.flash_attention_bwd_cuda import (
         flash_attention_backward_cuda,
     )
@@ -4247,24 +4240,24 @@ def phase_flash_backward(device) -> dict:
                                               is_causal=causal and mask is None)
         library_ms = cuda_ms(lambda: torch.autograd.grad(sdpa, leaves, do, retain_graph=True),
                              iters=5)
-        ops = 4 * B * Hq * D * attention_live_pairs(S, Skv, causal, window)
+        ops = flash_flops(q.shape, k.shape, causal, window, backward=True)  # registered
         nbytes = q.element_size() * (3 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * do.numel())
-        t_ops, t_bytes = 2.5 * ops / PEAK_BF16_OPS_PER_S, nbytes / PEAK_HBM_BYTES_PER_S
+        t_ops, t_bytes = ops / PEAK_BF16_OPS_PER_S, nbytes / PEAK_HBM_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         out[label] = dict(shape=[B, Hq, Hkv, S, Skv, D], causal=causal, window=window,
                           row_err=errs, max_abs_err=abs_err, lse_err=lse_err, ms=dev_ms,
                           call_ms=call_ms,
                           kernels_ms=parts, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by="operations" if t_ops >= t_bytes else "bytes",
-                          flop=2.5 * ops)
+                          flop=ops)
         print(f"[train-flash-bwd] {label} [{B}, {Hq}, {S}, {D}] on {Hkv} kv heads causal={causal} "
               f"window={window} bf16: row errors dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
               f"{errs['dv']:.2e} (tol 2^-6), max abs err {abs_err:.3e}; the forward kernel's "
               f"log-sum-exp within {lse_err:.2e} of the plain one's; device {dev_ms:.4f} ms "
               f"({' + '.join(f'{v:.4f}' for v in parts.values())}), {call_ms:.4f} ms a call; "
               f"plain {plain_ms:.4f} ms; SDPA backward {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"(2.5 x {ops:.4e} FLOP at 989 TFLOP/s; {nbytes} B); "
-              f"{2.5 * ops / dev_ms / 1e9:.2f} TFLOP/s")
+              f"({ops:.4e} FLOP, 2.5 x the forward's, at 989 TFLOP/s; {nbytes} B); "
+              f"{ops / dev_ms / 1e9:.2f} TFLOP/s")
         del q, k, v, o, lse, do, got, leaves, sdpa
         torch.cuda.empty_cache()
     q, k, v = flash_inputs(1, 2, 2, 64, 64, 64, "float32", 0, device)
@@ -4983,6 +4976,233 @@ def phase_ft(device) -> dict:
     return dict(restart, quantized=quantized, reshard=reshard, entry=entry, laps=laps)
 
 
+# --------------------------------------------------------------------------
+# phase 23: launch/ (cell plans, counters, roofline terms, the dry-run CLI)
+# --------------------------------------------------------------------------
+
+LAUNCH_TIMED_STEPS = 2     # uncounted granite steps timed between CUDA events
+LAUNCH_DRYRUN = [("granite-moe-1b-a400m", "train_4k", "single"),
+                 ("deepseek-7b", "decode_32k", "multi")]
+
+
+def start_dryruns(out_dir: str) -> list:
+    """Phase 23(c), started first: ``python -m repro_torch.launch.dryrun``
+    for each of ``LAUNCH_DRYRUN``, each in its own process on the host's
+    CPU (the fake 256/512-rank process group), while the card runs (a) and
+    (b)."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, mesh in LAUNCH_DRYRUN:
+        out = pathlib.Path(out_dir) / f"{arch}__{shape}"
+        procs.append((arch, shape, mesh, out, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--mesh", mesh, "--out", str(out)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def finish_dryruns(procs) -> dict:
+    out = {}
+    for arch, shape, mesh, path, t0, proc in procs:
+        try:
+            log, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(proc.returncode == 0, f"dryrun {arch} {shape}: exit {proc.returncode}: "
+                                    f"{log[-2000:]}")
+        tag = f"{'2x16x16' if mesh == 'multi' else '16x16'}__{arch}__{shape}"
+        rec = json.loads((path / f"{tag}.json").read_text())
+        check(rec.get("ok") is True, f"dryrun {tag}: {rec.get('error')}")
+        check(json.loads((path / "skips.json").read_text()) is not None, "no skips.json")
+        check(rec["hlo_flops"] > 0 and math.isfinite(rec["step_s"]), f"dryrun {tag}: {rec}")
+        out[tag] = {k: rec[k] for k in ("hlo_flops", "hlo_bytes", "coll_bytes", "coll_breakdown",
+                                        "compute_s", "memory_s", "collective_s", "bottleneck",
+                                        "roofline_frac", "useful_ratio", "peak_bytes_per_device",
+                                        "microbatches", "trace_s")}
+        out[tag]["wall_s"] = time.perf_counter() - t0
+        print(f"[launch-dryrun] {tag}: {rec['n_devices']} fake ranks, {rec['microbatches']} "
+              f"microbatches, traced in {rec['trace_s']:.1f}s ({out[tag]['wall_s']:.1f}s with "
+              f"the process); per card {rec['hlo_flops']:.4e} FLOP, {rec['hlo_bytes']:.4e} B, "
+              f"{rec['coll_bytes']:.4e} collective B {json.dumps(rec['coll_breakdown'])}; terms "
+              f"compute {rec['compute_s']:.6f}s memory {rec['memory_s']:.6f}s collective "
+              f"{rec['collective_s']:.6f}s -> {rec['bottleneck']}-bound, roofline_frac "
+              f"{rec['roofline_frac']:.6f}, useful {rec['useful_ratio']:.4f}, peak "
+              f"{rec['peak_bytes_per_device'] / 1e9:.2f} GB a card; largest collectives "
+              f"{json.dumps(rec['top_collectives'][:3])}")
+    train = out["16x16__granite-moe-1b-a400m__train_4k"]
+    check(train["coll_bytes"] > 0, "the train cell counted no collective bytes")
+    return out
+
+
+def counted(run, *, peak: bool = False):
+    """``run()`` under ``roofline.Counter`` -> (its record, the kernels'
+    launches in it, the result)."""
+    import torch
+
+    from repro_torch.launch.roofline import Counter
+
+    counters = train_counters()
+    torch.cuda.synchronize()
+    for mod in counters.values():
+        mod.launches = 0
+    with Counter(peak=peak) as c:
+        res = run()
+        torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in counters.items()}
+    return c, launches, res
+
+
+def meta_batch(batch: dict) -> dict:
+    import torch
+
+    return {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+
+
+def phase_launch_train(device) -> dict:
+    """Phase 23(a): granite-moe-1b-a400m's train_4k cell as ``build_cell``
+    plans it on this host's mesh (vocab padded to 49168), at full width and
+    depth, cut to phase 21's batch (TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO
+    microbatches, remat): a warm step, one step under the counter (the
+    four kernels launched; its FLOPs equal to the same step's traced on
+    meta tensors, exactly), then LAUNCH_TIMED_STEPS steps timed between CUDA
+    events: TFLOP/s and the model-FLOPs share of 989 TFLOP/s."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16, make_host_mesh
+    from repro_torch.launch.roofline import model_flops_for_cell
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cell = build_cell(TRAIN_ARCH, "train_4k", make_host_mesh())
+    cfg = cell.cfg
+    check(cfg.vocab_size == 49168, f"vocab padded to {cfg.vocab_size}, not 49168")
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH), device=device)
+    runs = {}
+    for dev in ("meta", device):
+        model = build_model(cfg, device=dev)
+        state = init_train_state(model, 0)
+        step = make_train_step(model, AdamWConfig(**TRAIN_OPT), microbatches=TRAIN_MICRO)
+        batch = pipe.batch_at(0)
+        if dev == "meta":
+            c, _, _ = counted(lambda: step(state, meta_batch(batch)))
+            runs["meta"] = c.get_total_flops()
+            continue
+        torch.cuda.synchronize()
+        state, _ = step(state, batch)                       # warm
+        c, launches, (state, met) = counted(lambda: step(state, pipe.batch_at(1)))
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        marks = []
+        for i in range(LAUNCH_TIMED_STEPS):
+            b = pipe.batch_at(2 + i)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            state, met = step(state, b)
+            e.record()
+            marks.append((s, e))
+        torch.cuda.synchronize()
+        step_ms = [s.elapsed_time(e) for s, e in marks]
+        runs["card"] = c.get_total_flops()
+        del state, model, step
+        torch.cuda.empty_cache()
+    check(runs["card"] == runs["meta"], f"granite step: the card counted {runs['card']} FLOP, "
+                                        f"the meta trace {runs['meta']}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the counted step was not launched: {json.dumps(launches)}")
+    check(math.isfinite(loss), "a non-finite loss")
+    step_s = statistics.mean(step_ms) / 1e3
+    spec = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    model_flops = model_flops_for_cell(cfg, spec, "train")
+    share = model_flops / (step_s * PEAK_FLOPS_BF16)
+    power = gpu_name_and_power()
+    print(f"[launch-train] {TRAIN_ARCH} train_4k as build_cell plans it on {make_host_mesh()} "
+          f"(vocab {cfg.vocab_size}, {cell.microbatches} microbatches planned; cut to "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO}): the counted step "
+          f"{runs['card']:.6e} FLOP on the card = {runs['meta']:.6e} traced on meta tensors; "
+          f"{c.bytes:.4e} material bytes; launches {json.dumps(launches)}; loss {loss:.4f}; "
+          f"uncounted steps {[round(x, 1) for x in step_ms]} ms: "
+          f"{runs['card'] / step_s / 1e12:.2f} TFLOP/s counted, model FLOPs "
+          f"{model_flops:.4e} (6 N_active D) = {100 * share:.2f}% of 989 TFLOP/s on {power}")
+    return dict(flops=runs["card"], meta_flops=runs["meta"], launches=launches,
+                step_ms=step_ms, tflops=runs["card"] / step_s / 1e12, model_flops=model_flops,
+                model_flops_share=share, bytes=c.bytes, power=power)
+
+
+def phase_launch_prefill(device) -> dict:
+    """Phase 23(b): deepseek-7b's prefill at phase 8's SERVE_BATCH x
+    SERVE_PROMPT, counted on the card (= its meta trace, exactly), then
+    timed uncounted: TFLOP/s and the model-FLOPs share."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.launch.roofline import model_flops_for_cell
+    from repro_torch.models import build_model
+
+    cfg = get_config(SERVE_ARCH)
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+                              .astype(np.int32)).to(device)
+    flops = {}
+    meta = build_model(cfg, device="meta")
+    mparams = meta.init(0)
+    c, _, _ = counted(lambda: meta.prefill(mparams, {"tokens": tokens.to("meta")},
+                                           meta.init_cache(B, S)))
+    flops["meta"] = c.get_total_flops()
+    model = build_model(cfg, device=device)
+    params = model.init(0)
+    cache = model.init_cache(B, S)
+    model.prefill(params, {"tokens": tokens}, cache)        # warm
+    c, launches, _ = counted(lambda: model.prefill(params, {"tokens": tokens}, cache))
+    flops["card"] = c.get_total_flops()
+    call_ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens}, cache), iters=2,
+                      warmup=0)
+    del params, cache, model
+    torch.cuda.empty_cache()
+    check(flops["card"] == flops["meta"], f"deepseek prefill: the card counted {flops['card']} "
+                                          f"FLOP, the meta trace {flops['meta']}")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"prefill launches {json.dumps(launches)}, not one flash launch a layer")
+    model_flops = model_flops_for_cell(cfg, ShapeSpec("prefill_32k", S, B, "prefill"), "prefill")
+    share = model_flops / (call_ms / 1e3 * PEAK_FLOPS_BF16)
+    power = gpu_name_and_power()
+    print(f"[launch-prefill] {SERVE_ARCH} prefill {B} x {S}: {flops['card']:.6e} FLOP counted on "
+          f"the card = {flops['meta']:.6e} on meta tensors; launches {json.dumps(launches)}; "
+          f"{call_ms:.2f} ms uncounted: {flops['card'] / call_ms / 1e9:.2f} TFLOP/s counted, "
+          f"model FLOPs {model_flops:.4e} (2 N_active D) = {100 * share:.2f}% of 989 TFLOP/s on "
+          f"{power}")
+    return dict(flops=flops["card"], meta_flops=flops["meta"], launches=launches,
+                ms=call_ms, tflops=flops["card"] / call_ms / 1e9, model_flops=model_flops,
+                model_flops_share=share, power=power)
+
+
+def phase_launch(device) -> dict:
+    """Phase 23: the dry-runs start on the CPU, (a) and (b) run on the card,
+    then the dry-runs' records are read."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_dryruns(tmp)
+        try:
+            train = phase_launch_train(device)
+            t_a = time.perf_counter() - t0
+            prefill = phase_launch_prefill(device)
+            t_b = time.perf_counter() - t0
+        finally:
+            dry = finish_dryruns(procs)
+    print(f"[launch] phase 23 took {time.perf_counter() - t0:.1f}s ((a) {t_a:.1f}s, (b) done at "
+          f"{t_b:.1f}s, (c) waited on after)")
+    return dict(train=train, prefill=prefill, dryrun=dry)
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5074,6 +5294,8 @@ def main() -> int:
     lap("21")
     ft = phase_ft(device)
     lap("22")
+    launch = phase_launch(device)
+    lap("23")
     for name, row in rows.items():
         row["launches"] = (sparse_launches[name] if name == "fused_assign" else
                            serve_launches[name] if name == "flash_attention" else launches[name])
@@ -5140,6 +5362,14 @@ def main() -> int:
     # clean and the faulty run
     for name in ("flash_attention", "flash_attention_backward", "assign", "assign_gate_backward"):
         rows[name]["launches_ft"] = ft["launches"][name]
+    # launch/ (phase 23): the kernels' launches in the counted granite step
+    # and deepseek prefill, and the counts against the meta traces
+    for name in ("flash_attention", "flash_attention_backward", "assign", "assign_gate_backward"):
+        rows[name]["launches_launch_train"] = launch["train"]["launches"][name]
+    rows["flash_attention"]["launches_launch_prefill"] = launch["prefill"]["launches"][
+        "flash_attention"]
+    rows["flash_attention"]["launch"] = {k: launch[k] for k in ("train", "prefill")}
+    rows["flash_attention"]["launch"]["dryrun"] = launch["dryrun"]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

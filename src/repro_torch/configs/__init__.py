@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(arch)`` is the exact public
 configuration, ``get_smoke(arch)`` a reduced one of the same family for CPU
 tests.  Every architecture of the JAX package's registry is served: the
-dense, MoE, SSM, hybrid, encoder-decoder (whisper) and VLM families.
+dense, MoE, SSM, hybrid, encoder-decoder (whisper) and VLM families.  Each
+module also exports PLANS ({shape: CellPlan}) and SKIPS ({shape: reason}).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from . import (
     recurrentgemma_2b,
     whisper_small,
 )
-from .shapes import SHAPES, ShapeSpec  # noqa: F401
+from .shapes import SHAPES, CellPlan, ShapeSpec  # noqa: F401
 
 _MODULES = {
     "mamba2-130m": mamba2_130m,
@@ -41,3 +42,21 @@ def get_config(arch: str):
 
 def get_smoke(arch: str):
     return _MODULES[arch].SMOKE
+
+
+def get_plan(arch: str, shape: str) -> CellPlan:
+    return _MODULES[arch].PLANS.get(shape, CellPlan())
+
+
+def get_skips(arch: str) -> dict[str, str]:
+    return dict(_MODULES[arch].SKIPS)
+
+
+def runnable_cells() -> list[tuple[str, str]]:
+    """All (arch, shape) cells minus documented skips."""
+    cells = []
+    for arch, mod in _MODULES.items():
+        for shape in SHAPES:
+            if shape not in mod.SKIPS:
+                cells.append((arch, shape))
+    return cells

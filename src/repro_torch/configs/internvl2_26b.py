@@ -5,6 +5,7 @@ vision frontend is a stub: ``patch_embeds [B, 256, d_model]`` are spliced
 over the first token positions.
 """
 from ..models.config import ModelConfig
+from .shapes import CellPlan
 
 CONFIG = ModelConfig(
     name="internvl2-26b",
@@ -24,3 +25,10 @@ SMOKE = CONFIG.replace(
     name="internvl2-smoke", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
     d_head=32, d_ff=256, vocab_size=512, n_patches=8,
 )
+
+PLANS = {
+    "train_4k": CellPlan(microbatches=4),
+    "prefill_32k": CellPlan(),
+    "decode_32k": CellPlan(),
+}
+SKIPS = {"long_500k": "pure full attention (quadratic); no sub-quadratic path"}

@@ -6,6 +6,7 @@ capacity routing is the simulator's assignment problem and runs the same
 assignment kernel.
 """
 from ..models.config import ModelConfig
+from .shapes import CellPlan
 
 CONFIG = ModelConfig(
     name="kimi-k2-1t-a32b",
@@ -28,3 +29,10 @@ SMOKE = CONFIG.replace(
     name="kimi-smoke", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
     d_head=32, d_ff=64, n_experts=8, top_k=2, router_groups=2, vocab_size=512,
 )
+
+PLANS = {
+    "train_4k": CellPlan(microbatches=8, seq_shard=True),
+    "prefill_32k": CellPlan(),
+    "decode_32k": CellPlan(),
+}
+SKIPS = {"long_500k": "pure full attention (quadratic); no sub-quadratic path"}

@@ -3,6 +3,7 @@
 96L d_model=18432 96H (GQA kv=8) d_ff=73728 vocab=256000.
 """
 from ..models.config import ModelConfig
+from .shapes import CellPlan
 
 CONFIG = ModelConfig(
     name="nemotron-4-340b",
@@ -21,3 +22,10 @@ SMOKE = CONFIG.replace(
     name="nemotron-smoke", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
     d_head=32, d_ff=256, vocab_size=512,
 )
+
+PLANS = {
+    "train_4k": CellPlan(microbatches=8, seq_shard=True),
+    "prefill_32k": CellPlan(),
+    "decode_32k": CellPlan(),
+}
+SKIPS = {"long_500k": "pure full attention (quadratic); no sub-quadratic path"}

@@ -3,6 +3,7 @@
 64L d_model=5120 40H (GQA kv=8) d_ff=27648 vocab=152064.
 """
 from ..models.config import ModelConfig
+from .shapes import CellPlan
 
 CONFIG = ModelConfig(
     name="qwen2.5-32b",
@@ -23,3 +24,10 @@ SMOKE = CONFIG.replace(
     name="qwen2.5-smoke", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
     d_head=32, d_ff=256, vocab_size=512,
 )
+
+PLANS = {
+    "train_4k": CellPlan(microbatches=4),
+    "prefill_32k": CellPlan(),
+    "decode_32k": CellPlan(),
+}
+SKIPS = {"long_500k": "pure full attention (quadratic); no sub-quadratic path"}

@@ -7,6 +7,7 @@ Decode only ever reads the last ``window`` positions, so a cache of
 ``decode_cache_len=2048``).
 """
 from ..models.config import ModelConfig
+from .shapes import CellPlan
 
 CONFIG = ModelConfig(
     name="recurrentgemma-2b",
@@ -30,3 +31,13 @@ SMOKE = CONFIG.replace(
     n_kv_heads=1, d_head=32, d_ff=256, vocab_size=512, window=32,
     block_pattern=("rec", "rec", "att"), rnn_width=128,
 )
+
+PLANS = {
+    "train_4k": CellPlan(microbatches=2),
+    "prefill_32k": CellPlan(),
+    "decode_32k": CellPlan(),
+    # decode only ever touches the last `window` positions: rolling cache
+    "long_500k": CellPlan(decode_cache_len=2048,
+                          notes="window-bounded rolling KV + O(1) LRU state"),
+}
+SKIPS: dict[str, str] = {}

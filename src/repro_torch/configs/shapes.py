@@ -1,8 +1,5 @@
-"""Assigned input shapes, one set shared by the LM-family pool.
-
-The JAX package's per-(arch x shape) mesh plans (``CellPlan``) come with the
-port of ``launch/``: on one card there is no mesh to plan.
-"""
+"""Assigned input shapes (one set shared by the LM-family pool) and the
+per-(arch x shape) execution plan (microbatching, activation sharding)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -22,3 +19,20 @@ SHAPES = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclass(frozen=True)
+class CellPlan:
+    """Per-(arch x shape) parallel execution plan on the production mesh."""
+
+    microbatches: int = 1        # grad-accum steps inside train_step
+    seq_shard: bool = False      # shard the residual stream's seq dim over
+                                 # 'model' at layer boundaries (SP-lite)
+    shard_cache_len: bool = True  # shard KV-cache positions over 'model'
+    decode_cache_len: int | None = None  # override cache buffer (e.g. window)
+    opt_8bit: bool = False       # block-wise int8 optimizer states
+    notes: str = ""
+
+
+def default_plan(kind: str) -> CellPlan:
+    return CellPlan()

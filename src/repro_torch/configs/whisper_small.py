@@ -5,6 +5,7 @@ mel + conv frontend is a stub: ``frames [B, 1500, d_model]`` arrive as
 precomputed frame embeddings.
 """
 from ..models.config import ModelConfig
+from .shapes import CellPlan
 
 CONFIG = ModelConfig(
     name="whisper-small",
@@ -28,3 +29,10 @@ SMOKE = CONFIG.replace(
     d_model=128, n_heads=4, n_kv_heads=4, d_head=32, d_ff=256,
     vocab_size=512, n_frames=32,
 )
+
+PLANS = {
+    "train_4k": CellPlan(microbatches=1),
+    "prefill_32k": CellPlan(),
+    "decode_32k": CellPlan(),
+}
+SKIPS = {"long_500k": "full-attention enc-dec; no sub-quadratic path"}

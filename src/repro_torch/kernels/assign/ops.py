@@ -2,10 +2,17 @@
 (``make_capacity_assign``) and sparse top-k (``make_fused_capacity_assign``),
 and as the MoE router (``moe_route``), whose gates carry a gradient to the
 router's scores (``_AssignGate``: the gate backward kernel for CUDA tensors,
-its plain version for CPU tensors)."""
+its plain version for CPU tensors).
+
+The assignment and the gate backward are the custom ops
+``repro_torch::assign`` and ``repro_torch::gate_backward``: a CUDA
+implementation that launches the kernel, a CPU one that is the plain
+version, a fake one for meta and fake tensors, and a FLOP formula that
+``torch.utils.flop_counter`` reads.  Registering them builds nothing."""
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .assign_cuda import assign_cuda
 from .fused_cuda import fused_assign_cuda
@@ -13,22 +20,78 @@ from .fused_ref import fused_assign_ref
 from .gate_backward_cuda import gate_backward_cuda
 from .ref import assign_ref, gate_backward_ref
 
+# f32 operations an element of the scores: the assignment's mask, max,
+# subtract, exp, add, argmax compare and select; the gate backward's mask,
+# max, exp, normalise, fold, dot and product
+ASSIGN_OPS_PER_SCORE = 7
+GATE_BACKWARD_OPS_PER_SCORE = 7
+
+_lib = torch.library.Library("repro_torch", "FRAGMENT")
+_lib.define("assign(Tensor scores, Tensor sizes, Tensor caps, int k, int block_n) "
+            "-> (Tensor, Tensor, Tensor, Tensor)")
+_lib.define("gate_backward(Tensor scores, Tensor idx, Tensor dgate) -> Tensor")
+
+
+@torch.library.impl(_lib, "assign", "CUDA")
+def _assign_cuda(scores, sizes, caps, k, block_n):
+    return assign_cuda(scores.contiguous(), sizes.contiguous(), caps.contiguous(), k=k,
+                       block_n=block_n)
+
+
+@torch.library.impl(_lib, "assign", "CPU")
+def _assign_cpu(scores, sizes, caps, k, block_n):
+    return assign_ref(scores, sizes, caps, k=k, block_n=block_n)
+
+
+@torch.library.register_fake("repro_torch::assign", lib=_lib)
+def _assign_fake(scores, sizes, caps, k, block_n):
+    out = (*scores.shape[:-1], k)
+    return (scores.new_empty(out, dtype=torch.int32), scores.new_empty(out, dtype=torch.float32),
+            scores.new_empty(out, dtype=torch.bool), scores.new_empty(out, dtype=torch.float32))
+
+
+@torch.library.impl(_lib, "gate_backward", "CUDA")
+def _gate_backward_cuda(scores, idx, dgate):
+    return gate_backward_cuda(scores.float().contiguous(), idx.int().contiguous(),
+                              dgate.float().contiguous())
+
+
+@torch.library.impl(_lib, "gate_backward", "CPU")
+def _gate_backward_cpu(scores, idx, dgate):
+    return gate_backward_ref(scores, idx, dgate)
+
+
+@torch.library.register_fake("repro_torch::gate_backward", lib=_lib)
+def _gate_backward_fake(scores, idx, dgate):
+    return scores.new_empty(scores.shape, dtype=torch.promote_types(scores.dtype, torch.float32))
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+@register_flop_formula(torch.ops.repro_torch.assign)
+def _assign_flop(scores, *args, out_shape=None, **kwargs) -> int:
+    return ASSIGN_OPS_PER_SCORE * _numel(scores)
+
+
+@register_flop_formula(torch.ops.repro_torch.gate_backward)
+def _gate_backward_flop(scores, *args, out_shape=None, **kwargs) -> int:
+    return GATE_BACKWARD_OPS_PER_SCORE * _numel(scores)
+
 
 def _assign(scores, sizes, caps, k, block_n):
-    if scores.is_cuda:
-        return assign_cuda(scores.contiguous(), sizes.contiguous(), caps.contiguous(),
-                           k=k, block_n=block_n)
-    return assign_ref(scores, sizes, caps, k=k, block_n=block_n)
+    return torch.ops.repro_torch.assign(scores, sizes, caps, k, block_n)
 
 
 def gate_backward(scores, idx, dgate):
     """The scores' gradient of ``assign``'s ``gate`` output given its
     gradient ``dgate``: the Hopper kernel for CUDA tensors, the plain version
     for CPU tensors."""
-    if scores.is_cuda:
-        return gate_backward_cuda(scores.float().contiguous(), idx.int().contiguous(),
-                                  dgate.float().contiguous())
-    return gate_backward_ref(scores, idx, dgate)
+    return torch.ops.repro_torch.gate_backward(scores, idx, dgate)
 
 
 class _AssignGate(torch.autograd.Function):

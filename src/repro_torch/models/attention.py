@@ -4,8 +4,15 @@ and the encoder-decoder's bidirectional and cross attention.
 Prefill, forward, encoder and cross attention run the hand-written flash
 kernel for CUDA tensors (``causal=False`` for the encoder and the
 cross-attention, whose Sq may be 1 against Skv frames) and the plain
-``chunked_attention``/``qblock_attention`` for CPU tensors.  Unlike the JAX
-package, the KV cache is written in place.
+``chunked_attention``/``qblock_attention`` for CPU tensors.  Meta tensors
+take the kernel's custom op too, so a traced step counts the kernel's work.
+Unlike the JAX package, the KV cache is written in place.
+
+On a mesh (``DTensor`` activations, heads split over 'model') a K/V
+projection whose heads do not split evenly over 'model' is gathered before
+its heads are formed, and GQA's K/V heads are repeated up to the query
+heads where only those split evenly, so that the kernel runs on each rank's
+own heads instead of every rank running all of them.
 """
 from __future__ import annotations
 
@@ -13,11 +20,13 @@ import torch
 from torch import nn
 
 from ..kernels.flash_attention.ops import (
+    _positions_split,
     chunked_attention,
     decode_attention,
     flash_attention,
     qblock_attention,
 )
+from ..parallel.sharding import is_dtensor
 from .config import ModelConfig
 from .layers import apply_rope, dense_init
 
@@ -43,14 +52,62 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.view(B, S, cfg.n_heads, cfg.d_head).transpose(1, 2)
-    k = k.view(B, S, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
-    v = v.view(B, S, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    q = _heads(q, B, S, cfg.n_heads, cfg.d_head)
+    k = _heads(k, B, S, cfg.n_kv_heads, cfg.d_head)
+    v = _heads(v, B, S, cfg.n_kv_heads, cfg.d_head)
     return q, k, v
 
 
+def _split_ways(t, dim: int) -> int:
+    """How many ways a ``DTensor`` is split on ``dim`` (1 for a plain tensor)."""
+    if not is_dtensor(t):
+        return 1
+    n = 1
+    for size, pl in zip(t.device_mesh.shape, t.placements):
+        if pl.is_shard(dim):
+            n *= size
+    return n
+
+
+def _heads(x: torch.Tensor, B: int, S: int, H: int, dh: int) -> torch.Tensor:
+    """``[B, S, H * dh]`` -> ``[B, H, S, dh]`` (a transposed view).  A
+    ``DTensor`` split on its last dimension other than by whole heads is
+    gathered there first."""
+    ways = _split_ways(x, x.dim() - 1)
+    if ways > 1 and H % ways:
+        from torch.distributed.tensor import Replicate
+
+        x = x.redistribute(x.device_mesh, [Replicate() if pl.is_shard(x.dim() - 1) else pl
+                                           for pl in x.placements])
+    return x.view(B, S, H, dh).transpose(1, 2)
+
+
+def _kv_heads_like(q, k, v):
+    """On a mesh: where the query heads are split over 'model' and the K/V
+    heads cannot be, each K/V head repeated for its query heads and split
+    as the queries are (the same attention, without GQA's sharing)."""
+    ways = _split_ways(q, 1)
+    if ways == 1 or k.shape[1] % ways == 0 or _split_ways(k, 1) == ways:
+        return k, v
+    B, Hkv, Skv, dh = k.shape
+    G = q.shape[1] // Hkv
+
+    def rep(t):
+        t = t[:, :, None].expand(B, Hkv, G, Skv, dh).reshape(B, Hkv * G, Skv, dh)
+        return t.redistribute(q.device_mesh, q.placements)
+    return rep(k), rep(v)
+
+
+def _kernel_path(q) -> bool:
+    """The flash kernel's op: on the card, and on meta tensors (a trace);
+    a ``DTensor`` by its shards' device."""
+    local = q.to_local() if is_dtensor(q) else q
+    return local.device.type in ("cuda", "meta")
+
+
 def _causal_attn(q, k, v, cfg: ModelConfig):
-    if q.is_cuda:
+    if _kernel_path(q):
+        k, v = _kv_heads_like(q, k, v)
         return flash_attention(q, k, v, causal=True, window=cfg.window)
     if cfg.attention_impl == "qblock":
         return qblock_attention(q, k, v, causal=True, window=cfg.window, chunk=cfg.attn_chunk,
@@ -60,7 +117,8 @@ def _causal_attn(q, k, v, cfg: ModelConfig):
 
 def _full_attn(q, k, v, cfg: ModelConfig):
     """Attention without a mask: every query sees every key."""
-    if q.is_cuda:
+    if _kernel_path(q):
+        k, v = _kv_heads_like(q, k, v)
         return flash_attention(q, k, v, causal=False)
     return chunked_attention(q, k, v, causal=False, window=0, chunk=cfg.attn_chunk)
 
@@ -95,7 +153,7 @@ def cross_attention(p, x: torch.Tensor, kv, cfg: ModelConfig) -> torch.Tensor:
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.view(B, S, cfg.n_heads, cfg.d_head).transpose(1, 2)
+    q = _heads(q, B, S, cfg.n_heads, cfg.d_head)
     k, v = kv
     return _merge_heads(_full_attn(q, k, v, cfg), cfg) @ p["wo"]
 
@@ -106,8 +164,8 @@ def encode_cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
     k, v = enc_out @ p["wk"], enc_out @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    return (k.view(B, T, cfg.n_kv_heads, cfg.d_head).transpose(1, 2),
-            v.view(B, T, cfg.n_kv_heads, cfg.d_head).transpose(1, 2))
+    return (_heads(k, B, T, cfg.n_kv_heads, cfg.d_head),
+            _heads(v, B, T, cfg.n_kv_heads, cfg.d_head))
 
 
 # ------------------------------------------------------------- serving -----
@@ -138,13 +196,48 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, *, star
     L = cache["k"].shape[2]
     if cfg.window > 0 and L <= cfg.window and start + S > L:
         keep = min(S, L)
-        slots = (start + S - keep + torch.arange(keep, device=x.device)) % L
-        cache["k"][:, :, slots] = k[:, :, S - keep:]
-        cache["v"][:, :, slots] = v[:, :, S - keep:]
+        if _positions_split(cache["k"]) is not None:
+            for name, t in (("k", k), ("v", v)):
+                _write_positions(cache[name], t[:, :, S - keep:], (start + S - keep) % L)
+        else:
+            slots = (start + S - keep + torch.arange(keep, device=x.device)) % L
+            cache["k"][:, :, slots] = k[:, :, S - keep:]
+            cache["v"][:, :, slots] = v[:, :, S - keep:]
     else:
-        cache["k"][:, :, start:start + S] = k
-        cache["v"][:, :, start:start + S] = v
+        _write_positions(cache["k"], k, start)
+        _write_positions(cache["v"], v, start)
     return _merge_heads(o, cfg) @ p["wo"], cache
+
+
+def _write_positions(buf: torch.Tensor, new: torch.Tensor, start: int) -> None:
+    """``buf[:, :, start:start + n] = new`` in place (n = new's positions).
+    A cache whose positions are split over a mesh dimension
+    (``cache_shardings``) takes each rank's part of the range into its own
+    shard, the part past the end wrapped to the front (a rolling cache):
+    a ``DTensor``'s slice of a split dimension is a gathered copy, and a
+    write into it would be lost.  Each rank gathers ``new`` whole over that
+    dimension, or, where ``new`` fills the whole cache, only its own
+    positions (an all-to-all from a head split)."""
+    m_dim = _positions_split(buf)
+    if m_dim is None:
+        buf[:, :, start:start + new.shape[2]] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = buf.device_mesh
+    target = [Replicate() if pl.is_shard(2) else pl for pl in buf.placements]
+    local = buf.to_local()
+    if start == 0 and new.shape[2] == buf.shape[2]:
+        target[m_dim] = Shard(2)
+        local.copy_(new.redistribute(mesh, target).to_local())
+        return
+    new = new.redistribute(mesh, target).to_local()
+    n, L, Lr = new.shape[2], buf.shape[2], local.shape[2]
+    lo = mesh.get_local_rank(m_dim) * Lr
+    for a0 in (start, start - L):
+        a, b = max(a0, lo), min(a0 + n, lo + Lr)
+        if a < b:
+            local[:, :, a - lo:b - lo] = new[:, :, a - a0:b - a0]
 
 
 def attention_decode(p, x_t: torch.Tensor, cfg: ModelConfig, cache: dict, kv_len: int, *,
@@ -166,18 +259,20 @@ def attention_decode(p, x_t: torch.Tensor, cfg: ModelConfig, cache: dict, kv_len
         q = apply_rope(q, pos, theta=cfg.rope_theta)
         k = apply_rope(k, pos, theta=cfg.rope_theta)
     slot = kv_len % L if rolling else kv_len
-    cache["k"][:, :, slot:slot + 1] = k
-    cache["v"][:, :, slot:slot + 1] = v
+    _write_positions(cache["k"], k, slot)
+    _write_positions(cache["v"], v, slot)
     if rolling and kv_len + 1 >= L:   # every slot live: the oldest key is in slot + 1
         shift = -((slot + 1) % L)
         o = decode_attention(q, torch.roll(cache["k"], shift, dims=2),
                              torch.roll(cache["v"], shift, dims=2), kv_len=L)
     elif rolling:
         o = decode_attention(q, cache["k"], cache["v"], kv_len=kv_len + 1)
-    elif cfg.window > 0 and kv_len + 1 >= cfg.window:   # the window's keys only
+    elif cfg.window > 0 and kv_len + 1 >= cfg.window and _positions_split(cache["k"]) is None:
+        # the window's keys only (a split cache masks them: a slice of it is a gather)
         lo = kv_len + 1 - cfg.window
         o = decode_attention(q, cache["k"][:, :, lo:kv_len + 1], cache["v"][:, :, lo:kv_len + 1],
                              kv_len=cfg.window)
     else:
         o = decode_attention(q, cache["k"], cache["v"], window=cfg.window, kv_len=kv_len + 1)
     return _merge_heads(o, cfg) @ p["wo"], cache
+

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.sharding import constrain_batch, embed_rows, gather_table
 from .attention import (
     attention_bidir,
     attention_decode,
@@ -34,7 +35,7 @@ from .config import ModelConfig
 from .layers import embed_init, layernorm
 from .mlp import init_mlp, mlp_forward
 from .moe import AUX_KEYS
-from .transformer import Block, _generator, remat
+from .transformer import Block, _generator, gold_logits, remat
 
 POS_ROWS = 4096  # learned decoder positions; later positions reuse the last
 
@@ -86,33 +87,34 @@ def encode(params: EncDec, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tens
     """frames [B, T, d] (the stub frontend's output) -> encoder states."""
     x = frames.to(getattr(torch, cfg.dtype))
     for p in params.enc:
-        x = x + attention_bidir(p.attn, _ln(x, p.ln1, cfg.norm_eps), cfg)
-        x = x + mlp_forward(p.mlp, _ln(x, p.ln2, cfg.norm_eps), cfg)
+        x = constrain_batch(x + attention_bidir(p.attn, _ln(x, p.ln1, cfg.norm_eps), cfg))
+        x = constrain_batch(x + mlp_forward(p.mlp, _ln(x, p.ln2, cfg.norm_eps), cfg))
     return _ln(x, params.enc_norm, cfg.norm_eps)
 
 
 def _decoder_embed(params: EncDec, tokens: torch.Tensor, start: int) -> torch.Tensor:
     pos = (start + torch.arange(tokens.shape[1], device=tokens.device)).clamp(
         0, params.pos_dec.shape[0] - 1)
-    return params.embed[tokens] + params.pos_dec[pos]
+    return embed_rows(params.embed, tokens) + embed_rows(params.pos_dec, pos)
 
 
 def _logits(params: EncDec, x: torch.Tensor) -> torch.Tensor:
-    return (x @ params.embed.T).float()
+    return (x @ gather_table(params.embed).T).float()
 
 
 def _decoder_layer(p: Block, x: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig):
-    x = x + attention_train(p.self_attn, _ln(x, p.ln1, cfg.norm_eps), cfg, rope=False)
+    x = constrain_batch(x + attention_train(p.self_attn, _ln(x, p.ln1, cfg.norm_eps), cfg,
+                                            rope=False))
     kv = encode_cross_kv(p.cross_attn, enc, cfg)
-    x = x + cross_attention(p.cross_attn, _ln(x, p.ln2, cfg.norm_eps), kv, cfg)
-    return x + mlp_forward(p.mlp, _ln(x, p.ln3, cfg.norm_eps), cfg)
+    x = constrain_batch(x + cross_attention(p.cross_attn, _ln(x, p.ln2, cfg.norm_eps), kv, cfg))
+    return constrain_batch(x + mlp_forward(p.mlp, _ln(x, p.ln3, cfg.norm_eps), cfg))
 
 
 def forward(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor, frames: torch.Tensor):
     """Teacher-forced: encode ``frames``, decode ``tokens`` -> (logits
     f32[B, S, V], aux), aux the MoE keys at zero."""
     enc = encode(params, cfg, frames)
-    x = _decoder_embed(params, tokens, 0)
+    x = constrain_batch(_decoder_embed(params, tokens, 0))
     for p in params.dec:
         x = remat(_decoder_layer, cfg, p, x, enc, cfg)
     x = _ln(x, params.dec_norm, cfg.norm_eps)
@@ -125,7 +127,7 @@ def loss_fn(params: EncDec, cfg: ModelConfig, batch: dict):
     logits, aux = forward(params, cfg, batch["tokens"], batch["frames"])
     targets = batch["tokens"][:, 1:].long()
     logits = logits[:, :-1]
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    gold = gold_logits(logits, targets)
     loss = (torch.logsumexp(logits, dim=-1) - gold).mean()
     return loss, dict(aux, nll=loss)
 

@@ -9,6 +9,16 @@ from __future__ import annotations
 import torch
 
 
+class MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: shapes and dtypes
+    without storage, for tracing a full-size model (``build_model(cfg,
+    device="meta")``)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     out = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return (out * scale).to(dtype)

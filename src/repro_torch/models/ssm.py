@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sharding import constrain_batch
 from .config import ModelConfig
 from .layers import _normal, causal_conv1d, causal_conv1d_step, dense_init, rmsnorm, softplus
 
@@ -114,7 +115,9 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig):
     tail and the final SSM state, from which decode continues)."""
     B, S, _ = x.shape
     nh, ph, ng, ns = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
-    z, xbc, dt_raw = _split_proj(x @ p["in_proj"], cfg)
+    # on a mesh the scan runs on each rank's own rows, whole: the
+    # projection's outputs are gathered over 'model' where it splits them
+    z, xbc, dt_raw = (constrain_batch(t) for t in _split_proj(x @ p["in_proj"], cfg))
     K = cfg.ssm_conv
     conv_tail = F.pad(xbc, (0, 0, K - 1, 0))[:, xbc.shape[1]:]     # the last K-1 inputs
     xbc = F.silu(causal_conv1d(xbc, p["conv_w"], p["conv_b"]))

@@ -27,6 +27,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import (constrain_batch, embed_rows, gather_block, gather_table,
+                                 is_dtensor, maybe_shard_seq)
+
 from .attention import (
     attention_decode,
     attention_prefill,
@@ -35,7 +38,7 @@ from .attention import (
     init_kv_cache,
 )
 from .config import ModelConfig
-from .layers import embed_init, rmsnorm
+from .layers import MetaGenerator, embed_init, rmsnorm
 from .mlp import init_mlp, mlp_forward
 from .moe import AUX_KEYS, init_moe, moe_forward
 from .rglru import init_rglru, init_rglru_cache, rglru_decode, rglru_forward
@@ -124,19 +127,22 @@ def _ffn(p: Block, x: torch.Tensor, cfg: ModelConfig, with_aux: bool = False):
     h = rmsnorm(x, p.ln2, eps=cfg.norm_eps)
     if p.kind == "moe":
         y, aux = moe_forward(p.moe, h, cfg, with_aux=with_aux)
-        return x + y.to(x.dtype), aux
-    return x + mlp_forward(p.mlp, h, cfg), None
+        return constrain_batch(x + y.to(x.dtype)), aux
+    return constrain_batch(x + mlp_forward(p.mlp, h, cfg)), None
 
 
 def block_train(p: Block, x: torch.Tensor, cfg: ModelConfig):
-    """-> (x, the MoE aux or None)."""
+    """-> (x, the MoE aux or None).  On a mesh each residual sum is pinned
+    to the data-parallel split (``constrain_batch``): a row-parallel
+    projection's partial sums are added up there, once, in the activations'
+    dtype, and the next norm reads whole rows."""
     h = rmsnorm(x, p.ln1, eps=cfg.norm_eps)
     if p.kind == "ssm":
-        return x + ssm_forward(p.ssm, h, cfg)[0].to(x.dtype), None
+        return constrain_batch(x + ssm_forward(p.ssm, h, cfg)[0].to(x.dtype)), None
     if p.kind == "rec":
-        x = x + rglru_forward(p.rec, h, cfg)[0].to(x.dtype)
+        x = constrain_batch(x + rglru_forward(p.rec, h, cfg)[0].to(x.dtype))
     else:
-        x = x + attention_train(p.attn, h, cfg)
+        x = constrain_batch(x + attention_train(p.attn, h, cfg))
     return _ffn(p, x, cfg, with_aux=True)
 
 
@@ -150,14 +156,14 @@ def block_prefill(p: Block, x: torch.Tensor, cfg: ModelConfig, cache: dict, star
     if p.kind == "ssm":
         y, new = ssm_forward(p.ssm, h, cfg)
         _write(cache, new)
-        return x + y.to(x.dtype), cache
+        return constrain_batch(x + y.to(x.dtype)), cache
     if p.kind == "rec":
         y, new = rglru_forward(p.rec, h, cfg)
         _write(cache, new)
-        x = x + y.to(x.dtype)
+        x = constrain_batch(x + y.to(x.dtype))
     else:
         y, cache = attention_prefill(p.attn, h, cfg, cache, start=start)
-        x = x + y
+        x = constrain_batch(x + y)
     return _ffn(p, x, cfg)[0], cache
 
 
@@ -166,14 +172,14 @@ def block_decode(p: Block, x_t: torch.Tensor, cfg: ModelConfig, cache: dict, kv_
     if p.kind == "ssm":
         y, new = ssm_decode(p.ssm, h, cfg, cache)
         _write(cache, new)
-        return x_t + y.to(x_t.dtype), cache
+        return constrain_batch(x_t + y.to(x_t.dtype)), cache
     if p.kind == "rec":
         y, new = rglru_decode(p.rec, h, cfg, cache)
         _write(cache, new)
-        x_t = x_t + y.to(x_t.dtype)
+        x_t = constrain_batch(x_t + y.to(x_t.dtype))
     else:
         y, cache = attention_decode(p.attn, h, cfg, cache, kv_len)
-        x_t = x_t + y
+        x_t = constrain_batch(x_t + y)
     return _ffn(p, x_t, cfg)[0], cache
 
 
@@ -183,6 +189,8 @@ def block_decode(p: Block, x_t: torch.Tensor, cfg: ModelConfig, cache: dict, kv_
 def _generator(rng, device) -> torch.Generator:
     if isinstance(rng, torch.Generator):
         return rng
+    if torch.device(device).type == "meta":
+        return MetaGenerator().manual_seed(int(rng))
     return torch.Generator(device=device).manual_seed(int(rng))
 
 
@@ -206,8 +214,13 @@ def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     stub's output) replace the first P positions.  On the card the gather's
     backward (``index_put_`` with accumulation) sorts the ids and adds each
     row's gradients in that order, without float atomics, so it has the same
-    bits on every run."""
-    x = params.embed[tokens]
+    bits on every run.
+
+    On a mesh (a ``DTensor`` table) the gather is vocab-parallel
+    (``embed_rows``); its result is re-pinned to the data-parallel axes
+    (``constrain_batch``, as the JAX package does)."""
+    x = embed_rows(params.embed, tokens)
+    x = constrain_batch(x)
     if cfg.family == "vlm" and patch_embeds is not None:
         P = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(x.dtype), x[:, P:]], dim=1)
@@ -215,8 +228,10 @@ def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits; on a mesh the head is all-gathered over its FSDP axes
+    first (its vocab split over 'model' stays), so the batch stays split."""
     head = params.embed if cfg.tie_embeddings else params.lm_head
-    return (x @ head.T).float()
+    return (x @ gather_table(head).T).float()
 
 
 def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
@@ -227,11 +242,27 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens, patch_embeds)
     aux = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
     for layer in params.layers:
-        x, layer_aux = remat(block_train, cfg, layer, x, cfg)
+        if cfg.seq_shard:
+            x = maybe_shard_seq(x)
+        x, layer_aux = remat(_layer_train, cfg, layer, x, cfg)
         if layer_aux is not None:
             aux = {k: aux[k] + layer_aux[k] for k in AUX_KEYS}
     x = rmsnorm(x, params.final_norm, eps=cfg.norm_eps)
     return _logits(params, cfg, x), aux
+
+
+def _layer_train(layer: Block, x: torch.Tensor, cfg: ModelConfig):
+    """One layer of the training forward, with the JAX package's constraints
+    on a mesh (each the identity without one): under ``seq_shard`` the
+    seq-sharded boundary is re-gathered for the tensor-parallel matmuls
+    (``constrain_batch``), and under ``explicit_fsdp_gather`` the layer's
+    parameters are all-gathered over the FSDP axes here, inside the remat
+    region, so the backward pass gathers them again."""
+    if cfg.seq_shard:
+        x = constrain_batch(x)
+    if cfg.explicit_fsdp_gather:
+        layer = gather_block(layer)
+    return block_train(layer, x, cfg)
 
 
 def remat(fn, cfg: ModelConfig, *args):
@@ -253,14 +284,24 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: dict):
     logits = logits[:, :-1]
     targets = tokens[:, 1:].long()
     mask = batch.get("loss_mask")
-    mask = (torch.ones(targets.shape, dtype=torch.float32, device=logits.device)
-            if mask is None else mask[:, 1:].float())
+    mask = (torch.ones_like(targets, dtype=torch.float32) if mask is None
+            else mask[:, 1:].float())
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    gold = gold_logits(logits, targets)
     nll = (logz - gold) * mask
     loss = nll.sum() / torch.maximum(mask.sum(), torch.ones((), device=mask.device))
     total = loss + 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
     return total, dict(aux, nll=loss)
+
+
+def gold_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Each position's logit of its target.  On a mesh, where the vocab is
+    split over 'model', a masked sum over the vocab: each rank sums its own
+    columns and the partial sums add up (a gather would replicate them)."""
+    if is_dtensor(logits):
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        return torch.where(vocab == targets[..., None], logits, 0.0).sum(-1)
+    return torch.gather(logits, -1, targets[..., None])[..., 0]
 
 
 # ---------------------------------------------------------------- serving ---
@@ -309,6 +350,8 @@ def prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     positions), fill the cache, return last-position logits."""
     x = _embed(params, cfg, tokens, patch_embeds)
     for layer, layer_cache in zip(params.layers, _layer_caches(cfg, cache)):
+        if cfg.explicit_fsdp_gather:
+            layer = gather_block(layer)
         x, _ = block_prefill(layer, x, cfg, layer_cache, 0)
     x = rmsnorm(x, params.final_norm, eps=cfg.norm_eps)
     cache["len"] = tokens.shape[1]
@@ -318,7 +361,7 @@ def prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
 @torch.no_grad()
 def decode_step(params: LM, cfg: ModelConfig, token: torch.Tensor, cache: dict):
     """token i32[B, 1] -> (logits f32[B, 1, V], the cache updated in place)."""
-    x = _embed(params, cfg, token)
+    x = embed_rows(params.embed, token)
     kv_len = cache["len"]
     for layer, layer_cache in zip(params.layers, _layer_caches(cfg, cache)):
         x, _ = block_decode(layer, x, cfg, layer_cache, kv_len)

@@ -24,6 +24,14 @@ tree in the JAX package's layout (``train_state_to_tree``) gives the JAX
 package's specs, the stacked layer axis included; of the port's module
 (``params_shardings(params, mesh, cfg)``) it gives each per-layer parameter
 the same spec without that leading ``None``.
+
+The models call the constraints where the JAX package does
+(``constrain_batch``, ``gather_fsdp`` through ``gather_block``,
+``maybe_shard_seq``) and pin each residual sum to the data split; the
+lookups and splits ``DTensor`` cannot place without replicating are
+written here (``embed_rows``, ``gather_table``, ``split_microbatches``),
+and the hand-written kernels' custom ops get their ``DTensor`` sharding
+rules.  Every helper passes a plain tensor through unchanged.
 """
 from __future__ import annotations
 
@@ -34,7 +42,6 @@ import torch
 from torch import nn
 
 from ..core.distributed import ambient_mesh, mesh_device
-from ..models.convert import param_paths
 from ..tree_util import map_with_path
 
 
@@ -125,12 +132,15 @@ class NamedSharding:
 def device_put(x: torch.Tensor, sharding: NamedSharding):
     """The whole array ``x`` (on any device) as a ``DTensor`` on the
     sharding's mesh: this rank keeps its own slice on its device, with no
-    collective, as every rank holds ``x``."""
+    collective, as every rank holds ``x``.  A meta ``x`` stays meta: a
+    shard's shape and no memory, for tracing."""
     from torch.distributed.tensor import DTensor
 
     mesh = sharding.mesh
     local = x[sharding.shard_index(tuple(x.shape), mesh.get_coordinate())]
-    local = local.to(mesh_device(mesh)).contiguous()
+    if not local.is_meta:
+        local = local.to(mesh_device(mesh))
+    local = local.contiguous()
     return DTensor.from_local(local, mesh, sharding.placements(), run_check=False)
 
 
@@ -217,6 +227,8 @@ def params_shardings(params, mesh, cfg=None):
     ``cfg``), ``{parameter name: sharding}``, a layer's parameter given its
     JAX leaf's spec without the stacked layer axis."""
     if isinstance(params, nn.Module):
+        from ..models.convert import param_paths
+
         if cfg is None:
             raise TypeError("params_shardings of a module needs the model's cfg")
         named = dict(params.named_parameters())
@@ -328,3 +340,141 @@ def constrain_batch(x):
     B = tuple(a for a in ("pod", "data") if a in axes) or None
     nd = x.ndim
     return _constrain(x, ambient_mesh(), P(B, *(None,) * (nd - 1)))
+
+
+def split_microbatches(x, n: int) -> list:
+    """``x [B, ...]`` as ``n`` microbatches ``[B // n, ...]``, the i-th rows
+    ``i * B // n ..``.  A ``DTensor`` is gathered first (a token batch is
+    small) and each microbatch split as ``x`` was: every rank holds its
+    own share of every microbatch, the rows one card would take."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return list(x.reshape(n, x.shape[0] // n, *x.shape[1:]).unbind(0))
+    mesh = x.device_mesh
+    full = x.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    sharding = NamedSharding(mesh, spec_of(x))
+    return [device_put(part, sharding)
+            for part in full.reshape(n, x.shape[0] // n, *x.shape[1:]).unbind(0)]
+
+
+def spec_of(dt) -> PartitionSpec:
+    """The ``PartitionSpec`` of a ``DTensor``'s placements."""
+    names = axis_names(dt.device_mesh)
+    per_dim: dict = {}
+    for axis, pl in zip(names, dt.placements):
+        if pl.is_shard():
+            per_dim.setdefault(pl.dim, []).append(axis)
+    return P(*[tuple(per_dim[d]) if d in per_dim else None for d in range(dt.ndim)])
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def gather_table(table):
+    """``gather_fsdp`` of an embedding table ``[V, d]``: its FSDP axes
+    dropped, its vocab split over 'model' kept; anything else as it is."""
+    return gather_fsdp({"embed": table})["embed"]
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; for a ``DTensor`` table, Megatron's vocab-parallel
+    lookup: the table gathered over its FSDP axes, each 'model' rank
+    reading the ids that fall in its own rows (zeros elsewhere), the
+    results a partial sum over 'model' that the caller's constraint adds
+    up (``constrain_batch``: one all-reduce of the activations)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    names = axis_names(mesh)
+    split = [n == "model" and pl.is_shard(0) for n, pl in zip(names, table.placements)]
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * len(names), run_check=False)
+    id_pl = [Replicate() if s else pl for s, pl in zip(split, ids.placements)]
+    out_pl = [Partial() if s else pl for s, pl in zip(split, id_pl)]
+    tab_pl = [Shard(0) if s else Replicate() for s in split]
+    model_dim = split.index(True) if any(split) else None
+
+    def lookup(tab, idx):
+        if model_dim is None:
+            return tab[idx]
+        rows = tab.shape[0]
+        r = idx.long() - mesh.get_local_rank(model_dim) * rows
+        ok = (r >= 0) & (r < rows)
+        return tab[r.clamp(0, rows - 1)] * ok[..., None].to(tab.dtype)
+
+    # each rank's rows' gradient is its own tokens' share: a partial sum
+    # over the axes the ids are split over and the table is not
+    grad_pl = [Partial() if not s and pl.is_shard() else tp
+               for s, pl, tp in zip(split, id_pl, tab_pl)]
+    return local_map(lookup, out_placements=out_pl, in_placements=(tab_pl, id_pl),
+                     in_grad_placements=(grad_pl, id_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, ids)
+
+
+class BlockView:
+    """One layer's parameters as a ``Block`` reads them (``p.kind``,
+    ``p.ln1``, ``p.attn["wq"]``, ``"w_gate" in p.moe``), holding the
+    redistributed ``DTensor``s that ``gather_block`` made."""
+
+    def __init__(self, kind: str, parts: dict):
+        self.kind = kind
+        self.__dict__.update(parts)
+
+
+def gather_block(block):
+    """``gather_fsdp`` of one layer (a ``Block`` module): its parameters with
+    the FSDP axes dropped and the 'model' sharding kept, as a ``BlockView``.
+    Without an ambient mesh with a 'model' axis, the block itself."""
+    axes = ambient_axis_names()
+    if "model" not in axes:
+        return block
+    tree: dict = {}
+    for name, param in block.named_parameters():
+        node = tree
+        *owners, leaf = name.split(".")
+        for o in owners:
+            node = node.setdefault(o, {})
+        node[leaf] = param
+    return BlockView(block.kind, gather_fsdp(tree, axes))
+
+
+def _register_op_shardings() -> None:
+    """``DTensor`` sharding rules of the hand-written kernels' custom ops:
+    each runs on its local shards when every operand is split the same way
+    on a dimension the op keeps apart (the batch or the heads of attention,
+    the routing groups of the assignment), or replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    from ..kernels.assign import ops as _assign_ops  # noqa: F401  (defines the ops)
+    from ..kernels.flash_attention import ops as _flash_ops  # noqa: F401
+
+    ops = torch.ops.repro_torch
+
+    def rule(n_in, n_out, dims):
+        def strategies(*args, **kwargs):
+            out = [([Replicate()] * n_out, [Replicate() if i < n_in else None
+                                            for i in range(len(args))])]
+            for d in dims:
+                if len(args[0].shape) < 3:   # one assignment problem: rows are not apart
+                    break
+                out.append(([Shard(d)] * n_out, [Shard(d) if i < n_in else None
+                                                 for i in range(len(args))]))
+            return out
+        return strategies
+
+    register_sharding(ops.flash_fwd.default)(rule(3, 2, (0, 1)))
+    register_sharding(ops.flash_bwd.default)(rule(6, 3, (0, 1)))
+    register_sharding(ops.assign.default)(rule(3, 4, (0,)))
+    register_sharding(ops.gate_backward.default)(rule(3, 1, (0,)))
+
+
+if torch.distributed.is_available():
+    _register_op_shardings()

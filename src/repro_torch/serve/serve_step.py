@@ -18,7 +18,12 @@ def make_prefill_step(model: Model):
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
-    return logits[:, -1].argmax(-1, keepdim=True).int()
+    last = logits[:, -1]
+    if hasattr(last, "redistribute"):   # on a mesh: the last position's logits whole
+        from torch.distributed.tensor import Replicate
+
+        last = last.redistribute(last.device_mesh, [Replicate()] * last.device_mesh.ndim)
+    return last.argmax(-1, keepdim=True).int()
 
 
 def make_decode_step(model: Model, *, sample: bool = False, temperature: float = 1.0):

@@ -64,10 +64,23 @@ def init_opt_state(params: dict) -> dict:
 _QBLOCK = 256
 
 
+def _whole_rows(x: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` split along its last axis gathered there (a block of
+    256 would straddle the shards); anything else as it is."""
+    placements = getattr(x, "placements", ())
+    if not any(pl.is_shard(x.ndim - 1) for pl in placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate() if pl.is_shard(x.ndim - 1) else pl
+                                          for pl in placements])
+
+
 def _q8_block(x: torch.Tensor):
     """f32 ``x [..., n]`` -> (int8 codes ``[..., n]``, f32 scales
     ``[..., ceil(n / 256)]``): each block of 256 along the last axis (the
     last one padded with zeros) scaled by its largest magnitude / 127."""
+    x = _whole_rows(x)
     *lead, last = x.shape
     pad = (-last) % _QBLOCK
     xb = torch.nn.functional.pad(x, (0, pad)).view(*lead, (last + pad) // _QBLOCK, _QBLOCK)
@@ -78,6 +91,7 @@ def _q8_block(x: torch.Tensor):
 
 
 def _dq8_block(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    q = _whole_rows(q)
     *lead, last = q.shape
     pad = (-last) % _QBLOCK
     qb = torch.nn.functional.pad(q, (0, pad)).view(*lead, (last + pad) // _QBLOCK, _QBLOCK)
@@ -87,7 +101,8 @@ def _dq8_block(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def init_opt_state_8bit(params: dict) -> dict:
     def zq(p):
-        q, s = _q8_block(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
+        q, s = _q8_block(torch.zeros_like(p, dtype=torch.float32,
+                                          memory_format=torch.contiguous_format))
         return {"q": q, "scale": s}
 
     device = next(iter(params.values())).device

@@ -5,10 +5,11 @@ JAX package's ``train/train_step.py`` computes them.
 The global batch ``[GB, S]`` splits into ``microbatches`` chunks taken one
 after the other (the activations a step holds are a microbatch's); each
 chunk's gradients are cast to f32 and summed, then divided by the count, and
-the loss and metrics are the chunks' means.  The JAX package pins the batch
-to its data-parallel mesh axis first (``parallel/sharding.py:175``
-``constrain_batch``); on one card that is the identity, so the port leaves it
-out.
+the loss and metrics are the chunks' means.  The step first pins each batch
+tensor to the ambient mesh's data-parallel axes (``constrain_batch``, as the
+JAX package does); a plain tensor, or no ambient mesh, passes through, so a
+one-card step is unchanged.  On a mesh each rank splits its own rows into
+the microbatches (``split_microbatches``).
 
 The parameters are the model's ``nn.Module`` (``Model.init`` builds them
 untrainable, so serving builds no graph); ``init_train_state`` and
@@ -25,6 +26,7 @@ from torch import nn
 from ..models.config import ModelConfig
 from ..models.convert import leaves_from_numpy, param_paths, params_from_numpy
 from ..models.model import Model
+from ..parallel.sharding import constrain_batch, split_microbatches
 from .compress import compress_grads, init_error_state
 from .optimizer import (AdamWConfig, adamw_update, adamw_update_8bit, init_opt_state,
                         init_opt_state_8bit)
@@ -253,6 +255,7 @@ def make_train_step(
     update = adamw_update_8bit if opt_8bit else adamw_update
 
     def train_step(state: TrainState, batch: dict):
+        batch = {k: constrain_batch(v) for k, v in batch.items()}
         named = trainable(state.params)
         if not decay:
             decay.update(decay_mask(state.params, model.cfg))
@@ -262,9 +265,8 @@ def make_train_step(
             grads = _grads(loss, named)
             loss, metrics = loss.detach(), _detach(metrics)
         else:
-            micro = {k: v.reshape(microbatches, v.shape[0] // microbatches, *v.shape[1:])
-                     for k, v in batch.items()}
-            grads = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            micro = {k: split_microbatches(v, microbatches) for k, v in batch.items()}
+            grads = {name: torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
                      for name, p in named.items()}
             losses, metss = [], []
             for i in range(microbatches):

@@ -183,3 +183,108 @@ def restore_sharded_rank(mesh, out: str, ckpt_dir: str, arch: str, opt_8bit: boo
                          g.full_tensor().clone(), [str(p) for p in _flatten(dts)[key].placements])
                     for key, g in _flatten(gathered).items()}
     torch.save(rec, pathlib.Path(out) / f"rank{torch.distributed.get_rank()}.pt")
+
+
+def launch_train_batch(cfg, B: int = 4, S: int = 16) -> dict:
+    """The same tokens on every rank (seeded numpy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))}
+
+
+def recorded_train_step(model, opt_cfg, microbatches: int):
+    """``make_train_step``'s step, and a dict that each call fills with the
+    gradients the step hands AdamW (f32, by parameter name)."""
+    from unittest import mock
+
+    from repro_torch.train import train_step as TS
+
+    grads: dict = {}
+    inner = TS.adamw_update
+
+    def update(cfg, named, g, opt, **kw):
+        grads.clear()
+        grads.update(g)
+        return inner(cfg, named, g, opt, **kw)
+
+    with mock.patch.object(TS, "adamw_update", update):
+        step = TS.make_train_step(model, opt_cfg, microbatches=microbatches)
+    return step, grads
+
+
+# the decode check: a 6-token prompt, then 4 teacher-forced tokens against a
+# cache of 16 positions, so that kv_len (6 .. 9) crosses the boundary at 8
+# of a cache split in two over 'model'
+DECODE_CACHE_LEN, DECODE_PROMPT, DECODE_NEW = 16, 6, 4
+
+
+def launch_decode(model, params, tokens, place=lambda cache: cache, *,
+                  prompt: int = DECODE_PROMPT, new: int = DECODE_NEW):
+    """Prefill ``tokens``' first ``prompt`` positions into a cache of
+    ``DECODE_CACHE_LEN`` (``place`` puts it on a mesh), then decode the next
+    ``new`` tokens one at a time -> (each step's logits, the cache)."""
+    cache = place(model.init_cache(tokens.shape[0], DECODE_CACHE_LEN))
+    logits, cache = model.prefill(params, {"tokens": tokens[:, :prompt]}, cache)
+    out = [logits]
+    for i in range(prompt, prompt + new):
+        logits, cache = model.decode(params, tokens[:, i:i + 1], cache)
+        out.append(logits)
+    return out, cache
+
+
+def _whole(t):
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().clone()
+
+
+def launch_rank(mesh, out: str, arch: str, shape: tuple, microbatches: int,
+                windows: tuple) -> None:
+    """On a ``("data", "model")`` grid of ``shape`` over the ranks, under
+    ``use_mesh``: one ``make_train_step`` step of ``arch``'s f32 smoke
+    config with the ``TrainState`` as ``DTensor``s
+    (``launch.specs.shard_train_state``) and the batch split over 'data',
+    saving the loss, every gradient the step computed and every parameter
+    after it; then, for each attention window in ``windows``, a prefill and
+    decode steps (``launch_decode``) with the parameters and the cache placed
+    by ``params_shardings``/``cache_shardings`` (the cache's positions split
+    over 'model'), and a prefill that fills the whole cache, saving the
+    logits and the cache.  Every tensor saved whole (``full_tensor``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.distributed import use_mesh
+    from repro_torch.launch.specs import _place, shard_train_state, sharded_params
+    from repro_torch.models import build_model
+    from repro_torch.parallel import NamedSharding, PartitionSpec, cache_shardings, device_put
+    from repro_torch.train import AdamWConfig, init_train_state
+
+    torch.set_num_threads(1)
+    grid = init_device_mesh(mesh.device_type, shape, mesh_dim_names=("data", "model"))
+    cfg = get_smoke(arch).replace(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    state = shard_train_state(init_train_state(model, 0), grid, cfg)
+    tokens = launch_train_batch(cfg)["tokens"]
+    split = NamedSharding(grid, PartitionSpec("data", None))
+    step, grads = recorded_train_step(model, AdamWConfig(warmup_steps=1, eps=1.0),
+                                      microbatches)
+    rec = {}
+    with use_mesh(grid), implicit_replication():
+        state, met = step(state, {"tokens": device_put(tokens, split)})
+        rec["loss"] = float(_whole(met["loss"]))
+        rec["grads"] = {n: _whole(g) for n, g in grads.items()}
+        rec["params"] = {n: _whole(p) for n, p in state.params.named_parameters()}
+
+        def place(cache):
+            tensors = {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)}
+            return _place(cache, cache_shardings(tensors, grid, batch=("data",)))
+
+        runs = {f"decode{w}": (w, {}) for w in windows}
+        runs["prefill_full"] = (0, dict(prompt=DECODE_CACHE_LEN, new=0))
+        for name, (window, kw) in runs.items():
+            wmodel = build_model(cfg.replace(window=window), device="cpu")
+            logits, cache = launch_decode(wmodel, sharded_params(wmodel, grid),
+                                          device_put(tokens, split), place, **kw)
+            rec[name] = ([_whole(x) for x in logits],
+                         {k: _whole(v) for k, v in cache.items() if isinstance(v, torch.Tensor)})
+    torch.save(rec, pathlib.Path(out) / f"rank{torch.distributed.get_rank()}.pt")
