@@ -273,6 +273,30 @@ check does not hold:
    --small --steps 10 --inject 5``, in a process started beside (c) and
    (b), exits 0 with ``restarts=1``.
 
+23. ``launch/`` (run after phase 22): granite's ``train_4k`` step and
+   deepseek's prefill counted on the card against their meta traces, the
+   dry-run CLI in two processes beside them.
+
+24. job-parallel simulation (run after phase 23), on a 1-rank NCCL mesh,
+   counters and the all-gather count set to 0 just before each run, the
+   plain assignments refused: (a) phase 3's run through
+   ``distributed.simulate_distributed``, bit for bit phase 3's snapshot,
+   one assign launch and two all-gathers a round with work, every call on
+   a job block, rounds/s beside phase 3's, peak memory above the inputs
+   beside ``simulate``'s over JP_MEM_ROUNDS rounds; (b) phase 4's run the
+   same way (the fused kernel with its ``pos`` output); (c) phase 9's
+   configuration cut to JP_SUB_ROUNDS rounds, equal to ``simulate`` over
+   as many (subsystem states and log included); (d) with two or more
+   cards, (a) on 2..N spawned NCCL ranks, each rank's result equal to
+   phase 3's, rounds/s over the slowest rank and each rank's peak memory
+   (one card: skipped, said so); (e) ``lower_distributed`` at (a)'s shapes
+   on a fake JP_DRYRUN_RANKS-rank mesh in a process started beside (c):
+   two all-gathers of the bytes the formula gives, CUDA never started;
+   (f) the fused kernel's ``pos`` against ``fused_ref`` at the engine shape
+   and at the blocks of JP_BLOCKS ranks (site, admit and pos exact), those
+   blocks with ``block_admit`` equal to one call, device ms with and
+   without ``pos``.
+
 It prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the result line ``{"ok": true, "device": {...}}``.  It needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero without
@@ -325,6 +349,7 @@ ASSIGN_CASES = [  # (N, E, k, block_n)
     (5000, 64, 4, 300),             # block_n dividing neither N nor the 256-row tile
 ]
 JOB_FIELDS = ("state", "site", "retries", "will_fail", "t_assign", "t_start", "t_finish")
+SNAPSHOTS: dict = {}           # phases 3's and 4's results, which phase 24 must equal
 SITE_FIELDS = ("free_cores", "free_memory", "n_assigned", "n_finished", "n_failed")
 
 
@@ -359,8 +384,7 @@ PROFILE_FILLER = (256, 2048, 8192)   # cheap launches ahead of a profile's timed
 TIMED_RANGE = "device_ms: timed calls"
 
 
-def device_ms(fn, kernel_names, iters: int, call_ms: float, forbid=(), counts=None,
-              per_call=None) -> dict:
+def device_ms(fn, kernel_names, iters: int, forbid=(), counts=None, per_call=None) -> dict:
     """Device milliseconds per call of ``fn`` for each named kernel, from
     ``torch.profiler`` over ``iters`` calls: the kernels' own time, without
     the host time between launches that CUDA events around a short call
@@ -376,9 +400,10 @@ def device_ms(fn, kernel_names, iters: int, call_ms: float, forbid=(), counts=No
     inside the timed calls' range count: each must have its device record,
     else the profile is taken again with more filler, and the run fails after
     the last try.  A recorded launch carries its own start and end from the
-    device, so a complete profile cannot read a kernel short.  ``call_ms``,
-    the call's time between CUDA events, bounds the named kernels' time a
-    call from above: more fails the run."""
+    device, so a complete profile cannot read a kernel short.  CUDA events
+    recorded around the same timed calls bound the named kernels' time a
+    call from above: more fails the run.  (A time taken by other calls, at
+    another moment, is no bound: the card's clock moves between them.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -390,9 +415,13 @@ def device_ms(fn, kernel_names, iters: int, call_ms: float, forbid=(), counts=No
             for _ in range(n_fill):
                 filler.add_(1)
             torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
             with record_function(TIMED_RANGE):
+                start.record()
                 for _ in range(iters):
                     fn()
+                end.record()
                 torch.cuda.synchronize()
         for e in prof.key_averages():
             bad = [f for f in forbid if f in e.key]
@@ -413,9 +442,10 @@ def device_ms(fn, kernel_names, iters: int, call_ms: float, forbid=(), counts=No
     if counts is not None:
         counts.update({name: n / iters for name, n in seen.items()})
     ms = {name: t / iters for name, t in total.items()}
-    check(sum(ms.values()) <= 1.1 * call_ms + 2e-3,
+    window_ms = start.elapsed_time(end) / iters
+    check(sum(ms.values()) <= 1.1 * window_ms + 2e-3,
           f"the profiler put {json.dumps(ms)} ms of device time in a call that takes "
-          f"{call_ms:.4f} ms between CUDA events")
+          f"{window_ms:.4f} ms between CUDA events around the same calls")
     return ms
 
 
@@ -561,7 +591,7 @@ def phase_kernels(device) -> dict:
     call_ms = cuda_ms(lambda: assign_cuda(scores, sizes, caps, k=1), iters=200)
     per_call = {}
     parts = device_ms(lambda: assign_cuda(scores, sizes, caps, k=1), ASSIGN_KERNELS, iters=200,
-                      call_ms=call_ms, counts=per_call, per_call=1)
+                      counts=per_call, per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: assign_ref(scores, sizes, caps, k=1), iters=5)
     bytes_moved = N * E * 4 + N * 4 + E * 4 + N * (4 + 4 + 1 + 4)
@@ -605,7 +635,7 @@ def phase_kernels(device) -> dict:
         call = cuda_ms(lambda: segment_sum_cuda(vals, seg_d, ENGINE_S), iters=200)
         per_call = {}
         dev = device_ms(lambda: segment_sum_cuda(vals, seg_d, ENGINE_S), ("segment_sum_kernel",),
-                        iters=200, call_ms=call, counts=per_call)["segment_sum_kernel"]
+                        iters=200, counts=per_call)["segment_sum_kernel"]
         plain = cuda_ms(lambda: segment_sum_ref(vals, seg_d, ENGINE_S), iters=200)
         idx64 = seg_d.long()
         acc = torch.zeros(ENGINE_S + 1, device=device)
@@ -623,7 +653,7 @@ def phase_kernels(device) -> dict:
         call = cuda_ms(lambda: segment_sum_cuda(vals, seg_d, MANY_SEGMENTS), iters=50)
         per_call = {}
         dev = device_ms(lambda: segment_sum_cuda(vals, seg_d, MANY_SEGMENTS), (kernel,), iters=50,
-                        call_ms=call, counts=per_call)[kernel]
+                        counts=per_call)[kernel]
         plain = cuda_ms(lambda: segment_sum_ref(vals, seg_d, MANY_SEGMENTS), iters=50)
         idx64 = seg_d.long()
         acc = torch.zeros(MANY_SEGMENTS + 1, dtype=vals.dtype, device=device)
@@ -700,7 +730,7 @@ def phase_assign_lanes(device) -> dict:
     call_ms = cuda_ms(lambda: assign_cuda(scores, sizes, caps, k=1), iters=50)
     per_call = {}
     parts = device_ms(lambda: assign_cuda(scores, sizes, caps, k=1), ASSIGN_KERNELS, iters=20,
-                      call_ms=call_ms, counts=per_call, per_call=1)
+                      counts=per_call, per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: assign_ref(scores, sizes, caps, k=1), iters=2, warmup=1)
     unbatched_ms = cuda_ms(lambda: [assign_cuda(scores[i], sizes[i], caps[i], k=1)
@@ -804,7 +834,7 @@ def phase_fused_kernel(device) -> dict:
     call_ms = cuda_ms(lambda: fused_assign_cuda(*args), iters=200)
     per_call = {}
     parts = device_ms(lambda: fused_assign_cuda(*args), FUSED_KERNELS, iters=200,
-                      call_ms=call_ms, counts=per_call, per_call=1)
+                      counts=per_call, per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: fused_assign_ref(*args), iters=5)
     bytes_moved = N * K * (4 + 4) + N * 4 + E * 4 + N * (4 + 1)
@@ -878,7 +908,7 @@ def phase_fused_lanes(device) -> dict:
     call_ms = cuda_ms(lambda: fused_assign_cuda(*args), iters=100)
     per_call = {}
     parts = device_ms(lambda: fused_assign_cuda(*args), FUSED_KERNELS, iters=50,
-                      call_ms=call_ms, counts=per_call, per_call=1)
+                      counts=per_call, per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: fused_assign_ref(*args), iters=2, warmup=1)
 
@@ -886,8 +916,7 @@ def phase_fused_lanes(device) -> dict:
         return [fused_assign_cuda(*(a[i] for a in args)) for i in range(K)]
 
     unbatched_ms = cuda_ms(unbatched, iters=20)
-    unbatched_device_ms = sum(device_ms(unbatched, FUSED_KERNELS, iters=10, call_ms=unbatched_ms,
-                                        per_call=K).values())
+    unbatched_device_ms = sum(device_ms(unbatched, FUSED_KERNELS, iters=10, per_call=K).values())
     bytes_moved = K * (N * Kc * (4 + 4) + N * 4 + E * 4 + N * (4 + 1))
     bound_ms = max(bytes_moved / PEAK_HBM_BYTES_PER_S,
                    K * N * Kc * 3 / PEAK_FP32_OPS_PER_S) * 1e3
@@ -994,7 +1023,7 @@ def phase_flash_kernel(device) -> dict:
     # the profiled launches must be the wgmma kernel, not the mma.sync or f32 one
     call_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), iters=10)
     parts = device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), (FLASH_KERNEL,),
-                      iters=10, call_ms=call_ms, per_call=1,
+                      iters=10, per_call=1,
                       forbid=("flash_fwd_kernel_mma", "flash_fwd_kernel<"))
     ms = parts[FLASH_KERNEL]
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=causal), iters=3)
@@ -1219,7 +1248,7 @@ def check_moe_route(logits, cfg, label: str) -> dict:
           f"{label}: two moe_route calls differ")
     call_ms = cuda_ms(lambda: moe_route(logits, **kw), iters=50)
     parts = device_ms(lambda: moe_route(logits, **kw), form["kernels"], iters=50,
-                      call_ms=call_ms, per_call=1)
+                      per_call=1)
     ms = sum(parts.values())
     plain_ms = cuda_ms(lambda: moe_route_ref(logits, **kw), iters=3, warmup=1)
     N = G * Tg
@@ -1481,7 +1510,7 @@ def check_family_flash(device, cfg, B: int, S: int, Skv: int | None = None,
                    if n != kernel)
     iters = 5 if S * Skv >= 1 << 20 else 50
     call_ms = cuda_ms(kernel_call, iters=iters)
-    ms = device_ms(kernel_call, (kernel,), iters=iters, call_ms=call_ms, per_call=1,
+    ms = device_ms(kernel_call, (kernel,), iters=iters, per_call=1,
                    forbid=others)[kernel]
     plain_ms = cuda_ms(plain, iters=2, warmup=1)
     kq, vq = k.repeat_interleave(Hq // Hkv, 1), v.repeat_interleave(Hq // Hkv, 1)
@@ -1704,7 +1733,7 @@ def phase_full_width(device, max_rounds: int) -> dict:
           f"assign launches {launches['assign']} != rounds with work {rounds_with_work}")
     check(launches["segment_sum"] > 0, "the main path never launched the segment_sum kernel")
     check_invariants(res, "full")
-    snap1 = snapshot(res)
+    snap1 = SNAPSHOTS["dense"] = snapshot(res)   # phase 24(a) runs the same through the mesh
 
     # second run: determinism, and the assign kernel's call time (CUDA events
     # around the wrapper: host launch work included, not device time)
@@ -1795,7 +1824,7 @@ def phase_sparse_full_width(device, max_rounds: int) -> dict:
     check(launches["assign"] == 0, "the sparse path launched the dense assign kernel")
     check(launches["segment_sum"] > 0, "the sparse path never launched the segment_sum kernel")
     check_invariants(res, "sparse")
-    snap1 = snapshot(res)
+    snap1 = SNAPSHOTS["sparse"] = snapshot(res)  # phase 24(b) runs the same through the mesh
 
     # the candidate build that init paid, alone
     clock0 = torch.zeros((), dtype=torch.float32, device=device)
@@ -4223,7 +4252,7 @@ def phase_flash_backward(device) -> dict:
         call = lambda: flash_attention_backward_cuda(q, k, v, o, do, lse,  # noqa: E731
                                                      causal=causal, window=window)
         call_ms = cuda_ms(call, iters=5)
-        parts = device_ms(call, FLASH_BWD_KERNELS, iters=3, call_ms=call_ms, per_call=1,
+        parts = device_ms(call, FLASH_BWD_KERNELS, iters=3, per_call=1,
                           forbid=FLASH_BWD_OTHER)
         dev_ms = sum(parts.values())
         plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, do, causal=causal,
@@ -4299,8 +4328,7 @@ def phase_gate_backward(device) -> dict:
         check(err <= 1e-6, f"gate backward {label}: row error {err:.3e} > 1e-6")
         call = lambda: gate_backward_cuda(scores, idx, dgate)  # noqa: E731
         call_ms = cuda_ms(call, iters=50)
-        dev_ms = device_ms(call, ("gate_backward_kernel",), iters=20, call_ms=call_ms,
-                           per_call=1)["gate_backward_kernel"]
+        dev_ms = device_ms(call, ("gate_backward_kernel",), iters=20, per_call=1)["gate_backward_kernel"]
         plain_ms = cuda_ms(lambda: gate_backward_ref(scores, idx, dgate), iters=20)
         nbytes = 4 * (2 * scores.numel() + idx.numel() + dgate.numel())
         bound_ms = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
@@ -5203,6 +5231,373 @@ def phase_launch(device) -> dict:
     return dict(train=train, prefill=prefill, dryrun=dry)
 
 
+# --------------------------------------------------------------------------
+# phase 24: job-parallel simulation (simulate_distributed, lower_distributed)
+# --------------------------------------------------------------------------
+
+JP_SUB_ROUNDS = 100            # depth cut of 24(c): phase 9's configuration, 600 -> 100
+JP_MEM_ROUNDS = 30             # rounds of 24(a)'s peak-memory runs
+JP_BLOCKS = (4, 3)             # 24(f)'s row blocks: B = 25000 and 33334 at J = 100000
+JP_DRYRUN_RANKS = 4            # 24(e)'s fake mesh
+
+
+def jp_policy(kind: str, cores, calls: list):
+    """Phase 3's (``"dense"``: ``panda_dispatch`` + capacity dispatch), 4's
+    (``"sparse"``: ``data_locality`` + the fused capacity assign) or 9's
+    (``"subsys"``: ``critical_path_first`` + capacity dispatch) policy, its
+    assigner counted: each call appends the rows it was given and whether a
+    job block came with them.  The counter keeps the assigner's
+    ``splits_rows``, so a job-parallel run still splits."""
+    from repro_torch import core as T
+    from repro_torch.kernels.assign import make_capacity_assign, make_fused_capacity_assign
+
+    fn = (make_fused_capacity_assign if kind == "sparse" else make_capacity_assign)(cores)
+
+    def counting(scores, *args, **kw):
+        calls.append((scores.shape[0], kw.get("block") is not None))
+        return fn(scores, *args, **kw)
+
+    counting.splits_rows = fn.splits_rows
+    if kind == "sparse":
+        return T.with_fused_assign(T.get_policy("data_locality"), counting)
+    return T.with_capacity_assign(
+        T.get_policy("critical_path_first" if kind == "subsys" else "panda_dispatch"), counting)
+
+
+def jp_trimmed(snap: dict, J: int) -> dict:
+    """A snapshot with the padding rows of its jobs cut off."""
+    return {k: (v[:J] if k.startswith("jobs.") else v) for k, v in snap.items()}
+
+
+def jp_run(mesh, device, kind: str, jobs, sites, rounds: int, **kw):
+    """One counted job-parallel run on ``mesh``: launch counters and the
+    collective count set to 0 just before, the plain assignments refused.
+    Returns (result, wall seconds, launches, assigner calls, all-gathers)."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels.assign import assign_cuda as assign_mod
+    from repro_torch.kernels.assign import fused_cuda as fused_mod
+    from repro_torch.kernels.assign import ops as assign_ops
+    from repro_torch.kernels.segment_sum import segment_sum_cuda as segsum_mod
+
+    calls, gathers = [], [0]
+    policy = jp_policy(kind, jobs.cores, calls)
+    real_gather = D._all_gather
+
+    def counted_gather(*args):
+        gathers[0] += 1
+        return real_gather(*args)
+
+    def no_plain_version(*args, **kw):
+        raise SmokeFailure("the job-parallel path called a plain assignment version on the card")
+
+    plain = assign_ops.fused_assign_ref, assign_ops.assign_ref
+    assign_ops.fused_assign_ref = assign_ops.assign_ref = no_plain_version
+    D._all_gather = counted_gather
+    try:
+        torch.cuda.synchronize()
+        assign_mod.launches = fused_mod.launches = segsum_mod.launches = 0
+        t0 = time.perf_counter()
+        res = D.simulate_distributed(jobs, sites, policy, T.PRNGKey(0), mesh, max_rounds=rounds,
+                                     **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"assign": assign_mod.launches, "fused_assign": fused_mod.launches,
+                    "segment_sum": segsum_mod.launches}
+    finally:
+        assign_ops.fused_assign_ref, assign_ops.assign_ref = plain
+        D._all_gather = real_gather
+    name = "fused_assign" if kind == "sparse" else "assign"
+    other = "assign" if kind == "sparse" else "fused_assign"
+    check(launches[name] > 0 and launches[name] == len(calls),
+          f"job-parallel {kind}: {launches[name]} {name} launches in {len(calls)} rounds with work")
+    check(launches[other] == 0, f"job-parallel {kind}: launched the {other} kernel")
+    check(all(blk for _, blk in calls), f"job-parallel {kind}: the assigner ran without a block")
+    check(gathers[0] == 2 * len(calls),
+          f"job-parallel {kind}: {gathers[0]} all-gathers in {len(calls)} rounds with work")
+    check_invariants(res, f"job-parallel {kind}")
+    return res, wall, launches, calls, gathers[0]
+
+
+def jp_peak_mb(fn) -> float:
+    """MB that ``fn`` allocated at its peak above what was allocated before."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def jp_scaling_rank(mesh, out_dir: str, rounds: int) -> None:
+    """One rank of a spawned NCCL mesh: phase 3's configuration through
+    ``simulate_distributed`` on this rank's card, a short warm-up call, a
+    barrier, then the timed run.  Writes the wall seconds, rounds, peak
+    memory and the digest of the result's first J rows to ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import core as T
+    from repro_torch.core import distributed as D
+
+    device = D.mesh_device(mesh)
+    sites = T.atlas_like_platform(ENGINE_S, seed=1, device=device)
+    jobs = T.synthetic_panda_jobs(ENGINE_J, seed=0, duration=6 * 3600.0, device=device)
+    policy = jp_policy("dense", jobs.cores, [])
+    D.simulate_distributed(jobs, sites, policy, T.PRNGKey(0), mesh, max_rounds=MESH_WARMUP_ROUNDS)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = D.simulate_distributed(jobs, sites, policy, T.PRNGKey(0), mesh, max_rounds=rounds)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    rank = mesh.get_local_rank("data")
+    (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(dict(
+        wall=wall, rounds=int(res.rounds), device=str(device), capacity=res.jobs.capacity,
+        peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+        digest=snapshot_digest(jp_trimmed(snapshot(res), ENGINE_J)))))
+
+
+
+def jp_scaling(want: dict, n_cards: int) -> list:
+    """Phase 24(d): phase 3's configuration through ``simulate_distributed``
+    on 2..``n_cards`` spawned NCCL ranks, one card a rank
+    (``jp_scaling_rank``); every rank's digest must equal ``want``, the
+    one-card ``simulate``'s.  Returns a row a rank count: rounds/s over the
+    slowest rank's wall time, each rank's peak memory."""
+    import tempfile
+
+    from repro_torch.core import distributed as D
+
+    rows = []
+    for ranks in range(2, n_cards + 1):
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            t0 = time.perf_counter()
+            D.run_ranks(jp_scaling_rank, ranks, (tmp, DENSE_FULL_ROUNDS), device_type="cuda")
+            spawn_s = time.perf_counter() - t0
+            reports = [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
+                       for r in range(ranks)]
+        for r, rep in enumerate(reports):
+            bad = [k for k in want if rep["digest"].get(k) != want[k]]
+            check(not bad, f"job-parallel: rank {r} of {ranks} differs from one card in {bad}")
+        wall = max(r["wall"] for r in reports)
+        rows.append(dict(ranks=ranks, rounds=reports[0]["rounds"],
+                         capacity=reports[0]["capacity"],
+                         rounds_per_s=reports[0]["rounds"] / wall, wall=wall,
+                         spawn_s=spawn_s, peak_gb=[r["peak_gb"] for r in reports]))
+        print(f"[jobpar] (d) {ranks} ranks (one a card, NCCL), {reports[0]['rounds']} rounds, "
+              f"capacity {reports[0]['capacity']}: {rows[-1]['rounds_per_s']:.2f} rounds/s over "
+              f"the slowest rank's {wall:.2f}s; peak GB by rank "
+              f"{[round(g, 3) for g in rows[-1]['peak_gb']]}; every rank's result = one card's "
+              f"({spawn_s:.1f}s with the processes)")
+    return rows
+
+JP_DRYRUN = r"""
+import json, sys
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+import repro_torch.core as T
+from repro_torch.core import distributed as D
+from repro_torch.kernels.assign import make_capacity_assign
+from repro_torch.launch.mesh import init_fake_world
+J, S, N, ROUNDS = (int(a) for a in sys.argv[1:5])
+jobs = T.synthetic_panda_jobs(J, seed=0, duration=6 * 3600.0, device="cpu")
+sites = T.atlas_like_platform(S, seed=1, device="cpu")
+policy = T.with_capacity_assign(T.get_policy("panda_dispatch"),
+                                make_capacity_assign(jobs.cores.to("meta")))
+init_fake_world(N)
+mesh = DeviceMesh("cpu", torch.arange(N), mesh_dim_names=("data",))
+rec = D.lower_distributed(jobs, sites, policy, mesh, max_rounds=ROUNDS)
+rec["cuda_initialized"] = torch.cuda.is_initialized()
+print(json.dumps(rec))
+"""
+
+
+def start_jp_dryrun():
+    """Phase 24(e), started beside (c): ``lower_distributed`` at (a)'s shapes
+    on a fake JP_DRYRUN_RANKS-rank mesh, in its own process (the fake
+    process group is the process's default group)."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", JP_DRYRUN, str(ENGINE_J), str(ENGINE_S), str(JP_DRYRUN_RANKS),
+         str(DENSE_FULL_ROUNDS)], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def finish_jp_dryrun(started) -> dict:
+    t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"lower_distributed: exit {proc.returncode}: {err[-2000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    n, S = JP_DRYRUN_RANKS, ENGINE_S
+    J_pad = ENGINE_J + (-ENGINE_J) % n
+    want = 4 * J_pad + 4 * n * S       # i32 picks [J_pad] and claims [n, S]
+    gathers = rec["ops"].get("_c10d_functional::all_gather_into_tensor", 0)
+    check(gathers == 2 and rec["coll_breakdown"]["all-gather"] == want,
+          f"lower_distributed: {gathers} all-gathers of {rec['coll_breakdown']} B, want 2 of "
+          f"{want} B")
+    check(not rec["cuda_initialized"], "lower_distributed started CUDA")
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"[jobpar] (e) lower_distributed, {n} fake ranks, J={ENGINE_J} (block {rec['block_rows']}"
+          f" rows) S={S}: one round per card {rec['flops']:.4e} FLOP, {rec['bytes']:.4e} B, "
+          f"collectives {json.dumps(rec['coll_breakdown'])} ({gathers} all-gathers: "
+          f"{json.dumps(rec['top_collectives'])}), peak of the round's results "
+          f"{rec['peak_bytes'] / 1e6:.1f} MB; no CUDA in the process; {rec['wall_s']:.1f}s")
+    return {k: rec[k] for k in ("flops", "bytes", "coll_breakdown", "coll_bytes", "peak_bytes",
+                                "top_collectives", "ranks", "capacity", "block_rows", "wall_s")}
+
+
+def phase_jp_fused_pos(device) -> dict:
+    """24(f): the fused kernel's ``pos`` output against ``fused_ref`` at the
+    engine shape and at JP_BLOCKS' block shapes; the engine shape solved in
+    row blocks with ``block_admit`` against one call; device ms a call with
+    and without ``pos``."""
+    import torch
+
+    from repro_torch.kernels.assign import block_admit, block_claims
+    from repro_torch.kernels.assign.fused_cuda import fused_assign_cuda
+    from repro_torch.kernels.assign.fused_ref import fused_assign_ref
+
+    N, E, K = ENGINE_J, ENGINE_S, ENGINE_K
+    args = fused_inputs(N, E, K, 0, device)
+    for B in [N] + [-(-N // n) for n in JP_BLOCKS]:
+        part = tuple(a[:B].contiguous() for a in args[:3]) + (args[3],)
+        want = fused_assign_ref(*part, with_pos=True)
+        got = fused_assign_cuda(*part, with_pos=True)
+        plain_call = fused_assign_cuda(*part)
+        for name, w, g in zip(("site", "admit", "pos"), want, got):
+            check(torch.equal(w, g), f"fused pos B={B}: {int((w != g).sum())} {name} differ")
+        check(torch.equal(got[0], plain_call[0]) and torch.equal(got[1], plain_call[1]),
+              f"fused B={B}: site/admit change when pos is asked for")
+    whole = fused_assign_cuda(*args)
+    for n in JP_BLOCKS:
+        b = -(-N // n)
+        base = torch.zeros(E, dtype=torch.int32, device=device)
+        sites_, admits = [], []
+        for r in range(n):
+            rows = slice(r * b, min((r + 1) * b, N))
+            site, _, pos = fused_assign_cuda(*(a[rows].contiguous() for a in args[:3]), args[3],
+                                             with_pos=True)
+            admits.append(block_admit(site, pos, args[2][rows], args[3], base))
+            base = base + block_claims(site, args[2][rows], E)
+            sites_.append(site)
+        check(torch.equal(torch.cat(sites_), whole[0]) and torch.equal(torch.cat(admits), whole[1]),
+              f"fused: {n} row blocks with block_admit differ from one call")
+    call = {w: cuda_ms(lambda w=w: fused_assign_cuda(*args, with_pos=w), iters=200)
+            for w in (False, True)}
+    dev = {w: sum(device_ms(lambda w=w: fused_assign_cuda(*args, with_pos=w), FUSED_KERNELS,
+                            iters=200, per_call=1).values())
+           for w in (False, True)}
+    bytes_pos = N * K * (4 + 4) + N * 4 + E * 4 + N * (4 + 1) + N * 4
+    bound = bytes_pos / PEAK_HBM_BYTES_PER_S * 1e3
+    print(f"[jobpar] (f) fused pos: site/admit/pos exact against fused_ref at B={N}, "
+          f"{', '.join(str(-(-N // n)) for n in JP_BLOCKS)}; {' and '.join(map(str, JP_BLOCKS))} "
+          f"row blocks with block_admit = one call; device {dev[False]:.4f} ms without pos, "
+          f"{dev[True]:.4f} ms with ({call[False]:.4f}, {call[True]:.4f} ms a call); bound with "
+          f"pos {bound:.4f} ms ({bytes_pos} B)")
+    return dict(device_ms=dev[False], device_ms_pos=dev[True], cuda_ms=call[False],
+                cuda_ms_pos=call[True], bound_ms_pos=bound)
+
+
+def phase_job_parallel(device, plain_rates, sparse_rates) -> dict:
+    """Phase 24 (after phase 23): (a) phase 3's and (b) phase 4's runs
+    through ``simulate_distributed`` on a 1-rank NCCL mesh, bit for bit
+    their snapshots, one assign (fused) launch and two all-gathers a round
+    with work, rounds/s beside theirs and peak memory beside ``simulate``'s;
+    (c) phase 9's configuration cut to JP_SUB_ROUNDS rounds against
+    ``simulate`` over as many; (d) with two or more cards, (a) on 2..N
+    spawned NCCL ranks, each rank's result = the 1-rank run; (e) the dry run
+    in its own process, started beside (c); (f) the fused kernel's ``pos``."""
+    import torch
+
+    from repro_torch import core as T
+    from repro_torch.core import distributed as D
+
+    t_phase = time.perf_counter()
+    out = {}
+    sites = T.atlas_like_platform(ENGINE_S, seed=1, device=device)
+    jobs = T.synthetic_panda_jobs(ENGINE_J, seed=0, duration=6 * 3600.0, device=device)
+    with D.local_mesh("cuda") as mesh:
+        check(D.mesh_device(mesh) == device, f"the 1-rank mesh runs on {D.mesh_device(mesh)}")
+        # NCCL sets its communicator up at the first collective: outside the timed runs
+        t0 = time.perf_counter()
+        D.simulate_distributed(jobs, sites, jp_policy("dense", jobs.cores, []), T.PRNGKey(0), mesh,
+                               max_rounds=MESH_WARMUP_ROUNDS)
+        torch.cuda.synchronize()
+        out["warmup_s"] = time.perf_counter() - t0
+        print(f"[jobpar] warm-up: {MESH_WARMUP_ROUNDS} rounds through the mesh (the NCCL "
+              f"communicator's set-up) {out['warmup_s']:.2f}s")
+        for kind, rounds, kw, rates in (("dense", DENSE_FULL_ROUNDS, {}, plain_rates),
+                                        ("sparse", SPARSE_FULL_ROUNDS, {"topk": ENGINE_K},
+                                         sparse_rates)):
+            res, wall, launches, calls, gathers = jp_run(mesh, device, kind, jobs, sites,
+                                                         rounds, **kw)
+            bad = mismatches(SNAPSHOTS[kind], snapshot(res))
+            check(not bad, f"job-parallel {kind}: differs from phase {3 if kind == 'dense' else 4}"
+                           f"'s simulate: {bad}")
+            rate = res.rounds / wall
+            print(f"[jobpar] ({'a' if kind == 'dense' else 'b'}) {kind}: simulate_distributed "
+                  f"on a 1-rank NCCL mesh, {res.rounds} rounds, bit for bit phase "
+                  f"{3 if kind == 'dense' else 4}'s simulate; launches {json.dumps(launches)} "
+                  f"({len(calls)} rounds with work, {gathers} all-gathers, block {calls[0][0]} "
+                  f"rows); {rate:.2f} rounds/s against simulate's {rates[0]:.2f}, "
+                  f"{rates[1]:.2f} (phase {3 if kind == 'dense' else 4}, this process)")
+            out[kind] = dict(launches, rounds=res.rounds, rounds_with_work=len(calls),
+                             all_gathers=gathers, rate=rate, simulate_rates=list(rates))
+            del res
+        policy = jp_policy("dense", jobs.cores, [])
+        peak = {"simulate": jp_peak_mb(lambda: T.simulate(jobs, sites, policy, T.PRNGKey(0),
+                                                          max_rounds=JP_MEM_ROUNDS,
+                                                          device=device)),
+                "simulate_distributed": jp_peak_mb(lambda: D.simulate_distributed(
+                    jobs, sites, policy, T.PRNGKey(0), mesh, max_rounds=JP_MEM_ROUNDS))}
+        print(f"[jobpar] (a) peak memory above the inputs over {JP_MEM_ROUNDS} rounds: simulate "
+              f"{peak['simulate']:.1f} MB, simulate_distributed on 1 rank "
+              f"{peak['simulate_distributed']:.1f} MB")
+        out["dense"]["peak_mb"] = peak
+        dry = start_jp_dryrun()
+        try:
+            scn, ssites, av = subsystem_scenario(device, ENGINE_S, SUB_CHAINS)
+            kw = dict(availability=av, workflow=scn.workflow, log_rows=SUB_LOG_ROWS)
+            want = full_snapshot(T.simulate(scn.jobs, ssites, jp_policy("subsys", scn.jobs.cores,
+                                                                        []),
+                                            T.PRNGKey(0), max_rounds=JP_SUB_ROUNDS, device=device,
+                                            **kw))
+            res, wall, launches, calls, gathers = jp_run(mesh, device, "subsys", scn.jobs, ssites,
+                                                         JP_SUB_ROUNDS, **kw)
+            bad = mismatches(want, full_snapshot(res))
+            check(not bad, f"job-parallel subsystems: differ from simulate: {bad}")
+            print(f"[jobpar] (c) phase 9's configuration, {res.rounds} rounds: "
+                  f"simulate_distributed = simulate bit for bit (subsystem states and log "
+                  f"included); launches {json.dumps(launches)} ({len(calls)} rounds with work); "
+                  f"{res.rounds / wall:.2f} rounds/s")
+            out["subsystems"] = dict(launches, rounds=res.rounds, rounds_with_work=len(calls),
+                                     rate=res.rounds / wall)
+            del res, scn, ssites, av
+            torch.cuda.empty_cache()
+        finally:
+            out["dryrun"] = finish_jp_dryrun(dry)
+    out["fused_pos"] = phase_jp_fused_pos(device)
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[jobpar] (d) {n_cards} card: skipped, the spawned ranks need two or more")
+    else:
+        out["scaling"] = jp_scaling(snapshot_digest(SNAPSHOTS["dense"]), n_cards)
+    print(f"[jobpar] phase 24 took {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5296,6 +5691,8 @@ def main() -> int:
     lap("22")
     launch = phase_launch(device)
     lap("23")
+    jobpar = phase_job_parallel(device, plain_rates, sparse_launches["rates"])
+    lap("24")
     for name, row in rows.items():
         row["launches"] = (sparse_launches[name] if name == "fused_assign" else
                            serve_launches[name] if name == "flash_attention" else launches[name])
@@ -5370,6 +5767,14 @@ def main() -> int:
         "flash_attention"]
     rows["flash_attention"]["launch"] = {k: launch[k] for k in ("train", "prefill")}
     rows["flash_attention"]["launch"]["dryrun"] = launch["dryrun"]
+    # job-parallel simulation (phase 24): the 1-rank mesh's dense, sparse and
+    # subsystem runs, and the fused kernel with its pos output
+    for part in ("dense", "sparse", "subsystems"):
+        for name in ("assign", "fused_assign", "segment_sum"):
+            if jobpar[part][name]:
+                rows[name][f"launches_job_parallel_{part}"] = jobpar[part][name]
+    rows["fused_assign"]["with_pos"] = jobpar["fused_pos"]
+    rows["assign"]["job_parallel"] = {k: v for k, v in jobpar.items() if k != "fused_pos"}
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(gpu_name_and_power())

@@ -18,7 +18,9 @@ fused kernel the host time a call; it prints each version's ptxas
 registers and spills of the fused and assign kernels.  Inputs are
 those of ``chip_smoke.py``: the assignment at the engine shape (N=100000,
 E=300, k=1), the fused candidate-set assignment at the sparse engine shape
-(N=100000, K=16, E=300; site and admit bit for bit) and the segment sum at
+(N=100000, K=16, E=300; site and admit bit for bit; a version whose
+wrapper takes ``with_pos`` is also timed with its ``pos`` output, pos bit
+for bit too) and the segment sum at
 J=100000, S=300 on a uniform id mix and on one where 95% of rows carry the
 padding id, f32 ``[J]`` and i32 ``[J, 3]``.  With ``--rounds N`` it also
 runs N dense and N sparse rounds of the full-width engine scenario with
@@ -43,19 +45,61 @@ It writes its numbers to
 from __future__ import annotations
 
 import argparse
+import importlib.abc
+import importlib.machinery
 import importlib.util
+import inspect
 import json
 import pathlib
+import re
 import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+# the custom-op namespace in a module's source: "repro_torch::op", the
+# library's "repro_torch", torch.ops.repro_torch
+OP_NAMESPACE = re.compile(r"""(?<=["'])repro_torch(?=::|["'])|(?<=torch\.ops\.)repro_torch""")
+
+
+class RenamedOps(importlib.machinery.SourceFileLoader):
+    """Loads a module of another checkout with its custom ops
+    (``repro_torch::assign`` and its kin) in the namespace of the package's
+    name: torch registers each op name once a process, and both versions
+    define the same ones.  Compiled from the source every time, so no cached
+    bytecode of the unrenamed module is read."""
+
+    def get_code(self, fullname):
+        text = OP_NAMESPACE.sub(fullname.split(".")[0], self.get_source(fullname))
+        return compile(text, self.get_filename(fullname), "exec", dont_inherit=True)
+
+
+class RenamedOpsFinder(importlib.abc.MetaPathFinder):
+    """Finds the modules of the package ``prefix`` with ``RenamedOps``."""
+
+    def __init__(self, prefix: str):
+        self.prefix = prefix
+
+    def find_spec(self, name, path, target=None):
+        if not name.startswith(self.prefix + "."):
+            return None
+        spec = importlib.machinery.PathFinder.find_spec(name, path)
+        if spec is not None and isinstance(spec.loader, importlib.machinery.SourceFileLoader):
+            spec.loader = RenamedOps(spec.loader.name, spec.loader.path)
+        return spec
+
+
 def import_package(src: pathlib.Path, name: str):
-    """Import the ``repro_torch`` package under ``src`` as module ``name``."""
+    """Import the ``repro_torch`` package under ``src`` as module ``name``;
+    under another name than ``repro_torch`` its custom ops take that name
+    as their namespace (``RenamedOps``)."""
     init = src / "repro_torch" / "__init__.py"
-    spec = importlib.util.spec_from_file_location(name, init,
+    loader = None
+    if name != "repro_torch":
+        sys.meta_path.insert(0, RenamedOpsFinder(name))
+        loader = RenamedOps(name, str(init))
+    spec = importlib.util.spec_from_file_location(name, init, loader=loader,
                                                   submodule_search_locations=[str(init.parent)])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
@@ -314,13 +358,24 @@ def time_fused(v: dict, label: str, device, out: dict) -> None:
     dev, per_call = profile_call(lambda: v["fused"](*args), iters=100, parts=parts)
     N, K, E = ENGINE_J, ENGINE_K, ENGINE_S
     bound = (N * K * (4 + 4) + N * 4 + E * 4 + N * (4 + 1)) / PEAK_HBM_BYTES_PER_S * 1e3
-    out.setdefault("fused", []).append(dict(version=label, cuda_ms=call, host_ms=host,
-                                            device_ms=dev, kernels_per_call=per_call,
-                                            parts=parts, bound_ms=bound))
+    row = dict(version=label, cuda_ms=call, host_ms=host, device_ms=dev,
+               kernels_per_call=per_call, parts=parts, bound_ms=bound)
     print(f"[compare] {label} fused N={N} K={K} E={E}: {call:.4f} ms a call (CUDA events), "
           f"{host:.4f} ms of host time a call, {dev:.4f} ms device time "
           f"({', '.join(f'{k} {t:.4f}' for k, t in parts.items())}), "
           f"{per_call:g} kernels a call; bound {bound:.4f} ms (bytes)")
+    if "with_pos" in inspect.signature(v["fused"]).parameters:
+        want = v["fused_ref"](*args, with_pos=True)
+        got = v["fused"](*args, with_pos=True)
+        for w, g in zip(want, got):
+            check(torch.equal(w, g), f"{label}: fused with pos differs from the plain version")
+        pos_call = cuda_ms(lambda: v["fused"](*args, with_pos=True), iters=200)
+        pos_dev, _ = profile_call(lambda: v["fused"](*args, with_pos=True), iters=100)
+        pos_bound = bound + N * 4 / PEAK_HBM_BYTES_PER_S * 1e3
+        row.update(cuda_ms_pos=pos_call, device_ms_pos=pos_dev, bound_ms_pos=pos_bound)
+        print(f"[compare] {label} fused with pos: {pos_call:.4f} ms a call (CUDA events), "
+              f"{pos_dev:.4f} ms device time; bound {pos_bound:.4f} ms (bytes)")
+    out.setdefault("fused", []).append(row)
 
 
 def time_assign(v: dict, label: str, device, out: dict) -> None:

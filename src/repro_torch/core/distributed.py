@@ -1,5 +1,6 @@
-"""Scenario ensembles over a device mesh: the lanes of ``simulate_many``
-split over ``torch.distributed`` ranks.
+"""Simulation over a device mesh: the lanes of ``simulate_many`` split
+over ``torch.distributed`` ranks, and one simulation's dispatch rows split
+over them (job-parallel simulation).
 
 The JAX package drives every device of a ``jax.make_mesh((n,), ("data",))``
 from one controller and splits the stacked lane axis with ``shard_map``.
@@ -20,12 +21,54 @@ and builds its own policy and subsystems from the same code (closures do not
 cross processes); a one-process caller passes a 1-rank mesh (``local_mesh``).  A mesh of
 several cards needs ``torchrun --nproc-per-node N`` or ``run_ranks``.
 
-Job-parallel simulation (``simulate_distributed``, ``lower_distributed``) is
-not ported: ROADMAP Queue 1 item 13b.
+Job-parallel simulation (``simulate_distributed``) runs one simulation on
+every rank of a mesh axis.  The JAX package shards the jobs (``jobs.* ->
+P(axis)``), replicates the sites and the subsystem states, and leaves XLA to
+place the collectives of every cross-job step.  A round has many such steps
+(the clock's min-reduction, every per-site sum, the policies' site
+aggregates, the start phase's global sort and prefix sums, the float sums of
+job memory that decide a start), and a float sum split over ranks changes
+its bits.  So here:
+
+- every rank holds the whole padded ``JobsState``, ``SiteState``, subsystem
+  states and key, and runs the same round on the same bits (``JobsState`` is
+  ~100 B a job); every subsystem works with no code of its own here;
+- the dispatch problem, the round's only O(J x S) part, is split by rows:
+  rank ``r`` takes rows ``[r B, (r + 1) B)`` with ``B = J_pad / n``
+  (``job_block``).  It builds the static feasibility mask and the masked
+  score matrix for those rows only and launches the assign kernel (dense)
+  or the fused kernel (``topk=``) on them;
+- capacity admission is a FIFO in row order in which every claim counts, and
+  a row's pick does not depend on the capacities.  So a rank's block is
+  admitted behind the lower ranks' claims: one ``all_gather`` of each
+  block's integer claims per site (``i32[n, S]``) gives the base that the
+  block's positions move up by (``kernels.assign.block_admit``), exact for
+  integral sizes (cores), the kernels' own contract;
+- one ``all_gather`` of the blocks' picks (``i32[B]`` a rank) gives every
+  rank the round's ``[J]`` picks; the rest of the round runs unchanged.
+
+The result equals ``simulate`` on the padded jobs bit for bit, on any
+number of ranks.  Only the assigners known to be row-local split
+(``engine.default_assign``, ``default_assign_cand`` and the functions of
+``make_capacity_assign`` and ``make_fused_capacity_assign``, which carry
+``splits_rows``); any other runs on all rows on every rank.  The O(J) work
+and memory stay replicated, and a policy whose ``score`` builds ``[J, S]``
+(``shortest_wait``, ``random``, ``data_locality``, ``workflow_locality``)
+builds it whole on each rank: what more ranks buy is a smaller ``[J, S]``
+footprint per card, not speed.  Every rank reaches the same collectives in
+the same order, since each host branch reads replicated state; a rank whose
+block holds only padding rows joins them all the same, and a 1-rank mesh
+runs them too.
+
+``lower_distributed`` counts one round of that program for a mesh without
+running it: a trace on meta tensors as rank 0 of the mesh (a fake process
+group's, ``launch.mesh.init_fake_world``), counted by
+``launch.roofline.Counter``.
 """
 from __future__ import annotations
 
 import contextlib
+import inspect
 import os
 import socket
 import time
@@ -45,19 +88,15 @@ from .engine import (
     _simulate_many_stacked,
     _tree_map,
     ensemble_scenario,
+    init_sim,
+    run_sim,
     simulate,
     simulate_many,
     stack_scenarios,
 )
-from .types import SimResult
+from .types import SimResult, pad_jobs_capacity
 
 LANE_MODES = ("auto", "scan", "vmap")
-
-_JOB_PARALLEL = (
-    "job-parallel simulation is not ported (ROADMAP Queue 1 item 13b): a shard of jobs "
-    "cannot score alone, since the policies read cross-job aggregates such as "
-    "site_backlog, the start phase sorts every job and every hook sums over sites; "
-    "spread scenarios over a mesh with simulate_many_sharded instead")
 
 
 # --------------------------------------------------------------------------
@@ -422,13 +461,222 @@ def simulate_population(scenarios, policy, rng: torch.Tensor, *, mesh=None, axis
                                  subsystems=subsystems, **kw)
 
 
-def simulate_distributed(*args, **kw):
-    """Job-parallel simulation (the JAX package's jobs sharded over a mesh
-    axis): not ported, ROADMAP Queue 1 item 13b; raises."""
-    raise NotImplementedError(_JOB_PARALLEL)
+# --------------------------------------------------------------------------
+# job-parallel simulation: one run, its dispatch rows split over the ranks
+# --------------------------------------------------------------------------
 
 
-def lower_distributed(*args, **kw):
-    """The JAX package's XLA lowering of the job-parallel program, which has
-    no torch counterpart (ROADMAP Queue 1 item 13b); raises."""
-    raise NotImplementedError(_JOB_PARALLEL)
+_SUBSYSTEM_KW = ("data_policy", "network", "replicas", "availability", "workflow", "transfers",
+                 "faults")
+
+
+def _padded_capacity(J: int, n: int) -> int:
+    return J + (-J) % n
+
+
+def job_block(J: int, mesh, axis: str = "data") -> range:
+    """The rows of the dispatch problem that this rank solves in a
+    job-parallel run of J jobs: its contiguous block of the job capacity
+    padded to a multiple of the axis size (``shard_jobs``);
+    ``lane_block``'s counterpart."""
+    _, n, r = _axis_group(mesh, axis)
+    b = _padded_capacity(J, n) // n
+    return range(r * b, (r + 1) * b)
+
+
+def _all_gather(x: torch.Tensor, n: int, group) -> torch.Tensor:
+    """``x`` of every rank of ``group`` concatenated in rank order along dim
+    0, as a functional collective (``_c10d_functional``): the form that
+    ``launch.roofline.Counter`` counts and that traces on meta tensors."""
+    out = torch.ops._c10d_functional.all_gather_into_tensor(x.contiguous(), n,
+                                                            group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
+class JobBlock:
+    """This rank's share of a job-parallel round: rows ``lo:hi`` of the
+    ``capacity`` padded jobs, and the round's two collectives over the mesh
+    axis's ``group`` of ``n`` ranks (this one ``rank``)."""
+
+    def __init__(self, rows: range, capacity: int, group, n: int, rank: int):
+        self.lo, self.hi = rows.start, rows.stop
+        self.rows = slice(self.lo, self.hi)
+        self.capacity, self.group, self.n, self.rank = capacity, group, n, rank
+
+    @classmethod
+    def of(cls, J: int, mesh, axis: str = "data") -> "JobBlock":
+        """This rank's block of a J-job run on ``mesh[axis]``."""
+        group, n, r = _axis_group(mesh, axis)
+        return cls(job_block(J, mesh, axis), _padded_capacity(J, n), group, n, r)
+
+    def gather_picks(self, picks: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of picks (``i32[B]``: a site, or -1) as the
+        round's ``i32[capacity]``."""
+        return _all_gather(picks, self.n, self.group)
+
+    def claims_base(self, claims: torch.Tensor) -> torch.Tensor:
+        """Every rank's block claims (``i32[S]``, ``block_claims``) summed over
+        the ranks below this one: what the rows before this block claimed."""
+        every = _all_gather(claims, self.n, self.group).view(self.n, -1)
+        return every[:self.rank].sum(0, dtype=torch.int32)
+
+
+def job_shardings(mesh, axis: str, jobs, sites):
+    """The placements of ``(jobs, sites, rng)`` in a job-parallel run: every
+    leaf replicated over ``mesh`` (``(Replicate(),)`` a mesh dimension).  The
+    JAX package shards the jobs over ``axis``; here the state stays whole on
+    every rank and the dispatch rows are split inside the round (module
+    docstring)."""
+    from torch.distributed.tensor import Replicate
+
+    _axis_group(mesh, axis)
+    rep = tuple(Replicate() for _ in range(mesh.ndim))
+    return _tree_map(lambda _: rep, jobs), _tree_map(lambda _: rep, sites), rep
+
+
+def shard_jobs(jobs, sites, mesh, axis: str = "data"):
+    """Place a workload for job-parallel simulation: the job capacity padded
+    to a multiple of the axis size with inert rows (``pad_jobs_capacity``:
+    DONE, invalid, never dispatched), jobs and sites whole on this rank's
+    device (``mesh_device``).  They must lie on the mesh's kind of device."""
+    _, n, _ = _axis_group(mesh, axis)
+    kind = torch.device(mesh.device_type)
+    _check_device(jobs, kind, "jobs")
+    _check_device(sites, kind, "sites")
+    dev = mesh_device(mesh)
+    jobs = pad_jobs_capacity(jobs, _padded_capacity(jobs.capacity, n))
+    return _tree_map(lambda x: x.to(dev), jobs), _tree_map(lambda x: x.to(dev), sites)
+
+
+def _resolve_padded(kw: dict, jobs, sites, old_capacity: int):
+    """``(subsystems, padded ext)`` from ``simulate``'s subsystem keywords
+    (popped from ``kw``), each state grown to the padded job capacity through
+    its subsystem's ``pad_jobs`` hook."""
+    from .subsystems import pad_ext_jobs, resolve_subsystems
+
+    subs, ext = resolve_subsystems(
+        **{name: kw.pop(name, None) for name in _SUBSYSTEM_KW},
+        subsystems=kw.pop("subsystems", ()), jobs=jobs, sites=sites,
+        validate=False)   # init_sim validates against the padded shapes
+    return subs, pad_ext_jobs(subs, ext, old_capacity, jobs.capacity)
+
+
+def _prepare_subsystems(kw: dict, jobs, sites, mesh, old_capacity: int) -> dict:
+    """``kw`` with the subsystem keywords turned into explicit ``(Subsystem,
+    state)`` pairs (``subsystems=``), each state padded to the padded job
+    capacity and placed whole on this rank's device, like ``sites``.
+    Generic: a new subsystem distributes with no code here."""
+    kw = dict(kw)
+    subs, ext = _resolve_padded(kw, jobs, sites, old_capacity)
+    for name, state in ext.items():
+        _check_device(state, torch.device(mesh.device_type), name)
+    dev = mesh_device(mesh)
+    ext = _tree_map(lambda x: x.to(dev), ext)
+    kw["subsystems"] = tuple((sub, ext[sub.name]) for sub in subs)
+    return kw
+
+
+def simulate_distributed(jobs, sites, policy, rng: torch.Tensor, mesh, *, axis: str = "data",
+                         horizon: float = float("inf"), recorder=None, device=None,
+                         **kw) -> SimResult:
+    """Job-parallel simulation: ``simulate``'s semantics and keywords (dense
+    or ``topk=``, every subsystem keyword, ``max_rounds``, ``log_rows``,
+    ``recorder`` ...), one run spread over ``mesh[axis]`` as the module
+    docstring describes.  Every rank returns the padded ``SimResult`` (the
+    job capacity padded to a multiple of the axis size) on its device, equal
+    bit for bit to ``simulate`` on ``pad_jobs_capacity(jobs, J_pad)``.
+
+    Every rank of the axis calls it with the same arguments and builds its
+    own policy and subsystems from the same code; a capacity assigner may
+    close over the unpadded jobs' cores.  The inputs lie on the mesh's kind
+    of device and each rank runs on ``mesh_device(mesh)``; ``device=``, if
+    given, must name the mesh's kind.  A rank that fails inside a round
+    leaves the others waiting in that round's collective until the process
+    group times out; every rank runs the same code on the same bits, so a
+    failure of the code fails them all alike."""
+    if device is not None and torch.device(device).type != mesh.device_type:
+        raise ValueError(f"device={device!r} does not match the mesh's {mesh.device_type!r}")
+    jobs_d, sites_d = shard_jobs(jobs, sites, mesh, axis)
+    kw = _prepare_subsystems(kw, jobs_d, sites_d, mesh, jobs.capacity)
+    handle = init_sim(jobs_d, sites_d, policy, rng, device=mesh_device(mesh), **kw)
+    handle = handle._replace(job_block=JobBlock.of(jobs.capacity, mesh, axis))
+    return run_sim(handle, horizon, recorder)
+
+
+_RUN_OPTIONS = ("max_rounds", "log_rows", "max_retries", "monitor_every", "quantum", "topk",
+                "topk_refresh")
+_POLICY_HOOKS = ("init", "score", "assign", "on_step", "rank", "score_cand", "pre_rank",
+                 "assign_cand")
+_SUBSYSTEM_HOOKS = ("init", "event_times", "arrival_gate", "completion_filter", "on_completions",
+                    "pre_assign", "on_start", "log_spec", "log_columns")
+
+
+def _named(fn, what: str):
+    """``fn``, raising a readable error when it reads a meta tensor back."""
+    def call(*args, **kw):
+        try:
+            return fn(*args, **kw)
+        except (RuntimeError, NotImplementedError) as e:
+            if "meta" not in str(e) or str(e).startswith("lower_distributed"):
+                raise
+            raise RuntimeError(f"lower_distributed: {what} reads the device back, which a "
+                               "trace on meta tensors cannot do") from e
+
+    call.splits_rows = getattr(fn, "splits_rows", False)
+    return call
+
+
+def lower_distributed(jobs, sites, policy, mesh, *, axis: str = "data", **kw) -> dict:
+    """The job-parallel program's dry run: one round of
+    ``simulate_distributed``'s body, traced on meta tensors as this process's
+    rank of ``mesh`` (rank 0 of a fake process group's mesh, see
+    ``launch.mesh.init_fake_world``: its collectives move nothing) and
+    counted by ``launch.roofline.Counter``; nothing is allocated on a card
+    and no kernel runs.  Returns the counter's record, per card: FLOPs, HBM
+    bytes, collective bytes by kind, the largest collectives and the peak of
+    the round's own results; plus ``ops`` (each op and collective by name, a
+    count each), ``ranks``, ``capacity`` (the padded jobs) and
+    ``block_rows``.
+
+    The JAX package lowers and compiles the whole loop for the mesh from
+    shapes alone.  With no compiler to hand the loop to, this counts one
+    round with every phase on: the phase-skip guard off, the host gates
+    fixed (a logged round when ``log_rows`` > 0; no candidate rebuild).
+    ``kw`` are ``simulate``'s keywords.  The inputs may lie anywhere, meta
+    included: the subsystems are resolved and padded where they lie, then
+    moved to meta; a policy that closes over tensors (a capacity assigner's
+    cores) must close over meta ones.  A round that reads the device back
+    (a value deciding a host branch) raises, naming the hook."""
+    from ..launch.roofline import Counter
+    from .engine import _init_state, _round_fns
+
+    block = JobBlock.of(jobs.capacity, mesh, axis)
+    kw = {k: v for k, v in kw.items() if k not in ("horizon", "recorder", "device", "phase_skip")}
+    subs, ext = _resolve_padded(kw, pad_jobs_capacity(jobs, block.capacity), sites, jobs.capacity)
+    unknown = sorted(set(kw) - set(_RUN_OPTIONS))
+    if unknown:
+        raise TypeError(f"lower_distributed() got unexpected keyword arguments {unknown}")
+    defaults = inspect.signature(init_sim).parameters
+    opts = {k: kw.get(k, defaults[k].default) for k in _RUN_OPTIONS}
+    if opts["topk"] is not None:
+        opts["topk"] = min(int(opts["topk"]), sites.capacity)
+
+    def meta(x):
+        return x.to("meta")
+
+    subs = tuple(sub._replace(**{
+        h: _named(getattr(sub, h), f"the {sub.name!r} subsystem's {h} hook")
+        for h in _SUBSYSTEM_HOOKS if getattr(sub, h) is not None}) for sub in subs)
+    policy = policy._replace(**{
+        h: _named(getattr(policy, h), f"policy {policy.name!r}'s {h}")
+        for h in _POLICY_HOOKS if getattr(policy, h) is not None})
+    st = _init_state(pad_jobs_capacity(_tree_map(meta, jobs), block.capacity),
+                     _tree_map(meta, sites), policy, _rng.PRNGKey(0, device="meta"),
+                     _tree_map(meta, ext), subs, opts["log_rows"], opts["topk"])
+    _, body = _round_fns(policy, subs, **opts, phase_skip=False, job_block=block)
+    with Counter() as counter:
+        body(st, None, (opts["log_rows"] > 0, False))
+    rec = counter.record()
+    rec.update(ops=dict(counter.ops), ranks=block.n, capacity=block.capacity,
+               block_rows=block.hi - block.lo)
+    return rec

@@ -26,6 +26,11 @@ the JAX engine's points of the round; a run without one runs none of its code.
 (``simulate`` is one segment with its horizon), so a driver such as
 ``monitor.watch`` can take frames between them.
 
+A job-parallel run (``distributed.simulate_distributed``) gives the loop a
+``JobBlock``: where the policy's assigner splits rows (``splits_rows``), a
+rank solves the dispatch problem for its block of rows only and the picks
+are all-gathered; every other step runs on the whole replicated state.
+
 The results equal the JAX package's bit for bit: the same key stream
 (``rng``), the same float orders (``scan``), and sorts whose keys are a strict
 total order, so any correct sort yields the one permutation.
@@ -192,10 +197,11 @@ def _segment_exclusive_base(values: torch.Tensor, seg_ids: torch.Tensor, num_seg
     return total_cum - take(seg_base, seg_ids.long())
 
 
-def default_assign(scores, queued, feasible, sites=None):
+def default_assign(scores, queued, feasible, sites=None, block=None):
     """Reference assignment: best feasible site per queued job (site-queue
     mode), ties to the lowest site.  Returns (site[J] int32 with -1 for
-    unassigned, assigned_mask[J])."""
+    unassigned, assigned_mask[J]).  Each row's pick is its own, so a
+    job-parallel run's block (``block``) needs nothing more."""
     S = scores.shape[-1]
     masked = torch.where(feasible, scores, -INF)
     best_val = masked.amax(-1)
@@ -205,7 +211,10 @@ def default_assign(scores, queued, feasible, sites=None):
     return torch.where(ok, best, -1), ok
 
 
-def default_assign_cand(scores_k, queued, feas_k, cand, sites=None):
+default_assign.splits_rows = True
+
+
+def default_assign_cand(scores_k, queued, feas_k, cand, sites=None, block=None):
     """Candidate-set analogue of ``default_assign``.
 
     ``scores_k``/``feas_k`` are ``[J, K]`` (an ensemble's ``[L, J, K]``) over
@@ -221,6 +230,9 @@ def default_assign_cand(scores_k, queued, feas_k, cand, sites=None):
     site = cand.gather(-1, best_c[..., None])[..., 0].int()
     ok = queued & torch.isfinite(best_val)
     return torch.where(ok, site, -1), ok
+
+
+default_assign_cand.splits_rows = True
 
 
 def _init_state(
@@ -319,10 +331,13 @@ def _round_fns(
     phase_skip: bool,
     topk: int | None = None,
     topk_refresh: int = 0,
+    job_block=None,
 ):
     """The round loop's ``(cond, body)`` pair for one configuration.  ``cond``
     reads one flag back from the device (an ensemble's reads whether any lane
-    goes and whether all do, in one read)."""
+    goes and whether all do, in one read).  ``job_block`` (a solo run's
+    ``distributed.JobBlock``) makes the assignment phase solve this rank's
+    rows only, when the policy's assigner splits rows."""
 
     def hooks(name):
         """``(subsystem, hook)`` pairs of one hook point, in tuple order."""
@@ -332,6 +347,16 @@ def _round_fns(
     filter_hooks, completion_hooks = hooks("completion_filter"), hooks("on_completions")
     assign_hooks, start_hooks, log_hooks = hooks("pre_assign"), hooks("on_start"), hooks("log_columns")
     refresh = topk is not None and topk_refresh > 0
+    assign_c = getattr(policy, "assign_cand", None) or default_assign_cand
+    # the assigner in use solves rows on their own (plus a FIFO carry it
+    # takes from the block): a job-parallel run gives it this rank's rows
+    split = job_block is not None and getattr(
+        policy.assign if topk is None else assign_c, "splits_rows", False)
+
+    def gathered(pick, ok):
+        """The block's picks (site, or -1) all-gathered into ``[J]``."""
+        site = job_block.gather_picks(torch.where(ok, pick, -1).int())
+        return site, site >= 0
 
     def cond(st: EngineState, horizon: float):
         """``(go, lanes_going, gates)``: would the loop run another round; in
@@ -476,11 +501,19 @@ def _round_fns(
             rows every update in here is a masked no-op, which is what makes
             the phase-skip guard below exact."""
             feasible = ctx.feasible
+            rows = job_block.rows if split else None
             if topk is None:
                 if feasible is None:
-                    feasible = _static_feasible(jobs, sites)
+                    feasible = _static_feasible(
+                        _tree_map(lambda x: x[rows], jobs) if split else jobs, sites)
+                elif split and feasible.shape[-2] != 1:
+                    feasible = feasible[rows]              # a hook's whole [J, S] mask
                 scores = policy.score(jobs, sites, pstate, clock, k_policy)  # [J, S]
-                site_pick, assigned_now = policy.assign(scores, queued, feasible, sites)
+                if split:
+                    site_pick, assigned_now = gathered(*policy.assign(
+                        scores[rows], queued[rows], feasible, sites, block=job_block))
+                else:
+                    site_pick, assigned_now = policy.assign(scores, queued, feasible, sites)
             else:
                 # the static core/memory fit lives in the candidate index;
                 # per-round feasibility is a per-site [1, S] mask, or a
@@ -509,8 +542,12 @@ def _round_fns(
                     # exact fallback: dense score + gather (no memory win)
                     scores_k = policy.score(jobs, sites, pstate, clock, k_policy)
                     scores_k = scores_k.gather(-1, cand_c)
-                assign_c = getattr(policy, "assign_cand", None) or default_assign_cand
-                site_pick, assigned_now = assign_c(scores_k, queued, feas_k, cand_c, sites)
+                if split:
+                    site_pick, assigned_now = gathered(*assign_c(
+                        scores_k[rows], queued[rows], feas_k[rows], cand_c[rows], sites,
+                        block=job_block))
+                else:
+                    site_pick, assigned_now = assign_c(scores_k, queued, feas_k, cand_c, sites)
             assigned_now = assigned_now & queued
             jobs = jobs._replace(
                 state=torch.where(assigned_now, ASSIGNED, jobs.state),
@@ -811,8 +848,16 @@ def simulate(
         max_retries=max_retries, monitor_every=monitor_every, quantum=quantum,
         phase_skip=phase_skip, topk=topk, topk_refresh=topk_refresh, device=device,
     )
+    return run_sim(handle, horizon, recorder)
+
+
+def run_sim(handle: "SimHandle", horizon: float = float("inf"), recorder=None) -> SimResult:
+    """``simulate``'s drive of a fresh handle: ``advance_sim`` to
+    ``horizon``, then ``finish_sim``, timed by ``recorder`` when given (see
+    ``simulate``)."""
     if recorder is None:
         return finish_sim(advance_sim(handle, horizon))
+    n_jobs, n_sites = int(handle.state.jobs.valid.sum()), handle.state.sites.capacity
     t0 = time.perf_counter()
     handle = advance_sim(handle, horizon)
     recorder.record("dispatch", time.perf_counter() - t0)
@@ -822,10 +867,10 @@ def simulate(
             torch.cuda.synchronize(res.makespan.device)
     rounds = int(res.rounds)
     recorder.gauge("rounds_executed", rounds)
-    recorder.gauge("round_budget", max_rounds)
-    recorder.gauge("early_exit_rounds", max(max_rounds - rounds, 0))
-    recorder.gauge("n_jobs", int(jobs0.valid.sum()))
-    recorder.gauge("n_sites", sites0.capacity)
+    recorder.gauge("round_budget", handle.max_rounds)
+    recorder.gauge("early_exit_rounds", max(handle.max_rounds - rounds, 0))
+    recorder.gauge("n_jobs", n_jobs)
+    recorder.gauge("n_sites", n_sites)
     recorder.note("jit_cache_hit", True)
     recorder.note("subsystems", [s.name for s in handle.subsystems])
     return res
@@ -852,6 +897,7 @@ class SimHandle(NamedTuple):
     subsystems: tuple
     statics: tuple  # (max_rounds, log_rows, max_retries, monitor_every, quantum,
     #                  phase_skip, topk, topk_refresh)
+    job_block: object = None  # a job-parallel run's distributed.JobBlock
 
     @property
     def max_rounds(self) -> int:
@@ -924,6 +970,7 @@ def advance_sim(handle: SimHandle, horizon: float = float("inf")) -> SimHandle:
         phase_skip=phase_skip,
         topk=topk,
         topk_refresh=topk_refresh,
+        job_block=handle.job_block,
     )
     horizon = _f32(horizon)
     st = handle.state

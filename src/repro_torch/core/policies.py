@@ -261,11 +261,13 @@ def with_capacity_assign(policy: Policy, assign_fn) -> Policy:
     """Swap in a capacity-constrained assigner (e.g.
     ``repro_torch.kernels.assign.make_capacity_assign``): jobs beyond a site's
     free cores stay QUEUED at the main server instead of piling into site
-    queues."""
+    queues.  An ``assign_fn`` that splits rows over a job-parallel mesh
+    (``splits_rows``, as ``make_capacity_assign``'s does) still does."""
 
-    def assign(scores, queued, feasible, sites):
-        return assign_fn(scores, queued, feasible, sites)
+    def assign(scores, queued, feasible, sites, **block):
+        return assign_fn(scores, queued, feasible, sites, **block)
 
+    assign.splits_rows = getattr(assign_fn, "splits_rows", False)
     return policy._replace(name=policy.name + "+capacity", assign=assign)
 
 
@@ -274,11 +276,14 @@ def with_fused_assign(policy: Policy, assign_cand_fn) -> Policy:
     ``repro_torch.kernels.assign.make_fused_capacity_assign``): rank and
     capacity pick run in one kernel over ``[J, K]`` candidates instead of the
     dense ``[J, S]`` matrix.  Consulted only when the engine runs with
-    ``topk=``; pair with :func:`with_capacity_assign` for the dense path."""
+    ``topk=``; pair with :func:`with_capacity_assign` for the dense path.
+    An ``assign_cand_fn`` that splits rows over a job-parallel mesh
+    (``splits_rows``) still does."""
 
-    def assign_cand(scores_k, queued, feas_k, cand, sites):
-        return assign_cand_fn(scores_k, queued, feas_k, cand, sites)
+    def assign_cand(scores_k, queued, feas_k, cand, sites, **block):
+        return assign_cand_fn(scores_k, queued, feas_k, cand, sites, **block)
 
+    assign_cand.splits_rows = getattr(assign_cand_fn, "splits_rows", False)
     return policy._replace(name=policy.name + "+fused", assign_cand=assign_cand)
 
 

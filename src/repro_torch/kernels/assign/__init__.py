@@ -3,6 +3,8 @@ dense and over sparse candidate sets."""
 from .fused_ref import fused_assign_ref  # noqa: F401
 from .ops import (  # noqa: F401
     assign,
+    block_admit,
+    block_claims,
     fused_topk_assign,
     make_capacity_assign,
     make_fused_capacity_assign,

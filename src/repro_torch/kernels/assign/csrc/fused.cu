@@ -37,7 +37,11 @@
 //      in shared memory with coalesced loads, a lane adds kScanPer of them in
 //      order and one warp scan joins the lanes;
 //   3. place (one thread a row): pos = base + in-tile prefix, and
-//      admit = pos + size <= cap + 1e-6.
+//      admit = pos + size <= cap + 1e-6.  When the caller passes a `pos`
+//      array the pass also stores pos there (0 for a row without a claim):
+//      the units its site had claimed before the row, what a job-parallel
+//      run adds the lower ranks' claims to.  4 bytes a row more, 0.4 MB at
+//      the engine shape.
 // Lanes: L independent problems (scores [L][N][K], cand [L][N][K], sizes
 // [L][N], caps [L][E]; outputs [L][N]) take the same three launches, the
 // JAX package's kernel under vmap.  A lane's tiles are a block of CTAs and no
@@ -288,7 +292,8 @@ __global__ void fused_place_kernel(const int* __restrict__ site, const float* __
                                    const float* __restrict__ base,
                                    const float* __restrict__ sizes,
                                    const float* __restrict__ caps, long long rows, int n,
-                                   int e_count, int n_tiles, bool* __restrict__ admit) {
+                                   int e_count, int n_tiles, bool* __restrict__ admit,
+                                   float* __restrict__ pos_out) {
   using Row = typename std::conditional<LANES, long long, int>::type;
   const Row r = static_cast<Row>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= rows) return;
@@ -301,6 +306,9 @@ __global__ void fused_place_kernel(const int* __restrict__ site, const float* __
     const Row t = (r - problem * n) / kTileRows;   // the row's tile in its problem
     const float pos = base[static_cast<long long>(b) * n_tiles + t] + l;
     a = pos + sizes[r] <= caps[b] + 1e-6f;
+    if (pos_out != nullptr) pos_out[r] = pos;
+  } else if (pos_out != nullptr) {
+    pos_out[r] = 0.f;
   }
   admit[r] = a;
 }
@@ -321,10 +329,12 @@ cudaError_t launch_rows(int ctas, int n_tiles, size_t smem, cudaStream_t st,
 extern "C" int fused_tile_rows() { return kTileRows; }
 
 // Launch the three passes over `lanes` problems of n rows on `stream`;
-// returns cudaGetLastError() after them.
+// returns cudaGetLastError() after them.  `pos` (float[lanes * n]) may be
+// null: then no position is stored.
 extern "C" int fused_launch(const float* scores, const int* cand, const float* sizes,
                             const float* caps, int lanes, int n, int k, int e_count, int* site,
-                            bool* admit, float* local, float* tile_tot, void* stream) {
+                            bool* admit, float* local, float* tile_tot, float* pos,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lanes <= 0 || n <= 0 || k <= 0 || e_count <= 0)
     return static_cast<int>(cudaGetLastError());
@@ -353,10 +363,10 @@ extern "C" int fused_launch(const float* scores, const int* cand, const float* s
   if (many)
     fused_place_kernel<true><<<blocks, kPlaceThreads, 0, st>>>(site, local, tile_tot, sizes,
                                                                caps, rows, n, e_count, n_tiles,
-                                                               admit);
+                                                               admit, pos);
   else
     fused_place_kernel<false><<<blocks, kPlaceThreads, 0, st>>>(site, local, tile_tot, sizes,
                                                                 caps, rows, n, e_count, n_tiles,
-                                                                admit);
+                                                                admit, pos);
   return static_cast<int>(cudaGetLastError());
 }

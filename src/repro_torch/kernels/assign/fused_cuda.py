@@ -8,7 +8,8 @@ so it is bound by device-memory bandwidth: 13.7 MB at the engine's N=100000,
 K=16, E=300.  Three launches: rows (picks and in-tile prefixes over 256-row
 tiles), a scan of the per-site tile totals, then positions and admits; see
 the source.  With a leading lane axis (``scores_k [L, N, K]``) the same three
-launches solve L independent problems.
+launches solve L independent problems.  ``with_pos=True`` also returns each
+row's ``pos``, the units its site had claimed before it (4 bytes a row more).
 """
 from __future__ import annotations
 
@@ -30,15 +31,16 @@ def _lib():
         i = ctypes.c_int
         lib.fused_tile_rows.argtypes = []
         lib.fused_tile_rows.restype = i
-        lib.fused_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p]
+        lib.fused_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p]
         lib.fused_launch.restype = i
     return lib
 
 
 def fused_assign_cuda(scores_k: torch.Tensor, cand: torch.Tensor, sizes: torch.Tensor,
-                      caps: torch.Tensor):
+                      caps: torch.Tensor, *, with_pos: bool = False):
     """Launch the kernel; same contract as ``fused_ref.fused_assign_ref``
-    (whose ``block_n`` does not change the result for integral sizes).  Takes
+    (whose ``block_n`` does not change the result for integral sizes):
+    ``(site, admit)``, or ``(site, admit, pos)`` with ``with_pos``.  Takes
     contiguous float32 ``scores_k [N, K]``, int32 ``cand [N, K]``, float32
     ``sizes [N]`` and ``caps [E]``, or a batch of L problems ``[L, N, K]``,
     ``[L, N, K]``, ``[L, N]``, ``[L, E]`` (outputs ``[L, N]``), on one CUDA
@@ -71,17 +73,21 @@ def fused_assign_cuda(scores_k: torch.Tensor, cand: torch.Tensor, sizes: torch.T
         _TILE_ROWS = lib.fused_tile_rows()
     tiles = -(-N // _TILE_ROWS)
     # one allocation: site i32[L*N], local f32[L*N], tile totals f32[L, E, tiles],
-    # admit bool[L*N]
-    buf = torch.empty((8 * rows + 4 * L * E * tiles + rows,), dtype=torch.uint8, device=dev)
+    # pos f32[L*N] (with_pos), admit bool[L*N]
+    tot = 8 * rows + 4 * L * E * tiles
+    buf = torch.empty((tot + (4 * rows if with_pos else 0) + rows,), dtype=torch.uint8,
+                      device=dev)
     site = buf[:4 * rows].view(torch.int32).view(*lanes, N)
+    pos = buf[tot:tot + 4 * rows].view(torch.float32).view(*lanes, N) if with_pos else None
     admit = buf[buf.numel() - rows:].view(torch.bool).view(*lanes, N)
     with torch.cuda.device(dev):
         rc = lib.fused_launch(
             scores_k.data_ptr(), cand.data_ptr(), sizes.data_ptr(), caps.data_ptr(), L, N, K, E,
             site.data_ptr(), admit.data_ptr(), buf.data_ptr() + 4 * rows,
-            buf.data_ptr() + 8 * rows, _build.stream_handle(dev),
+            buf.data_ptr() + 8 * rows, pos.data_ptr() if with_pos else None,
+            _build.stream_handle(dev),
         )
     if rc != 0:
         raise RuntimeError(f"fused assign kernel launch failed: cudaError {rc}")
     launches += 1
-    return site, admit
+    return (site, admit, pos) if with_pos else (site, admit)

@@ -27,6 +27,9 @@ Inputs
 Outputs
   site     i32[N]     picked site, -1 when the row has no valid candidate
   admit    bool[N]    admitted under capacity
+  pos      f32[N]     (``with_pos=True``) units claimed at the row's site by
+                      the rows before it, the exclusive per-site prefix of
+                      the claims; 0 when the row has no valid candidate
 
 With a leading lane axis (``[L, N, K]``, ``[L, N]``, ``[L, E]`` in,
 ``[L, N]`` out) every lane is an independent problem with its own ``used``
@@ -41,9 +44,10 @@ from ...core.scan import cumsum_f32, sum_f32
 NEG_INF = -1e30
 
 
-def fused_assign_ref(scores_k, cand, sizes, caps, *, block_n: int = 256):
+def fused_assign_ref(scores_k, cand, sizes, caps, *, block_n: int = 256,
+                     with_pos: bool = False):
     if scores_k.dim() == 3:
-        outs = [fused_assign_ref(s, c, z, e, block_n=block_n)
+        outs = [fused_assign_ref(s, c, z, e, block_n=block_n, with_pos=with_pos)
                 for s, c, z, e in zip(scores_k, cand, sizes, caps)]
         return tuple(torch.stack(col) for col in zip(*outs))
     N, K = scores_k.shape
@@ -83,4 +87,5 @@ def fused_assign_ref(scores_k, cand, sizes, caps, *, block_n: int = 256):
     col = site_b.view(nb, block_n, 1)
     pos = cum_excl.gather(2, col)[..., 0] + used_before.gather(1, col[..., 0])
     admit = ok_b & (pos.reshape(-1) + sz_b <= caps[site_b] + 1e-6)
-    return torch.where(ok, site, -1).int(), admit[:N] & ok
+    out = torch.where(ok, site, -1).int(), admit[:N] & ok
+    return (*out, torch.where(ok, pos.reshape(-1)[:N], 0.0)) if with_pos else out

@@ -4,6 +4,12 @@ and as the MoE router (``moe_route``), whose gates carry a gradient to the
 router's scores (``_AssignGate``: the gate backward kernel for CUDA tensors,
 its plain version for CPU tensors).
 
+The two dispatch combinators split over a job-parallel mesh
+(``core.distributed.simulate_distributed``): given ``block=`` (this rank's
+``JobBlock``) they solve only the block's rows and admit them behind the
+claims of the lower ranks' blocks (``block_admit``); their ``splits_rows``
+attribute tells the engine so.
+
 The assignment and the gate backward are the custom ops
 ``repro_torch::assign`` and ``repro_torch::gate_backward``: a CUDA
 implementation that launches the kernel, a CPU one that is the plain
@@ -13,6 +19,9 @@ from __future__ import annotations
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
+
+from ...core.types import take
+from ..segment_sum import segment_sum
 
 from .assign_cuda import assign_cuda
 from .fused_cuda import fused_assign_cuda
@@ -136,33 +145,82 @@ def _sizes_and_caps(jobs_cores, queued, sites):
     return sizes, caps
 
 
+def _row_cores(jobs_cores, queued, block):
+    """The closed-over ``jobs_cores`` for the rows in hand: padded with zeros
+    to the run's job capacity (a run on padded jobs, ``pad_jobs_capacity``),
+    then cut to this rank's block of a job-parallel run."""
+    if jobs_cores is None:
+        return None
+    J = queued.shape[-1] if block is None else block.capacity
+    short = J - jobs_cores.shape[-1]
+    if short > 0:
+        jobs_cores = torch.cat([jobs_cores, jobs_cores.new_zeros((*jobs_cores.shape[:-1], short))],
+                               -1)
+    return jobs_cores if block is None else jobs_cores[..., block.lo:block.hi]
+
+
+def block_claims(site, sizes, num_sites: int) -> torch.Tensor:
+    """``i32[num_sites]``: the capacity units that a block's rows claim at
+    each site, every row with a pick (``site >= 0``) counting, admitted or
+    not.  Integral sizes (cores) sum exactly in the segment-sum kernel."""
+    claim = site >= 0
+    return segment_sum(torch.where(claim, sizes, 0.0).int(), torch.where(claim, site, num_sites),
+                       num_sites)
+
+
+def block_admit(site, pos, sizes, caps, base) -> torch.Tensor:
+    """FIFO admission of a block of rows behind the claims ``base i32[E]``
+    of the rows before the block: the kernels' own test ``pos + size <= cap
+    + 1e-6``, with ``pos`` (the claims before a row within its block) moved
+    up by ``base`` at the row's site.  For integral sizes whose sums stay
+    below 2^24 (the kernels' contract) every term is an integer that f32
+    holds exactly, so the admits equal those of one call on all the rows."""
+    s = site.clamp(0, caps.shape[-1] - 1).long()
+    return (site >= 0) & (pos + take(base, s).float() + sizes <= take(caps, s) + 1e-6)
+
+
+def _admit_block(site, pos, sizes, caps, block):
+    """A block's admits in a job-parallel run: its claims go to every rank
+    (``block.claims_base``), which hands back the lower ranks' claims."""
+    base = block.claims_base(block_claims(site, sizes, caps.shape[-1]))
+    return block_admit(site, pos, sizes, caps, base)
+
+
 def make_capacity_assign(jobs_cores: torch.Tensor | None = None, *, block_n: int = 256):
     """Build an engine-compatible ``Policy.assign`` fn: jobs -> sites under
     free-core capacity; jobs beyond capacity stay QUEUED at the main server.
     In an ensemble (``scores [K, J, S]``) every lane is its own problem, all
     in one call; ``jobs_cores`` is ``[J]`` (the same for every lane) or
-    ``[K, J]``."""
+    ``[K, J]``, padded with zeros when the run's jobs were padded.  With
+    ``block=`` (a job-parallel run) the rows are this rank's block and the
+    admits are held behind the lower ranks' claims."""
 
-    def assign_fn(scores, queued, feasible, sites):
+    def assign_fn(scores, queued, feasible, sites, block=None):
         NEG = -1e30
         masked = torch.where(feasible & queued[..., None], scores, NEG)
-        sizes, caps = _sizes_and_caps(jobs_cores, queued, sites)
+        sizes, caps = _sizes_and_caps(_row_cores(jobs_cores, queued, block), queued, sites)
         idx, gate, admit, pos = assign(masked, sizes, caps, k=1, block_n=block_n)
-        ok = admit[..., 0] & queued
+        admit = (admit[..., 0] if block is None else
+                 _admit_block(idx[..., 0], pos[..., 0], sizes, caps, block))
+        ok = admit & queued
         return torch.where(ok, idx[..., 0], -1), ok
 
+    assign_fn.splits_rows = True
     return assign_fn
 
 
-def fused_topk_assign(scores_k, cand, sizes, caps, *, block_n: int = 256):
+def fused_topk_assign(scores_k, cand, sizes, caps, *, block_n: int = 256,
+                      with_pos: bool = False):
     """Fused candidate-set rank + capacity pick (see fused_ref.py for
     semantics), one problem ``[N, K]`` or L of them ``[L, N, K]``: the Hopper
     kernel for CUDA tensors (one set of launches for all L), the plain
-    version with row blocks of ``block_n`` for CPU tensors."""
+    version with row blocks of ``block_n`` for CPU tensors.  ``(site,
+    admit)``, or ``(site, admit, pos)`` with ``with_pos``."""
     if scores_k.is_cuda:
         return fused_assign_cuda(scores_k.float().contiguous(), cand.int().contiguous(),
-                                 sizes.float().contiguous(), caps.float().contiguous())
-    return fused_assign_ref(scores_k, cand, sizes, caps, block_n=block_n)
+                                 sizes.float().contiguous(), caps.float().contiguous(),
+                                 with_pos=with_pos)
+    return fused_assign_ref(scores_k, cand, sizes, caps, block_n=block_n, with_pos=with_pos)
 
 
 def make_fused_capacity_assign(jobs_cores: torch.Tensor | None = None, *, block_n: int = 256):
@@ -173,16 +231,25 @@ def make_fused_capacity_assign(jobs_cores: torch.Tensor | None = None, *, block_
     covering all feasible sites (``topk >= S``) the result equals the dense
     ``make_capacity_assign`` path bit for bit.  In an ensemble (``scores_k
     [L, J, K]``) every lane is its own problem, all in one call;
-    ``jobs_cores`` is ``[J]`` or ``[L, J]``."""
+    ``jobs_cores`` is ``[J]`` or ``[L, J]``, padded with zeros when the run's
+    jobs were padded.  With ``block=`` (a job-parallel run) the rows are
+    this rank's block, and the kernel's ``pos`` holds its admits behind the
+    lower ranks' claims."""
 
-    def assign_cand(scores_k, queued, feas_k, cand, sites):
+    def assign_cand(scores_k, queued, feas_k, cand, sites, block=None):
         S = sites.capacity
         cand_eff = torch.where(feas_k & queued[..., None], cand, S).int()
-        sizes, caps = _sizes_and_caps(jobs_cores, queued, sites)
-        site, admit = fused_topk_assign(scores_k, cand_eff, sizes, caps, block_n=block_n)
+        sizes, caps = _sizes_and_caps(_row_cores(jobs_cores, queued, block), queued, sites)
+        if block is None:
+            site, admit = fused_topk_assign(scores_k, cand_eff, sizes, caps, block_n=block_n)
+        else:
+            site, _, pos = fused_topk_assign(scores_k, cand_eff, sizes, caps, block_n=block_n,
+                                             with_pos=True)
+            admit = _admit_block(site, pos, sizes, caps, block)
         ok = admit & queued
         return torch.where(ok, site, -1), ok
 
+    assign_cand.splits_rows = True
     return assign_cand
 
 

@@ -147,7 +147,9 @@ class Counter(FlopCounterMode):
             step(state, batch)
         c.record()   # {"flops", "bytes", "coll_breakdown", "coll_bytes", "peak_bytes", ...}
 
-    ``peak=False`` skips the peak (a weak reference a result)."""
+    ``peak=False`` skips the peak (a weak reference a result).  The card's
+    allocator peak is read only where this process has started CUDA: a
+    trace on meta tensors starts none."""
 
     def __init__(self, *, peak: bool = True):
         super().__init__(display=False)
@@ -165,7 +167,7 @@ class Counter(FlopCounterMode):
 
     def __enter__(self):
         self._reset()
-        if self.peak and torch.cuda.is_available():
+        if self.peak and torch.cuda.is_initialized():
             self._cuda = torch.cuda.current_device()
             torch.cuda.reset_peak_memory_stats(self._cuda)
         self.flop_counts.clear()

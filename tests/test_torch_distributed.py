@@ -197,9 +197,3 @@ def test_mesh_helpers_default_to_the_card(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="'cuda' mesh needs a card"):
         D.run_ranks(M.lanes_rank, 2, (str(tmp_path), 2, "scan", 5))
     assert not list(tmp_path.iterdir())
-
-
-@pytest.mark.parametrize("fn", [D.simulate_distributed, D.lower_distributed])
-def test_job_parallel_entry_points_raise(fn):
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        fn(None, None, None, None)

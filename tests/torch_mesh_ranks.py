@@ -19,10 +19,12 @@ from repro_torch.core.distributed import (
     lane_block,
     local_mesh,
     mesh_device,
+    simulate_distributed,
     simulate_ensemble_distributed,
     simulate_many_sharded,
 )
 from repro_torch.core.rng import PRNGKey
+from repro_torch.kernels.assign import make_capacity_assign, make_fused_capacity_assign
 
 
 def flat(tree, prefix: str = "") -> dict:
@@ -68,6 +70,52 @@ def lanes_rank(mesh, out: str, K: int, lane_mode: str, seed: int) -> None:
     res = simulate_many_sharded(ragged_lanes(K), T.get_policy("panda_dispatch"),
                                 PRNGKey(seed), mesh, lane_mode=lane_mode, log_rows=8)
     _save(mesh, out, res)
+
+
+def contended_jobs(n: int, seed: int = 7, device="cpu"):
+    """``n`` jobs that all arrive at t = 0 and want 1, 2 or 4 cores each, far
+    more than ``contended_sites`` holds: the first round's FIFO admission
+    binds within the first few rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return T.make_jobs(job_id=np.arange(n), arrival=np.zeros(n), work=rng.uniform(50, 500, n),
+                       cores=rng.choice([1, 2, 4], n), memory=rng.uniform(1, 4, n),
+                       bytes_in=rng.uniform(1e6, 1e8, n), bytes_out=rng.uniform(1e6, 1e7, n),
+                       device=device)
+
+
+def contended_sites(device="cpu"):
+    return T.make_sites(cores=[12, 8], speed=[10.0, 8.0], memory=[64.0, 64.0],
+                        bw_in=[1e9, 5e8], bw_out=[1e9, 1e9], device=device)
+
+
+def job_parallel_case(kind: str, device="cpu"):
+    """``(jobs, sites, policy, kw)`` of a job-parallel run: ``"dense"``, 30
+    contended jobs under ``panda_dispatch`` with capacity dispatch;
+    ``"fused"``, the same jobs under ``data_locality`` with the fused
+    capacity assign at ``topk=1``; ``"padding"``, 4 of them (over 3 ranks
+    the last rank's block holds only padding rows).  Built on ``device``."""
+    jobs = contended_jobs(4 if kind == "padding" else 30, device=device)
+    kw = dict(max_rounds=400, log_rows=8)
+    if kind == "fused":
+        policy = T.with_fused_assign(T.get_policy("data_locality"),
+                                     make_fused_capacity_assign(jobs.cores))
+        kw["topk"] = 1
+    else:
+        policy = T.with_capacity_assign(T.get_policy("panda_dispatch"),
+                                        make_capacity_assign(jobs.cores))
+    return jobs, contended_sites(device), policy, kw
+
+
+def job_parallel_rank(mesh, out: str, kinds: tuple) -> None:
+    """Each case of ``kinds`` in turn on this rank's device, its result in
+    ``<out>/<kind>/``."""
+    for kind in kinds:
+        jobs, sites, policy, kw = job_parallel_case(kind, mesh_device(mesh))
+        res = simulate_distributed(jobs, sites, policy, PRNGKey(3), mesh, **kw)
+        (pathlib.Path(out) / kind).mkdir(exist_ok=True)
+        _save(mesh, pathlib.Path(out) / kind, res)
 
 
 def calibration_problem():
